@@ -1,0 +1,158 @@
+"""Build the port's CUDA kernels and bind them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``, no
+PyTorch headers, so a build takes seconds). All sources build in parallel
+— one ``nvcc`` process each, started together — at the first launch of any
+kernel, into ``_build/<hash>/`` next to this file, where ``<hash>`` covers
+every source and header under ``csrc/`` plus the compiler flags; a changed
+source therefore builds into a fresh directory. ``_build/`` is listed in
+``.gitignore``.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine that has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+SOURCES = ("paged_attention", "flash_attention", "chunk_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+
+# C argument kinds of the three entry points; ctypes needs them declared,
+# or it passes every pointer as a 32-bit int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "paged_decode_attention":
+        (_P,) * 6 + (_I,) * 7 + (_F, _P),
+    "segment_flash_attention":
+        (_P,) * 5 + (_I,) * 7 + (_F, _P),
+    "paged_chunk_attention":
+        (_P,) * 9 + (_I,) * 9 + (_F, _P),
+}
+ENTRY_LIBRARY = {
+    "paged_decode_attention": "paged_attention",
+    "segment_flash_attention": "flash_attention",
+    "paged_chunk_attention": "chunk_attention",
+}
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_hash()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def build_all() -> Path:
+    """Build every missing library, all ``nvcc`` runs in parallel. Each
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    goes to ``<name>.log`` beside its library. Raises on any failure."""
+    out_dir = build_dir()
+    missing = [n for n in SOURCES if not (out_dir / f"{n}.so").exists()]
+    if not missing:
+        return out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in missing:
+        tmp = out_dir / f"{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out_dir / f"{name}.so")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out_dir
+
+
+def build_logs() -> Dict[str, str]:
+    """The compiler output of the current build, by source name."""
+    out_dir = build_dir()
+    return {n: (out_dir / f"{n}.log").read_text() for n in SOURCES
+            if (out_dir / f"{n}.log").exists()}
+
+
+@functools.lru_cache(maxsize=None)
+def function(entry: str):
+    """The C entry point ``entry``, built and loaded on first use, with its
+    argument types declared and ``int`` (a ``cudaError_t``) as result."""
+    lib = ctypes.CDLL(str(build_all() / f"{ENTRY_LIBRARY[entry]}.so"))
+    fn = getattr(lib, entry)
+    fn.argtypes = list(SIGNATURES[entry])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, entry: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+
+
+def dtype_code(dtype) -> int:
+    """The kernels' element type code: 0 = float32, 1 = bfloat16."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise ValueError(f"CUDA attention kernels take float32 or bfloat16, "
+                         f"not {dtype}")
+    return codes[dtype]
+
+
+def check_operands(entry: str, head_dim: int, **tensors) -> None:
+    """Raise unless every operand is a contiguous tensor on one CUDA device
+    and the head dimension is one the kernels are built for."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{entry}: operands must share one CUDA device, "
+                         f"got {sorted(str(d) for d in devices)}")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{entry}: {name} must be contiguous")
+    if head_dim not in (64, 128):
+        raise ValueError(f"{entry}: head_dim {head_dim} not built "
+                         f"(64 or 128)")
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

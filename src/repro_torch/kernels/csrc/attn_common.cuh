@@ -1,0 +1,207 @@
+// Tile machinery shared by the three attention kernels of the port.
+//
+// Every kernel here computes, for a tile of up to kBQ query rows, an online
+// (flash-style) softmax over a sequence of key tiles of kBK keys each. The
+// kernels differ only in where a query row and a key row live in device
+// memory (a packed row, a block-table page, a chunk) and in which
+// (query, key) pairs are visible (a segment/causal mask, a length, a
+// window); both are passed in as small device lambdas.
+//
+// Layout of the work inside a block of kThreads = 128 threads:
+//   * the query tile and one key/value tile sit in shared memory as f32
+//     (bf16 inputs are widened with __bfloat162float on load);
+//   * warp w owns query rows [w*kRowsPerWarp, (w+1)*kRowsPerWarp);
+//   * for one row, lane t scores key t of the tile (a dot product over D
+//     read from shared memory: the query row is a broadcast, key rows are
+//     padded to D+1 floats so the 32 lanes hit 32 banks), the warp reduces
+//     the row max and sum with shuffles, and each lane accumulates D/32
+//     output dimensions of P·V in registers;
+//   * the running max m, sum l and accumulator stay in f32 registers for
+//     the whole key loop; the output is acc / max(l, 1e-30), so a row that
+//     saw no visible key is written as exact zeros.
+// Both products (QK^T and PV) are computed here in f32 FMAs on the CUDA
+// cores; tensor cores (wgmma) are left for a later version.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace attn {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = 8;
+constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per tile
+constexpr int kBK = 32;                     // keys per tile: one per lane
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Shared memory of one block; above 48 KB for D = 128, so it is dynamic
+// shared memory and the launcher raises the kernel's limit first.
+template <int D>
+struct Smem {
+  float q[kBQ][D];
+  float k[kBK][D + 1];
+  float v[kBK][D];
+  long long koff[kBK];  // element offset of each key row; -1 = no key
+};
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(Smem<D>);
+}
+
+template <int D>
+__device__ __forceinline__ Smem<D>& smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return *reinterpret_cast<Smem<D>*>(smem_raw);
+}
+
+// Online-softmax state of the kRowsPerWarp rows a warp owns.
+template <int D>
+struct RowState {
+  static constexpr int kDPL = D / 32;  // output dimensions per lane
+  float m[kRowsPerWarp];
+  float l[kRowsPerWarp];
+  float acc[kRowsPerWarp][kDPL];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      m[rr] = -CUDART_INF_F;
+      l[rr] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) acc[rr][i] = 0.f;
+    }
+  }
+};
+
+// Load the query tile. qoff(r) is the element offset of tile row r, or -1
+// for a row outside the tile (it is then zero-filled and never stored).
+// The caller synchronises before the tile is read.
+template <typename T, int D, class QOff>
+__device__ __forceinline__ void load_q(Smem<D>& sm, const T* __restrict__ q,
+                                       QOff qoff) {
+  for (int idx = threadIdx.x; idx < kBQ * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    const long long off = qoff(r);
+    sm.q[r][d] = off >= 0 ? to_f(q[off + d]) : 0.f;
+  }
+}
+
+// Load one key/value tile. koff(t) runs once per key (threads 0..kBK-1)
+// and returns the element offset of key t in k and v, or -1 for no key; it
+// may also record per-key metadata in shared memory. Synchronises before
+// (the previous tile may still be read) and after.
+template <typename T, int D, class KOff>
+__device__ __forceinline__ void load_kv(Smem<D>& sm, const T* __restrict__ k,
+                                        const T* __restrict__ v, KOff koff) {
+  __syncthreads();
+  if (threadIdx.x < kBK) sm.koff[threadIdx.x] = koff(threadIdx.x);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
+    const int t = idx / D, d = idx % D;
+    const long long off = sm.koff[t];
+    sm.k[t][d] = off >= 0 ? to_f(k[off + d]) : 0.f;
+    sm.v[t][d] = off >= 0 ? to_f(v[off + d]) : 0.f;
+  }
+  __syncthreads();
+}
+
+// Fold the key tile in shared memory into the warp's rows. visible(r, t)
+// says whether tile row r may attend tile key t.
+template <int D, class Visible>
+__device__ __forceinline__ void fold_tile(Smem<D>& sm, RowState<D>& st,
+                                          float scale, Visible visible) {
+  constexpr int kDPL = D / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // fully unrolled: the row state must stay in registers
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr;
+    float s = -CUDART_INF_F;
+    if (visible(r, lane)) {
+      float dot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) dot = fmaf(sm.q[r][d], sm.k[lane][d], dot);
+      s = dot * scale;
+    }
+    const float tile_max = warp_max(s);
+    if (tile_max == -CUDART_INF_F) continue;  // row sees nothing here
+    const float m_new = fmaxf(st.m[rr], tile_max);
+    const float p = expf(s - m_new);              // exp(-inf) = 0
+    const float corr = expf(st.m[rr] - m_new);    // first tile: 0
+    st.l[rr] = st.l[rr] * corr + warp_sum(p);
+    st.m[rr] = m_new;
+    float a[kDPL];
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) a[i] = st.acc[rr][i] * corr;
+#pragma unroll 8
+    for (int t = 0; t < kBK; ++t) {
+      const float pt = __shfl_sync(kFull, p, t);
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) a[i] = fmaf(pt, sm.v[t][lane + 32 * i], a[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) st.acc[rr][i] = a[i];
+  }
+}
+
+// Write the warp's rows: ooff(r) is the element offset of tile row r in
+// out, or -1 for a row outside the tile.
+template <typename T, int D, class OOff>
+__device__ __forceinline__ void store_rows(const RowState<D>& st,
+                                           T* __restrict__ out, OOff ooff) {
+  constexpr int kDPL = D / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const long long off = ooff(warp * kRowsPerWarp + rr);
+    if (off < 0) continue;
+    const float denom = fmaxf(st.l[rr], 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i)
+      out[off + lane + 32 * i] = from_f<T>(st.acc[rr][i] / denom);
+  }
+}
+
+// Raise the kernel's dynamic shared memory limit and launch it.
+template <class Kernel, class... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace attn

@@ -1,0 +1,288 @@
+"""Model-building primitives of the port: the dense-decoder subset of the
+JAX package's ``repro.models.layers``, as plain functions on tensors.
+
+Parameters are declared through a *plan* of ``ParamDef``s (same shapes and
+initialisers as the JAX package), and the apply functions take the same
+parameter dictionaries with the same leaf names, so weights convert
+between the two packages leaf for leaf (``repro_torch.models.weights``).
+
+Attention on the serving path goes through ``repro_torch.kernels.ops``: the
+hand-written CUDA kernels for tensors on a GPU, their plain versions —
+the JAX CPU path's arithmetic — for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (rows_to_segments,
+                                                 segments_to_rows)
+
+__all__ = [
+    "ParamDef", "stack_plan", "norm_plan", "attn_plan", "mlp_plan",
+    "embed_plan", "apply_norm", "rope_tables", "apply_rope", "attn_qkv",
+    "attn_out", "apply_mlp", "embed_tokens", "unembed", "packed_positions",
+    "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
+    "paged_cache_update", "paged_decode_attention", "paged_chunk_attention",
+    "decode_index", "carry_cache_meta",
+]
+
+
+# --------------------------------------------------------------------------
+# parameter plans
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"                             # normal | zeros | ones
+    std: float = 0.02
+
+
+def stack_plan(plan, n: int):
+    """The plan of ``n`` copies of ``plan`` stacked on a leading axis."""
+    if isinstance(plan, ParamDef):
+        return ParamDef((n,) + tuple(plan.shape), plan.init, plan.std)
+    return {k: stack_plan(v, n) for k, v in plan.items()}
+
+
+def norm_plan(d: int, kind: str):
+    if kind == "rmsnorm":
+        return {"scale": ParamDef((d,), "ones")}
+    if kind == "layernorm":
+        return {"scale": ParamDef((d,), "ones"),
+                "bias": ParamDef((d,), "zeros")}
+    if kind == "layernorm_nonparam":
+        return {}
+    raise ValueError(kind)
+
+
+def attn_plan(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    p = {
+        "wq": ParamDef((d, h, hd)),
+        "wk": ParamDef((d, kv, hd)),
+        "wv": ParamDef((d, kv, hd)),
+        "wo": ParamDef((h, hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ParamDef((h, hd), "zeros")
+        p["bk"] = ParamDef((kv, hd), "zeros")
+        p["bv"] = ParamDef((kv, hd), "zeros")
+    return p
+
+
+def mlp_plan(cfg, d_ff: Optional[int] = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wi_gate": ParamDef((d, ff)),
+        "wi_up": ParamDef((d, ff)),
+        "wo": ParamDef((ff, d)),
+    }
+
+
+def embed_plan(cfg) -> dict:
+    p = {"embedding": ParamDef((cfg.padded_vocab, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+    return p
+
+
+# --------------------------------------------------------------------------
+# norms, rotary embeddings, projections
+# --------------------------------------------------------------------------
+def apply_norm(p, x, kind: str, eps: float = 1e-5):
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    # the JAX package's float32 numpy formula, uploaded once per device
+    half = d // 2
+    freq = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / d))
+    return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+
+
+def rope_tables(positions, d: int, theta: float):
+    """(cos, sin) of shape positions.shape + (1, d // 2), float32 — built
+    once per dispatch and shared by every layer's q and k."""
+    freq = _inv_freq(d, float(theta), positions.device)
+    ang = positions[..., None].float() * freq
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def _rotate(x, cos, sin):
+    half = cos.shape[-1]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2, x[..., 2 * half:]], dim=-1).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """Half-split rotary embedding. x: (..., S, H, D); positions:
+    broadcastable to (..., S)."""
+    return _rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def attn_qkv(p, cfg, x, rope):
+    """Project + rotate. x: (B, S, d) -> q (B, S, H, hd), k, v
+    (B, S, KV, hd); ``rope`` is ``rope_tables`` of the positions."""
+    b, s, d = x.shape
+
+    def proj(w):
+        return (x.reshape(b * s, d) @ w.reshape(d, -1).to(x.dtype)).reshape(
+            b, s, w.shape[1], w.shape[2])
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if not cfg.learned_pos_emb:
+        q = _rotate(q, *rope)
+        k = _rotate(k, *rope)
+    return q, k, v
+
+
+def attn_out(p, x_dtype, attn):
+    """attn: (..., H, hd) -> (..., d_model)."""
+    w = p["wo"]
+    lead = attn.shape[:-2]
+    y = attn.reshape(-1, w.shape[0] * w.shape[1]) @ w.reshape(
+        -1, w.shape[2]).to(x_dtype)
+    return y.reshape(*lead, w.shape[2])
+
+
+def apply_mlp(p, x):
+    g = x @ p["wi_gate"].to(x.dtype)
+    u = x @ p["wi_up"].to(x.dtype)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["wo"].to(x.dtype)
+
+
+def embed_tokens(p, tokens, dtype):
+    return p["embedding"][tokens].to(dtype)
+
+
+def unembed(p, x, cfg):
+    """Logits over the padded vocab; pad rows masked to -1e9."""
+    w = p.get("lm_head")
+    if w is None:
+        logits = x @ p["embedding"].to(x.dtype).T
+    else:
+        logits = x @ w.to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# packed ragged prefill
+# --------------------------------------------------------------------------
+def packed_positions(seg_ids, seg_starts):
+    """Within-segment position of every token of a packed row; padding
+    tokens (id == S) get position 0."""
+    t = torch.arange(seg_ids.shape[0], device=seg_ids.device,
+                     dtype=seg_ids.dtype)
+    s = seg_starts.shape[0]
+    start = seg_starts[torch.clamp(seg_ids, max=s - 1)]
+    return torch.where(seg_ids < s, t - start, torch.zeros_like(t))
+
+
+def packed_prefill_attention(q, k, v, seg_ids, positions, seg_starts,
+                             seg_lens, *, row_len: int, window: int = 0):
+    """Segment-blocked causal self-attention over a packed token row.
+    q: (1, T, H, D); k/v: (1, T, KV, D). Token i attends token j iff
+    their segment ids are equal and j <= i. On a GPU every packed length
+    goes through the segment flash kernel."""
+    return ops.segment_flash_attention(q, k, v, seg_ids, positions,
+                                       seg_starts, seg_lens,
+                                       row_len=row_len, window=window)
+
+
+# --------------------------------------------------------------------------
+# paged KV cache
+# --------------------------------------------------------------------------
+def paged_cache_update(buf, new, pages, slots):
+    """Write ``new`` (B, 1, ...) IN PLACE into the paged pool ``buf``
+    (P, page_size, ...) at physical page ``pages`` (B,) and in-page offset
+    ``slots`` (B,). Live rows own disjoint pages; vacant rows all target
+    the never-read null page 0, where duplicate writes are harmless."""
+    buf[pages.long(), slots.long()] = new[:, 0].to(buf.dtype)
+    return buf
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, valid_len):
+    """Single-token attention over a block-table paged cache. q: (B, H, D);
+    pages: (P, page_size, KV, D); block_tables: (B, max_pages) int32;
+    valid_len: (B,) int32 lengths (0 = zeros)."""
+    return ops.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                      valid_len)
+
+
+def paged_chunk_attention(q_rows, k_pages, v_pages, k_rows, v_rows,
+                          block_tables, hist_lens, seg_lens):
+    """Incremental chunk attention: R new tokens per segment attend the
+    segment's paged history plus the chunk's own K/V causally. Rows
+    r >= seg_lens[s] are padding (callers discard them)."""
+    return ops.paged_chunk_attention(q_rows, k_pages, v_pages, k_rows,
+                                     v_rows, block_tables, hist_lens,
+                                     seg_lens)
+
+
+def decode_index(pos, cache, key):
+    """Per-row write/read machinery of one decode step over a paged cache
+    (the port has no ring slots yet). pos: (B,) int32 positions; ``key``:
+    the K leaf the layout is read from. Returns ``(update, attend,
+    valid)``: ``update(buf, new)`` writes the step's (B, 1, ...) entries in
+    place at each row's (page, offset); ``attend(q, kc, vc, window=0)``
+    runs paged decode attention; ``valid`` is the (B,) lengths vector."""
+    if "block_tables" not in cache:
+        raise NotImplementedError("ring (non-paged) slot caches")
+    tables = cache["block_tables"]
+    page_size = cache[key].shape[2]
+    max_pages = tables.shape[1]
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    # past-capacity clamp is belt-and-braces: the engine caps every slot's
+    # budget at its page capacity (vacant rows sit at pos 0, null page)
+    page = tables[bidx, torch.clamp(pos // page_size, max=max_pages - 1)]
+    slot = pos % page_size
+    valid = torch.clamp(pos + 1, max=max_pages * page_size).to(torch.int32)
+
+    def update(buf, new):
+        return paged_cache_update(buf, new, page, slot)
+
+    def attend(q, kc, vc, window: int = 0):
+        if window:
+            # a paged slot keeps its full history (pages never evict), so
+            # a window would need page-level masking that is not written
+            raise NotImplementedError(
+                "sliding-window attention over a paged cache")
+        return paged_decode_attention(q, kc, vc, tables, valid)
+
+    return update, attend, valid
+
+
+def carry_cache_meta(out, cache):
+    """Carry the leaves a decode step only reads (``block_tables``) from
+    the old cache into the new one."""
+    if "block_tables" in cache:
+        out["block_tables"] = cache["block_tables"]
+    return out

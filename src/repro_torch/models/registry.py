@@ -1,0 +1,71 @@
+"""Model API of the port: ``build_model(cfg)`` returns a ``ModelAPI`` whose
+fields carry the JAX package's names, so the serving engine never branches
+on architecture:
+
+  prefill_packed(params, packed, row_len)        -> (seg_logits, packed cache)
+  prefill_chunk(params, packed, cache, row_len)  -> (seg_logits, argmax, cache)
+  decode_step(params, token (B,), cache)         -> (logits (B, V), cache)
+
+Only the dense family (no experts) over a paged cache is ported so far;
+``forward``/``prefill`` and ring caches come with the padded-prefill and
+ring-slot kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer, weights
+
+
+@dataclasses.dataclass
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    plan: Any
+    init: Callable
+    # packed ragged prefill: a whole admission batch concatenated into one
+    # (1, total_tokens) row; per-SEGMENT last logits plus a packed cache
+    # whose per-token leaves the engine scatters straight into pages
+    prefill_packed: Callable
+    decode_step: Callable
+    paged_keys: tuple = ()
+    init_paged_cache: Optional[Callable] = None
+    # incremental chunk attention over K/V resident in the page pool
+    # (chunked-prefill continuations)
+    prefill_chunk: Optional[Callable] = None
+
+
+def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
+    """The API of ``cfg`` on ``device`` (default: the CUDA device; raises
+    where there is none unless ``device="cpu"`` is passed)."""
+    if cfg.family != "dense" or cfg.num_experts:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    dev = resolve_device(device)
+    mod = transformer
+
+    def init(generator: torch.Generator, dtype=torch.float32):
+        return weights.init_params(cfg, generator, dev, dtype)
+
+    def init_paged(batch, num_pages, page_size, max_pages, dtype=None):
+        return mod.init_paged_cache(cfg, batch, num_pages, page_size,
+                                    max_pages, dtype, device=dev)
+
+    return ModelAPI(
+        cfg=cfg,
+        device=dev,
+        plan=mod.plan(cfg),
+        init=init,
+        prefill_packed=lambda params, packed, row_len: mod.prefill_packed(
+            params, cfg, packed, row_len),
+        decode_step=lambda params, token, cache: mod.decode_step(
+            params, cfg, token, cache),
+        paged_keys=tuple(mod.PAGED_KEYS),
+        init_paged_cache=init_paged,
+        prefill_chunk=lambda params, packed, cache, row_len:
+            mod.prefill_chunk(params, cfg, packed, cache, row_len),
+    )

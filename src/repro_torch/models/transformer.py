@@ -1,0 +1,195 @@
+"""Dense decoder-only transformer over a paged KV cache (olmo-1b,
+qwen2-0.5b, ...): the serving entry points of the JAX package's
+``repro.models.transformer`` for the dense family without experts.
+
+Parameters are the JAX package's dictionary layout: ``embed``, ``layers``
+(every leaf stacked on a leading layer axis) and ``final_norm``. Layers run
+as a Python loop over that axis (the JAX package scans them).
+
+Unlike the JAX package, which threads the cache through functionally,
+``decode_step`` writes the step's K/V into the page pool IN PLACE (the
+returned cache holds the same pool tensors). The dead-write semantics are
+the JAX package's: every row writes, and rows the engine did not step
+land at a not-yet-valid position of their own pages or on the null page.
+``prefill_packed`` and ``prefill_chunk`` read the pool only; the engine
+scatters the K/V they return.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.device import dtype_of
+from repro_torch.models import layers as L
+
+# cache leaves that live in the shared page pool
+PAGED_KEYS = ("k", "v")
+
+
+def layer_plan(cfg) -> dict:
+    if cfg.num_experts:
+        raise NotImplementedError("mixture-of-experts layers")
+    return {
+        "ln1": L.norm_plan(cfg.d_model, cfg.norm),
+        "attn": L.attn_plan(cfg),
+        "ln2": L.norm_plan(cfg.d_model, cfg.norm),
+        "mlp": L.mlp_plan(cfg),
+    }
+
+
+def plan(cfg) -> dict:
+    return {
+        "embed": L.embed_plan(cfg),
+        "layers": L.stack_plan(layer_plan(cfg), cfg.num_layers),
+        "final_norm": L.norm_plan(cfg.d_model, cfg.norm),
+    }
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s parameters: a view into every stacked leaf."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _block(cfg, lp, x, rope, attention):
+    """One pre-norm block; ``attention(q, k, v)`` mixes the sequence."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm)
+    q, k, v = L.attn_qkv(lp["attn"], cfg, h, rope)
+    x1 = x + L.attn_out(lp["attn"], x.dtype, attention(q, k, v))
+    h2 = L.apply_norm(lp["ln2"], x1, cfg.norm)
+    return x1 + L.apply_mlp(lp["mlp"], h2), k, v
+
+
+# --------------------------------------------------------------------------
+# paged KV-cache serving
+# --------------------------------------------------------------------------
+def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
+                     max_pages: int, dtype=None, device="cpu"):
+    """Block-table paged layout: K/V in a shared (num_pages, page_size)
+    pool per layer; each row maps logical pages to physical ones through
+    its ``block_tables`` row (see ``repro_torch.serving.kv_cache``)."""
+    dtype = dtype_of(dtype or cfg.dtype)
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "block_tables": torch.zeros((batch, max_pages), dtype=torch.int32,
+                                    device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def prefill_packed(params, cfg, packed, max_seg_len: int):
+    """Packed ragged prefill: a whole admission batch of prompts
+    concatenated into ONE (1, T) row. ``packed`` holds ``tokens`` (1, T),
+    ``seg_ids`` (T,) non-decreasing int32 (padding = S), ``seg_starts`` /
+    ``seg_lens`` (S,). Returns (per-segment last-token logits (S, V), a
+    packed cache: per-token K/V (layers, T, KV, D) in packed order, and
+    ``pos`` = seg_lens)."""
+    dtype = dtype_of(cfg.dtype)
+    tokens = packed["tokens"]
+    seg_ids, seg_starts = packed["seg_ids"], packed["seg_starts"]
+    seg_lens = packed["seg_lens"]
+    t = tokens.shape[1]
+    x = L.embed_tokens(params["embed"], tokens, dtype)
+    pos = L.packed_positions(seg_ids, seg_starts)
+    rope = L.rope_tables(pos[None, :], cfg.resolved_head_dim, cfg.rope_theta)
+
+    def attention(q, k, v):
+        return L.packed_prefill_attention(
+            q, k, v, seg_ids, pos, seg_starts, seg_lens, row_len=max_seg_len,
+            window=cfg.sliding_window)
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, k, v = _block(cfg, _layer(params["layers"], i), x, rope, attention)
+        ks.append(k[0])
+        vs.append(v[0])
+    last = torch.clamp(seg_starts + seg_lens - 1, 0, t - 1)
+    xl = L.apply_norm(params["final_norm"], x[0, last], cfg.norm)
+    logits = L.unembed(params["embed"], xl, cfg)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                    "pos": seg_lens.to(torch.int32)}
+
+
+def prefill_chunk(params, cfg, packed, cache, max_seg_len: int):
+    """Incremental chunked prefill: a packed batch of NEW token segments
+    attends the K/V their slots already hold in the page pool (through
+    each slot's block-table row) plus the chunk's earlier tokens causally.
+
+    ``packed`` holds the ``prefill_packed`` leaves plus ``seg_slots`` (S,)
+    (the cache row each segment reads; padding = n_rows, clamped) and
+    ``hist_lens`` (S,) (tokens already resident; padding 0). ``cache`` is
+    the engine's paged slot cache, READ ONLY. Returns (per-segment last
+    logits (S, V), per-token argmax (T,), packed cache {k/v: (layers, T,
+    KV, D), pos: hist + seg_lens})."""
+    dtype = dtype_of(cfg.dtype)
+    tokens = packed["tokens"]
+    seg_ids, seg_starts = packed["seg_ids"], packed["seg_starts"]
+    seg_lens = packed["seg_lens"]
+    seg_slots = packed["seg_slots"]
+    hist = packed["hist_lens"].to(torch.int32)
+    t = tokens.shape[1]
+    s = seg_starts.shape[0]
+    x = L.embed_tokens(params["embed"], tokens, dtype)
+    local = L.packed_positions(seg_ids, seg_starts)
+    hist_t = torch.where(seg_ids < s, hist[torch.clamp(seg_ids, max=s - 1)],
+                         torch.zeros_like(seg_ids))
+    rope = L.rope_tables((local + hist_t)[None, :], cfg.resolved_head_dim,
+                         cfg.rope_theta)
+    n_rows = cache["block_tables"].shape[0]
+    tables = cache["block_tables"][torch.clamp(seg_slots, 0, n_rows - 1)]
+
+    def attention(i, q, k, v):
+        qr = L.segments_to_rows(q[0], seg_starts, seg_lens, max_seg_len)
+        kr = L.segments_to_rows(k[0], seg_starts, seg_lens, max_seg_len)
+        vr = L.segments_to_rows(v[0], seg_starts, seg_lens, max_seg_len)
+        ar = L.paged_chunk_attention(qr, cache["k"][i], cache["v"][i], kr,
+                                     vr, tables, hist, seg_lens)
+        return L.rows_to_segments(ar, seg_ids, local)[None]
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, k, v = _block(cfg, _layer(params["layers"], i), x, rope,
+                         functools.partial(attention, i))
+        ks.append(k[0])
+        vs.append(v[0])
+    xl = L.apply_norm(params["final_norm"], x[0], cfg.norm)
+    logits_all = L.unembed(params["embed"], xl, cfg)             # (T, V)
+    tok_argmax = torch.argmax(logits_all, -1).to(torch.int32)
+    last = torch.clamp(seg_starts + seg_lens - 1, 0, t - 1)
+    return logits_all[last], tok_argmax, {
+        "k": torch.stack(ks), "v": torch.stack(vs),
+        "pos": (hist + seg_lens).to(torch.int32)}
+
+
+def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
+    """token: (B,) int; one autoregressive step against the paged cache.
+    Each row writes its new K/V at (block_tables[b, pos // page_size],
+    pos % page_size) — in place in ``cache["k"]``/``cache["v"]`` — and
+    attends its first pos + 1 tokens. Returns (logits (B, V), cache with
+    the same pools and ``pos`` + 1)."""
+    dtype = dtype_of(cfg.dtype)
+    x = L.embed_tokens(params["embed"], token, dtype)             # (B, d)
+    pos = cache["pos"].to(torch.int32)
+    update, attend, _ = L.decode_index(pos, cache, "k")
+    rope = L.rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+
+    def attention(i, q, k, v):
+        kc, vc = cache["k"][i], cache["v"][i]
+        update(kc, k)
+        update(vc, v)
+        return attend(q[:, 0], kc, vc, window=cfg.sliding_window)[:, None]
+
+    h = x[:, None, :]
+    for i in range(cfg.num_layers):
+        h, _, _ = _block(cfg, _layer(params["layers"], i), h, rope,
+                         functools.partial(attention, i))
+    h = L.apply_norm(params["final_norm"], h[:, 0], cfg.norm)
+    logits = L.unembed(params["embed"], h, cfg)
+    return logits, L.carry_cache_meta(
+        {"k": cache["k"], "v": cache["v"], "pos": pos + 1}, cache)

@@ -1,0 +1,665 @@
+"""Paged slot engine of the port — the data plane under the step planner.
+
+The paged-slot subset of the JAX package's ``InferenceEngine`` that
+``StepPlanner``/``TickServer`` drive, with the same method names, the same
+page bookkeeping (``repro_torch.serving.kv_cache``) and the same
+``EngineStats``:
+
+* ``insert_many`` admits a whole admission batch in ONE packed ragged
+  prefill (prompts concatenated into one row, bucketed by
+  ``_packed_bucket``) and scatters each segment's K/V straight into its
+  slot's pages;
+* ``chunk_append`` advances every mid-prefill slot by one chunk in ONE
+  incremental dispatch: only the new tokens run, attending the K/V their
+  slot already holds in the page pool;
+* ``step`` decodes one token for the stepped slots in ONE masked dispatch;
+* ``execute(plan)`` runs one ``StepPlan`` in at most these three
+  dispatches per tick.
+
+What differs from the JAX engine: PyTorch runs eagerly, so there are no
+per-bucket executables to compile or count; the page pool and the block
+table are updated IN PLACE on the device (the JAX engine donates and
+rebuilds them); and the packed metadata (segment ids, lengths,
+destinations, table rows) is built on the host in numpy and uploaded
+once per dispatch as one int32 buffer — nothing on the serving path reads
+a device value back except the one tick-end read of the decoded tokens.
+Sampled slot steps, the prefix cache, speculative decoding, telemetry and
+ring slots are not ported yet: those attributes stay ``None``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import ModelAPI, build_model
+from repro_torch.serving.faults import EngineFault, TransientFault
+from repro_torch.serving.kv_cache import NULL_PAGE, OutOfPages, PagedKVCache
+from repro_torch.serving.plan import StepResult
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _packed_bucket(n: int) -> int:
+    """Packed-token bucket: smallest of {2^k, 3·2^(k-1)} >= n (caps the
+    padding of a packed prefill row at 33%)."""
+    p = _pow2_at_least(n)
+    half = 3 * p // 4
+    return half if half >= n else p
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """The JAX engine's counters, same names and meanings; the prefix-
+    cache and speculative counters stay 0 until those features land."""
+    prefills: int = 0          # prefill DISPATCHES (a packed one counts 1)
+    packed_prefills: int = 0   # of which packed multi-segment dispatches
+    chunk_prefills: int = 0    # chunk-continuation dispatches
+    prefill_tokens: int = 0    # prompt tokens prefilled (real, unpadded)
+    decode_steps: int = 0
+    tokens_out: int = 0
+    inserts: int = 0
+    grows: int = 0             # block-table extensions (lazy reservation)
+    engine_retries: int = 0    # transient dispatch faults absorbed
+    engine_resets: int = 0     # full resets (retries exhausted / stuck)
+    prefix_hits: int = 0
+    prefix_hit_tokens: int = 0
+    cow_copies: int = 0
+    forced_catchup_tokens: int = 0
+    dedup_pages: int = 0
+    incr_chunks: int = 0       # continuations computed incrementally
+    draft_tokens: int = 0
+    accepted_tokens: int = 0
+    spec_rounds: int = 0
+    rollbacks: int = 0
+
+
+def _upload(device, **arrays) -> Dict[str, torch.Tensor]:
+    """Upload host int32 arrays in ONE copy and return device views of
+    the same names and shapes."""
+    flat = [np.ascontiguousarray(a, np.int32).reshape(-1)
+            for a in arrays.values()]
+    buf = torch.from_numpy(np.concatenate(flat)).to(device)
+    out, off = {}, 0
+    for (name, a), f in zip(arrays.items(), flat):
+        out[name] = buf[off:off + f.size].view(np.shape(a))
+        off += f.size
+    return out
+
+
+class InferenceEngine:
+    def __init__(self, api: ModelAPI, params, *, cache_len: int = 256):
+        self.api = api
+        self.cfg = api.cfg
+        self.device = api.device
+        self.params = params
+        self.cache_len = cache_len
+        self.stats = EngineStats()
+        # fault tolerance (repro_torch.serving.faults): an injector armed
+        # at execute()'s dispatch site and in the page allocator;
+        # transient dispatch faults retry up to retry_limit times with
+        # exponential backoff before escalating to EngineFault
+        self.fault_injector = None
+        self.retry_limit = 2
+        self.retry_backoff_s = 0.0
+        # features of the JAX engine the port does not serve yet; the
+        # planner sees them absent
+        self.telemetry = None
+        self.prefix_cache = None
+        self._draft = None
+
+        # slot state (populated by init_slots)
+        self.paged = False
+        self._kv: Optional[PagedKVCache] = None
+        self._slot_cache: Optional[Dict[str, torch.Tensor]] = None
+        self._slot_free: List[int] = []
+        self._slot_active: List[bool] = []
+        self._slot_budget: List[Optional[int]] = []
+        self._slot_generated: List[int] = []
+        self._slot_pos: List[int] = []      # host mirror of cache["pos"]
+        self._active_mask: Optional[np.ndarray] = None
+        self._last_tok: Optional[torch.Tensor] = None
+
+    # ------------------------------------------------------------------
+    @property
+    def n_slots(self) -> int:
+        return 0 if self._slot_cache is None else len(self._slot_active)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._slot_free)
+
+    @property
+    def free_pages(self) -> int:
+        return self._kv.free_pages if self.paged else 0
+
+    @property
+    def total_pages(self) -> int:
+        return self._kv.allocator.num_pages if self.paged else 0
+
+    def init_slots(self, n_slots: int, cache_len: Optional[int] = None, *,
+                   paged: bool = True, page_size: int = 8,
+                   total_pages: Optional[int] = None, sampling=None):
+        """Allocate ``n_slots`` slots backed by a block-table page pool of
+        ``total_pages`` usable pages (default ``n_slots * cache_len /
+        page_size``). Only paged, greedy slots are ported."""
+        if not paged or not self.api.paged_keys:
+            raise NotImplementedError("ring (non-paged) slots")
+        if getattr(self.cfg, "sliding_window", 0):
+            raise NotImplementedError(
+                "sliding-window configs need ring slots")
+        if sampling is not None:
+            raise NotImplementedError("sampled slot steps")
+        self.slot_len = cache_len or self.cache_len
+        if self.slot_len % page_size:
+            raise ValueError(
+                f"cache_len {self.slot_len} must be a multiple of "
+                f"page_size {page_size}")
+        self.paged = True
+        self.page_size = page_size
+        self.max_pages = self.slot_len // page_size
+        usable = total_pages or n_slots * self.max_pages
+        self._kv = PagedKVCache(n_slots, page_size, self.max_pages,
+                                num_pages=usable)
+        self._kv.allocator.fault_injector = self.fault_injector
+        # +1 physical page: id 0 is the reserved null page
+        self._slot_cache = self.api.init_paged_cache(
+            n_slots, usable + 1, page_size, self.max_pages)
+        # decode dispatches merge per-row leaves through the step mask;
+        # page-indexed leaves and the table pass through (dead writes land
+        # on the null page or at a not-yet-valid position)
+        self._step_skip = frozenset(self.api.paged_keys) | {"block_tables"}
+        self._slot_free = list(range(n_slots))
+        self._slot_active = [False] * n_slots
+        self._slot_budget = [None] * n_slots
+        self._slot_generated = [0] * n_slots
+        self._slot_pos = [0] * n_slots
+        self._active_mask = np.zeros((n_slots,), bool)
+        self._last_tok = torch.zeros((n_slots,), dtype=torch.int64,
+                                     device=self.device)
+        return self
+
+    # ------------------------------------------------ packed batch insert
+    def _pack_prompts(self, batches: List[Dict[str, Any]],
+                      lens: List[int]) -> Dict[str, np.ndarray]:
+        """Concatenate prompts into one packed row (host numpy): total
+        tokens bucket by ``_packed_bucket``, the segment axis by the next
+        power of two of the real count; padding tokens carry segment id S
+        and empty segments length 0."""
+        s_max = max(1, _pow2_at_least(len(batches)))
+        t = max(1, _packed_bucket(sum(lens)))
+        tokens = np.zeros((1, t), np.int32)
+        seg_ids = np.full((t,), s_max, np.int32)
+        starts = np.zeros((s_max,), np.int32)
+        seg_lens = np.zeros((s_max,), np.int32)
+        off = 0
+        for i, (b, ln) in enumerate(zip(batches, lens)):
+            tokens[0, off:off + ln] = np.asarray(b["tokens"])[0]
+            seg_ids[off:off + ln] = i
+            starts[i] = off
+            seg_lens[i] = ln
+            off += ln
+        return {"tokens": tokens, "seg_ids": seg_ids, "seg_starts": starts,
+                "seg_lens": seg_lens}
+
+    def insert_many(self, batches: List[Dict[str, Any]],
+                    n_tokens: Optional[List[Optional[int]]] = None,
+                    reserve_tokens: Optional[List[Optional[int]]] = None
+                    ) -> List[int]:
+        """Admit a whole admission batch in ONE packed prefill dispatch and
+        scatter every segment's K/V into its slot's pages. Page allocation
+        is all-or-nothing: on ``OutOfPages`` every page already claimed
+        returns and no slot is touched. ``reserve_tokens[i]`` (>= prompt
+        i's length) overrides request i's page horizon (lazy
+        reservation)."""
+        n = len(batches)
+        if n == 0:
+            return []
+        if n > len(self._slot_free):
+            raise RuntimeError(
+                f"insert_many of {n} requests, {len(self._slot_free)} "
+                f"free slots")
+        n_tokens = n_tokens or [None] * n
+        reserve_tokens = reserve_tokens or [None] * n
+        lens = []
+        for b in batches:
+            assert b["tokens"].shape[0] == 1, \
+                "insert_many packs single-request batches"
+            lens.append(int(b["tokens"].shape[1]))
+        budgets: List[int] = []
+        for s, nt in zip(lens, n_tokens):
+            if s >= self.slot_len:
+                raise ValueError(
+                    f"prompt of {s} tokens leaves no decode room in a "
+                    f"{self.slot_len}-token paged slot (pages are never "
+                    f"evicted; use a longer cache_len)")
+            room = self.slot_len - s
+            budgets.append(room if nt is None else max(1, min(int(nt), room)))
+        slots = self._slot_free[:n]
+        claimed: List[int] = []
+        try:
+            for slot, s, budget, rsv in zip(slots, lens, budgets,
+                                            reserve_tokens):
+                horizon = s + budget if rsv is None else max(
+                    s, min(int(rsv), self.slot_len))
+                self._kv.alloc(slot, horizon)
+                claimed.append(slot)
+        except OutOfPages:
+            for slot in claimed:
+                self._kv.free(slot)
+            raise
+        del self._slot_free[:n]
+
+        packed = self._pack_prompts(batches, lens)
+        dest = self._segment_dest(slots, lens)
+        dev = _upload(self.device, **packed, **dest)
+        row_len = min(self.slot_len, _pow2_at_least(max(lens)))
+        logits, pcache = self.api.prefill_packed(self.params, dev, row_len)
+        self.stats.prefills += 1
+        self.stats.packed_prefills += 1
+        self.stats.prefill_tokens += sum(lens)
+        _write_segments(self._slot_cache, self._last_tok, pcache, logits,
+                        dev, n, sum(lens), self.api.paged_keys)
+        for slot, s, budget in zip(slots, lens, budgets):
+            self._slot_active[slot] = True
+            self._slot_budget[slot] = budget
+            self._slot_generated[slot] = 0
+            self._slot_pos[slot] = s
+            self._active_mask[slot] = True
+        self.stats.inserts += n
+        return slots
+
+    def _segment_dest(self, slots: List[int], lens: List[int]):
+        """Host destination indices of the packed-segment scatter: per
+        token (physical page, in-page offset) from the pages just
+        allocated; per segment the slot id (padding: ``n_slots``) and the
+        slot's table row. Padding tokens target the null page."""
+        return self._segment_dest_at(slots, lens, [0] * len(slots))
+
+    def _pack_chunks(self, batches: List[Dict[str, Any]], lens: List[int],
+                     hists: List[int]):
+        """Pack continuation chunks: the packed-prompt row plus
+        ``hist_lens`` (tokens already resident; padding 0). The block-table
+        row each segment reads its history through is ``seg_slots`` of
+        ``_segment_dest_at`` (padding ``n_slots``, clamped in the model)."""
+        packed = self._pack_prompts(batches, lens)
+        s_max = packed["seg_starts"].shape[0]
+        hist = np.zeros((s_max,), np.int32)
+        hist[:len(hists)] = hists
+        packed["hist_lens"] = hist
+        return packed
+
+    def _segment_dest_at(self, slots: List[int], lens: List[int],
+                         offs: List[int]):
+        """Destinations for segments whose tokens land at positions
+        ``offs[i] .. offs[i] + lens[i]`` of their slot; the destination
+        pages were reserved before the dispatch (admission horizon or an
+        executed grow). Table rows are the slots' current pages."""
+        t = max(1, _packed_bucket(sum(lens)))
+        s_max = max(1, _pow2_at_least(len(slots)))
+        seg_slots = np.full((s_max,), self.n_slots, np.int32)
+        seg_slots[:len(slots)] = slots
+        dest0 = np.zeros((t,), np.int32)             # null page
+        dest1 = np.zeros((t,), np.int32)
+        tables = np.full((s_max, self.max_pages), NULL_PAGE, np.int32)
+        off = 0
+        for i, (slot, ln, h) in enumerate(zip(slots, lens, offs)):
+            pages = np.asarray(self._kv.pages(slot), np.int32)
+            p = np.arange(h, h + ln)
+            dest0[off:off + ln] = pages[p // self.page_size]
+            dest1[off:off + ln] = p % self.page_size
+            tables[i, :len(pages)] = pages
+            off += ln
+        return {"dest0": dest0, "dest1": dest1, "seg_slots": seg_slots,
+                "table_rows": tables}
+
+    def free(self, slot: int) -> None:
+        """Release a slot: its pages return to the pool, its table row
+        parks on the null page and its position pins to 0, so its dead
+        writes land in the null page and its reads are masked."""
+        if not self._slot_active[slot]:
+            return
+        self._slot_active[slot] = False
+        self._slot_free.append(slot)
+        self._slot_pos[slot] = 0
+        self._kv.free(slot)
+        _clear_slot(self._slot_cache, slot)
+        self._active_mask[slot] = False
+
+    # ---------------------------------------------------- capabilities
+    def prefix_cache_capable(self) -> bool:
+        """Pages + ``pos`` are a row's entire sequence state."""
+        if not self.paged or self._slot_cache is None:
+            return False
+        extra = (set(self._slot_cache.keys())
+                 - set(self.api.paged_keys) - {"block_tables", "pos"})
+        return not extra
+
+    def chunk_capable(self) -> bool:
+        """Continuations run incrementally: the family ships
+        ``prefill_chunk`` and has no experts."""
+        if not self.prefix_cache_capable():
+            return False
+        if self.api.prefill_chunk is None:
+            return False
+        return not getattr(self.cfg, "num_experts", 0)
+
+    # ------------------------------------------------ page-view accessors
+    def slot_pos(self, slot: int) -> int:
+        """Tokens written to the slot so far (host mirror of pos)."""
+        return self._slot_pos[slot]
+
+    def reserved_tokens(self, slot: int) -> int:
+        """Token horizon the slot's pages currently cover."""
+        return self._kv.length(slot)
+
+    def slot_page_count(self, slot: int) -> int:
+        return len(self._kv.pages(slot))
+
+    def kv_pages_needed(self, tokens: int) -> int:
+        return self._kv.pages_needed(max(1, int(tokens)))
+
+    # -------------------------------------------- lazy page reservation
+    def grow_slot(self, slot: int, upto_tokens: int) -> int:
+        """Extend a resident slot's page horizon to ``upto_tokens``. New
+        pages push the slot's table row to the device (only when pages
+        were added). Raises ``OutOfPages`` with the slot untouched.
+        Returns the number of pages added."""
+        have = self._kv.length(slot)
+        delta = min(int(upto_tokens), self.slot_len) - have
+        if delta <= 0:
+            return 0
+        fresh = self._kv.append(slot, delta)
+        if fresh:
+            _set_table_row(self._slot_cache, slot,
+                           np.asarray(self._kv.table_row(slot), np.int32))
+            self.stats.grows += 1
+        return len(fresh)
+
+    def ensure_decode_room(self, slots) -> None:
+        """Grow every slot to cover its next decode write."""
+        for slot in slots:
+            self.grow_slot(slot, self._slot_pos[slot] + 1)
+
+    # ------------------------------------------------- chunked prefill
+    def chunk_append(self, chunks: List[Tuple[int, Dict[str, Any], bool]]
+                     ) -> None:
+        """Advance every mid-prefill slot by one chunk in ONE incremental
+        dispatch. ``chunks`` is [(slot, prefix batch (1, done + chunk),
+        final)]; only the NEW tokens pack, and they attend the K/V the
+        slot already holds in its pages plus the chunk causally — each new
+        position runs the attention a decode step would. ``final``
+        segments leave the pending token = argmax of the prompt's last
+        logits, exactly what a one-shot admission seeds."""
+        if not chunks:
+            return
+        if not self.chunk_capable():
+            raise NotImplementedError("prefix-recompute continuations")
+        lens = []
+        for slot, b, _ in chunks:
+            ln = int(b["tokens"].shape[1])
+            assert self._slot_active[slot], f"chunk into vacant slot {slot}"
+            assert ln <= self.reserved_tokens(slot), \
+                f"slot {slot}: chunk outruns its reserved pages"
+            assert ln > self._slot_pos[slot], \
+                f"slot {slot}: chunk makes no progress"
+            lens.append(ln)
+        slots = [slot for slot, _, _ in chunks]
+        offs = [self._slot_pos[slot] for slot in slots]
+        new_lens = [ln - off for ln, off in zip(lens, offs)]
+        news = [{"tokens": np.asarray(b["tokens"])[:, off:ln]}
+                for (_, b, _), off, ln in zip(chunks, offs, lens)]
+        packed = self._pack_chunks(news, new_lens, offs)
+        dest = self._segment_dest_at(slots, new_lens, offs)
+        dev = _upload(self.device, **packed, **dest)
+        row_len = min(self.slot_len, _pow2_at_least(max(new_lens)))
+        seg_logits, _, pcache = self.api.prefill_chunk(
+            self.params, dev, self._slot_cache, row_len)
+        _write_segments(self._slot_cache, self._last_tok, pcache,
+                        seg_logits, dev, len(slots), sum(new_lens),
+                        self.api.paged_keys)
+        for slot, ln in zip(slots, lens):
+            self._slot_pos[slot] = ln
+        self.stats.prefills += 1
+        self.stats.packed_prefills += 1
+        self.stats.chunk_prefills += 1
+        self.stats.incr_chunks += 1
+        self.stats.prefill_tokens += sum(new_lens)
+
+    # ---------------------------------------------------- fault tolerance
+    def attach_faults(self, injector, max_retries: Optional[int] = None,
+                      backoff_s: Optional[float] = None) -> None:
+        """Arm a ``FaultInjector`` at the dispatch site of ``execute`` and
+        in the page allocator (``None`` disarms)."""
+        self.fault_injector = injector
+        if max_retries is not None:
+            self.retry_limit = int(max_retries)
+        if backoff_s is not None:
+            self.retry_backoff_s = float(backoff_s)
+        if self._kv is not None:
+            self._kv.allocator.fault_injector = injector
+
+    def recover(self) -> int:
+        """Engine reset after an unrecoverable fault: every slot is freed
+        and the page-conservation audit runs before serving resumes.
+        Returns how many slots were dropped."""
+        dropped = sum(1 for a in self._slot_active if a)
+        self.release_all_slots()
+        assert self._kv.free_pages == self._kv.allocator.num_pages, \
+            "engine recovery leaked pages"
+        self.check_page_invariants()
+        self.stats.engine_resets += 1
+        return dropped
+
+    def check_page_invariants(self) -> bool:
+        """Host-side page audit: allocator conservation plus slot-level
+        ownership (vacant slots own no pages)."""
+        self._kv.check_invariants()
+        for slot in self._slot_free:
+            assert not self._kv.pages(slot), \
+                f"vacant slot {slot} still owns pages"
+        return True
+
+    # ------------------------------------------------- plan execution
+    def execute(self, plan) -> StepResult:
+        """Run one ``StepPlan``: frees → cancels → preemptions → grows →
+        first chunks (ONE packed prefill) → continuation chunks (ONE
+        incremental chunk dispatch) → decodes (ONE slot step). With a
+        ``FaultInjector`` attached, injected ``TransientFault``s retry up
+        to ``retry_limit`` times before raising ``EngineFault``; the fault
+        fires before the plan mutates anything."""
+        attempts = 0
+        while self.fault_injector is not None:
+            try:
+                self.fault_injector.maybe_fault("dispatch")
+                break
+            except TransientFault as e:
+                self.stats.engine_retries += 1
+                attempts += 1
+                if attempts > self.retry_limit:
+                    raise EngineFault(
+                        f"dispatch fault persisted past {self.retry_limit} "
+                        f"retries") from e
+                if self.retry_backoff_s > 0:
+                    time.sleep(self.retry_backoff_s * (2 ** (attempts - 1)))
+        return self._execute_plan(plan)
+
+    def _execute_plan(self, plan) -> StepResult:
+        res = StepResult()
+        for slot in plan.frees:
+            self.free(slot)
+        for slot in plan.cancels:
+            self.free(slot)
+        for slot in plan.preemptions:
+            self.free(slot)
+        failed: set = set()
+        for slot, upto in plan.grows:
+            try:
+                self.grow_slot(slot, upto)
+            except OutOfPages:
+                # the slot is untouched but its next write is unbacked —
+                # skip its chunk/decode this tick, report for requeue
+                failed.add(slot)
+                res.failed_grows.append(slot)
+        first = [c for c in plan.admissions if c.slot is None]
+        cont = [c for c in plan.admissions if c.slot is not None
+                and c.slot not in failed]
+        if first:
+            try:
+                slots = self.insert_many(
+                    [c.batch for c in first],
+                    n_tokens=[c.n_tokens for c in first],
+                    reserve_tokens=[c.reserve_tokens for c in first])
+                res.admitted.update(
+                    {c.rid: s for c, s in zip(first, slots)})
+                res.dispatches += 1
+            except OutOfPages:
+                # all-or-nothing rollback already ran; the planner
+                # requeues the whole staged batch
+                res.admission_failed = True
+        if cont:
+            self.chunk_append([(c.slot, c.batch, c.final) for c in cont])
+            res.dispatches += 1
+        decodes = [s for s in plan.decodes if s not in failed]
+        if decodes:
+            toks, done = self.step(decodes)
+            t = toks.cpu().numpy()
+            res.tokens = {int(s): int(t[s]) for s in decodes}
+            res.done = list(done)
+            res.dispatches += 1
+        return res
+
+    def step(self, slots: Optional[List[int]] = None
+             ) -> Tuple[torch.Tensor, List[int]]:
+        """One greedy decode step in a single dispatch — for all active
+        slots (default) or the plan's ``decodes`` subset. Returns
+        ``(tokens, done)``: tokens (n_slots,) on the device (unstepped
+        slots keep their pending token), and the active slots whose token
+        budget is now exhausted (host counters, no device read)."""
+        if slots is None:
+            mask = self._active_mask.copy()
+            stepped = [s for s, a in enumerate(self._slot_active) if a]
+        else:
+            mask = np.zeros((self.n_slots,), bool)
+            for s in slots:
+                mask[s] = self._slot_active[s]
+            stepped = [s for s in slots if self._slot_active[s]]
+        mask_d = torch.from_numpy(mask).to(self.device)
+        self._last_tok, self._slot_cache = _slot_decode_step(
+            self.api, self._step_skip, self.params, self._last_tok,
+            self._slot_cache, mask_d)
+        for slot in stepped:
+            self._slot_pos[slot] += 1
+            self._slot_generated[slot] += 1
+        done: List[int] = []
+        for slot, active in enumerate(self._slot_active):
+            if active:
+                budget = self._slot_budget[slot]
+                if budget is not None and self._slot_generated[slot] >= budget:
+                    done.append(slot)
+        self.stats.decode_steps += 1
+        self.stats.tokens_out += len(stepped)
+        return self._last_tok, done
+
+    def kv_cache_bytes(self) -> int:
+        """Device bytes held by the slot cache (all leaves, the block
+        table and the null page included)."""
+        if self._slot_cache is None:
+            return 0
+        return int(sum(t.numel() * t.element_size()
+                       for t in self._slot_cache.values()))
+
+    # --------------------------------------------- pool accounting hooks
+    def release_all_slots(self) -> None:
+        """Force-free every slot and restore the canonical free-list order
+        of slots and pages (exact replay of seeded runs depends on it)."""
+        for slot, active in enumerate(self._slot_active):
+            if active:
+                self.free(slot)
+        self._slot_free.sort()
+        self._kv.allocator.sort_free()
+
+    def reset_stats(self) -> None:
+        self.stats = EngineStats()
+
+
+def _merge_rows(new, old, mask, skip):
+    """Keep ``new`` per-row leaves only for rows in ``mask``; rows outside
+    it keep ``old``. Leaves in ``skip`` (page pools, the block table) are
+    page-indexed and pass through: masked-off rows' dead writes there
+    land at a not-yet-valid position or on the null page."""
+    out = {}
+    for key, nl in new.items():
+        if key in skip:
+            out[key] = nl
+            continue
+        axis = 0 if nl.dim() == 1 else 1
+        shape = [1] * nl.dim()
+        shape[axis] = mask.shape[0]
+        out[key] = torch.where(mask.reshape(shape), nl, old[key].to(nl.dtype))
+    return out
+
+
+def _slot_decode_step(api, skip, params, tok, cache, mask):
+    """One greedy decode step over every slot row; rows outside ``mask``
+    (vacant and mid-prefill slots) keep their position and pending
+    token."""
+    logits, new = api.decode_step(params, tok, cache)
+    cache = _merge_rows(new, cache, mask, skip)
+    nxt = torch.argmax(logits, -1)
+    return torch.where(mask, nxt, tok), cache
+
+
+def _write_segments(cache, last_tok, pcache, logits, dev, n_seg: int,
+                    n_tok: int, paged_keys):
+    """The packed-segment scatter, in place. The first ``n_tok`` tokens'
+    per-token leaves (the family's paged keys, packed (layers, T, ...)
+    order) land at their (page, offset) from ``dev["dest0"/"dest1"]`` —
+    padding tokens, whose targets are the never-read null page, are not
+    written; every other leaf is per segment and the first ``n_seg``
+    segments write it at their slot ids, with the block-table rows and
+    the pending tokens (the segments' argmax)."""
+    slots = dev["seg_slots"][:n_seg].long()
+    dest0, dest1 = dev["dest0"][:n_tok].long(), dev["dest1"][:n_tok].long()
+    for key, leaf in cache.items():
+        if key == "block_tables":
+            leaf[slots] = dev["table_rows"][:n_seg]
+        elif key in paged_keys:
+            leaf[:, dest0, dest1] = pcache[key][:, :n_tok].to(leaf.dtype)
+        else:
+            o = pcache[key][:n_seg].to(leaf.dtype)
+            if leaf.dim() == 1:
+                leaf[slots] = o
+            else:
+                leaf[:, slots] = o
+    last_tok[slots] = torch.argmax(logits[:n_seg], -1)
+
+
+def _set_table_row(cache, slot: int, table_row: np.ndarray) -> None:
+    """Push a grown slot's block-table row to the device."""
+    row = cache["block_tables"][slot]
+    row.copy_(torch.from_numpy(table_row))
+
+
+def _clear_slot(cache, slot: int) -> None:
+    """Park a freed slot: position 0 and its whole table row on the null
+    page, so its dead writes can never alias a page granted later."""
+    cache["pos"][slot] = 0
+    cache["block_tables"][slot] = NULL_PAGE
+
+
+def make_engine(cfg, *, seed: int = 0, cache_len: int = 256,
+                dtype=torch.float32, device=None) -> InferenceEngine:
+    """Engine with random parameters from ``seed``, on ``device`` (default:
+    the CUDA device; raises where there is none unless ``device="cpu"``
+    is passed). ``dtype`` is the parameters' storage type (float32, as
+    the JAX package's ``make_engine``); activations run in ``cfg.dtype``."""
+    api = build_model(cfg, device)
+    gen = torch.Generator(device=api.device).manual_seed(seed)
+    params = api.init(gen, dtype)
+    return InferenceEngine(api, params, cache_len=cache_len)

@@ -11,3 +11,4 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device")

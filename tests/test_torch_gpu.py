@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test is marked ``gpu`` and skips (with its reason) where no
+CUDA device is present — the decision is taken inside the ``cuda``
+fixture, so every worker collects the same tests. Run them on the GPU
+machine from the repository root:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerance: 2e-5 absolute in float32 (TF32 off; the kernels sum in
+another order than the plain versions' matmuls) and 2e-2 absolute and
+relative in bfloat16 (the plain versions round the softmax weights to
+bfloat16 before the weighted sum, the kernels keep them in float32).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import chunk_attention as CA  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.models.layers import packed_positions  # noqa: E402
+from repro_torch.serving.engine import make_engine  # noqa: E402
+from repro_torch.serving.plan import (PlannerConfig, StepPlanner,  # noqa
+                                      serve_ticks)
+from repro_torch.serving.request import Request, RequestQueue  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+HEADS = [(16, 16, 128), (14, 2, 64)]          # olmo-1b, qwen2-0.5b
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": dict(atol=2e-5, rtol=0.0),
+       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(*shape, generator=gen, device=dev).to(
+        getattr(torch, dtype))
+
+
+def _tables(gen, rows, max_pages, live, dev):
+    """Scrambled block tables; entries past each row's live pages point
+    far outside the pool (the kernel must not read them) and, for the
+    plain version, at the null page."""
+    n_pages = rows * max_pages + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = perm[:rows * max_pages].reshape(rows, max_pages).int()
+    past = (torch.arange(max_pages, device=dev)[None, :]
+            >= torch.tensor(live, device=dev)[:, None])
+    return (tables.masked_fill(past, 1 << 30).contiguous(),
+            tables.masked_fill(past, 0).contiguous(), n_pages)
+
+
+@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ps, max_pages = 16, 8
+    lengths = [0, 1, 16, 17, 100, 128, 0, 65]
+    live = [-(-n // ps) for n in lengths]
+    poisoned, sane, n_pages = _tables(gen, len(lengths), max_pages, live,
+                                      cuda)
+    q = _randn(gen, (len(lengths), h, d), dtype, cuda)
+    kp = _randn(gen, (n_pages, ps, kv, d), dtype, cuda)
+    vp = _randn(gen, (n_pages, ps, kv, d), dtype, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = PA.launches
+    got = PA.paged_decode_attention_cuda(q, kp, vp, poisoned, lens)
+    assert PA.launches == before + 1
+    want = PA.paged_decode_attention_plain(q, kp, vp, sane, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (got[0] == 0).all() and (got[6] == 0).all()
+
+
+@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,lens,window", [
+    (96, (40, 17, 30), 0),          # 3·2^5 bucket, ragged last tile
+    (48, (1, 1, 40), 0),            # single-token segments
+    (192, (100, 50, 20), 16),       # window
+])
+def test_segment_flash_kernel_matches_plain(cuda, h, kv, d, dtype, t, lens,
+                                            window):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    seg = np.full((t,), len(lens), np.int32)
+    starts = np.zeros((len(lens),), np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[off:off + n] = i
+        starts[i] = off
+        off += n
+    seg_t = torch.from_numpy(seg).to(cuda)
+    starts_t = torch.from_numpy(starts).to(cuda)
+    slens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = _randn(gen, (1, t, h, d), dtype, cuda)
+    k = _randn(gen, (1, t, kv, d), dtype, cuda)
+    v = _randn(gen, (1, t, kv, d), dtype, cuda)
+    got = FA.segment_flash_attention_cuda(q, k, v, seg_t, window=window)
+    want = FA.segment_flash_attention_plain(
+        q, k, v, seg_t, packed_positions(seg_t, starts_t), starts_t, slens,
+        row_len=1 << (max(lens) - 1).bit_length(), window=window)
+    torch.testing.assert_close(got[:, :off].float(), want[:, :off].float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_chunk_kernel_matches_plain(cuda, h, kv, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ps, max_pages, r = 8, 8, 16
+    hist, slen = [0, 13, 40, 0], [16, 5, 16, 0]    # fresh, mid-page, pad
+    live = [-(-n // ps) for n in hist]
+    s = len(hist)
+    poisoned, sane, n_pages = _tables(gen, s, max_pages, live, cuda)
+    q = _randn(gen, (s, r, h, d), dtype, cuda)
+    kc = _randn(gen, (s, r, kv, d), dtype, cuda)
+    vc = _randn(gen, (s, r, kv, d), dtype, cuda)
+    kp = _randn(gen, (n_pages, ps, kv, d), dtype, cuda)
+    vp = _randn(gen, (n_pages, ps, kv, d), dtype, cuda)
+    hl = torch.tensor(hist, dtype=torch.int32, device=cuda)
+    sl = torch.tensor(slen, dtype=torch.int32, device=cuda)
+    got = CA.paged_chunk_attention_cuda(q, kp, vp, kc, vc, poisoned, hl, sl)
+    want = CA.paged_chunk_attention_plain(q, kp, vp, kc, vc, sane, hl, sl)
+    for i, m in enumerate(slen):
+        torch.testing.assert_close(got[i, :m].float(), want[i, :m].float(),
+                                   **TOL[dtype])
+        assert (got[i, m:] == 0).all()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(2, 4, 64, device=cuda)
+    pages = torch.zeros(5, 12, 2, 64, device=cuda)          # page 12
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        PA.paged_decode_attention_cuda(q, pages, pages, tables, lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros(1, 8, 2, 32, device=cuda)
+        FA.segment_flash_attention_cuda(
+            x, x, x, torch.zeros(8, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        x = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
+        FA.segment_flash_attention_cuda(
+            x, x, x, torch.zeros(8, dtype=torch.int32, device=cuda))
+
+
+def test_gpu_serving_matches_cpu_serving(cuda):
+    """The same seeded weights and requests, served through the kernels
+    on the card and through the plain versions on the CPU (reduced
+    olmo-1b, float32): identical greedy streams, and every kernel ran."""
+    cfg = get_config("olmo-1b").reduced()
+    gpu = make_engine(cfg, seed=3, cache_len=64, device=cuda).init_slots(
+        4, page_size=8)
+    cpu = make_engine(cfg, cache_len=64, device="cpu").init_slots(
+        4, page_size=8)
+    cpu.params = _cpu(gpu.params)
+    rng = np.random.default_rng(0)
+    spec = [(i, int(rng.integers(3, 40)), int(rng.integers(2, 10)))
+            for i in range(6)]
+    prompts = {i: rng.integers(1, cfg.vocab_size, (1, p)).astype(np.int32)
+               for i, p, _ in spec}
+    launches0 = (PA.launches, FA.launches, CA.launches)
+    streams = []
+    for eng in (gpu, cpu):
+        reqs = [Request(arrival=0.0, rid=i, model=cfg.name, slo=1e9,
+                        n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+        planner = StepPlanner(eng, RequestQueue(cfg.name, slo=1e9),
+                              PlannerConfig(chunk_tokens=16))
+        srv = serve_ticks(planner, reqs, lambda r: {"tokens": prompts[r.rid]})
+        assert not srv.truncated
+        streams.append(planner.streams)
+    assert streams[0] == streams[1]
+    assert all(n > n0 for n, n0 in zip(
+        (PA.launches, FA.launches, CA.launches), launches0))
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.cpu()

@@ -1,0 +1,266 @@
+"""The port's attention kernels on the CPU: each plain PyTorch version
+against the JAX package's Pallas kernel (run in interpret mode, as the JAX
+tests run it) and against the JAX CPU path the serving engine takes, on
+the same numpy inputs; plus the CPU-side contracts of the CUDA wrappers
+(dispatch by device, refusal of CPU tensors, the ctypes signatures).
+
+Tolerance: 2e-5 absolute against the interpret-mode kernels (their online
+softmax sums in another order, as the JAX tests allow), 1e-5 against the
+JAX CPU paths (same arithmetic, another framework's float32 reductions).
+Padding rows/tokens are unspecified by contract and not compared.
+"""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.chunk_attention import \
+    paged_chunk_attention as jax_chunk_kernel  # noqa: E402
+from repro.kernels.flash_attention import \
+    segment_flash_attention as jax_segment_kernel  # noqa: E402
+from repro.kernels.paged_attention import \
+    paged_decode_attention as jax_paged_kernel  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import chunk_attention as CA  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+KERNEL_ATOL = 2e-5
+PATH_TOL = dict(atol=1e-5, rtol=1e-5)
+
+# the JAX CPU paths, compiled whole (faster here than op-by-op dispatch)
+jax_paged_path = jax.jit(JL.paged_decode_attention)
+jax_chunk_path = jax.jit(JL.paged_chunk_attention)
+jax_packed_path = jax.jit(JL.packed_prefill_attention,
+                          static_argnames=("row_len", "window"))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ------------------------------------------------------------ paged decode
+PAGED_CASES = [
+    # (b, h, kv, d, page_size, max_pages, lengths)
+    (4, 8, 2, 64, 16, 4, [0, 37, 64, 13]),      # empty + full rows
+    (3, 4, 4, 64, 8, 2, [1, 16, 9]),            # MHA, page_size 8
+    (2, 14, 2, 64, 32, 4, [100, 3]),            # qwen2 heads (rep 7)
+    (5, 8, 1, 64, 16, 4, [0, 0, 64, 33, 63]),   # MQA, several empty rows
+]
+
+
+def _paged_case(seed, b, h, kv, d, ps, maxp):
+    rng = np.random.default_rng(seed)
+    n_phys = b * maxp + 1
+    q = rng.standard_normal((b, h, d), np.float32)
+    kp = rng.standard_normal((n_phys, ps, kv, d), np.float32)
+    vp = rng.standard_normal((n_phys, ps, kv, d), np.float32)
+    tables = (rng.permutation(n_phys - 1) + 1)[:b * maxp] \
+        .reshape(b, maxp).astype(np.int32)
+    return q, kp, vp, tables
+
+
+@pytest.mark.parametrize("b,h,kv,d,ps,maxp,lengths", PAGED_CASES)
+def test_paged_decode_plain_matches_jax(b, h, kv, d, ps, maxp, lengths):
+    q, kp, vp, tables = _paged_case(b, b, h, kv, d, ps, maxp)
+    lens = np.asarray(lengths, np.int32)
+    got = PA.paged_decode_attention_plain(_t(q), _t(kp), _t(vp), _t(tables),
+                                          _t(lens)).numpy()
+    want = jax_paged_kernel(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                            jnp.asarray(tables), jnp.asarray(lens),
+                            interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=KERNEL_ATOL)
+    path = jax_paged_path(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                          jnp.asarray(tables), jnp.asarray(lens))
+    np.testing.assert_allclose(got, np.asarray(path), **PATH_TOL)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (got[i] == 0).all(), f"row {i} of length 0 not zero"
+
+
+def test_ops_dispatches_cpu_tensors_to_plain():
+    q, kp, vp, tables = _paged_case(0, 2, 4, 2, 64, 8, 2)
+    lens = _t(np.asarray([5, 16], np.int32))
+    args = (_t(q), _t(kp), _t(vp), _t(tables), lens)
+    before = PA.launches
+    np.testing.assert_array_equal(
+        ops.paged_decode_attention(*args).numpy(),
+        PA.paged_decode_attention_plain(*args).numpy())
+    assert PA.launches == before
+    meta = torch.zeros(1, 4, 64, device="meta")
+    with pytest.raises(ValueError, match="no attention kernel"):
+        ops.paged_decode_attention(meta, *args[1:])
+
+
+# ------------------------------------------------------- segment (packed)
+SEG_CASES = [
+    # (T, lens, window, block)
+    (96, [40, 17, 30], 0, 96),                  # padding tail (3·2^5)
+    (64, [32, 32], 0, 16),                      # tile boundaries, skips
+    (48, [1, 1, 40], 0, 48),                    # single-token segments
+    (96, [40, 17, 30, 3], 16, 96),              # window inside segments
+]
+
+
+def _seg_layout(t, lens):
+    seg = np.full((t,), len(lens), np.int32)
+    starts = np.zeros((len(lens),), np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[off:off + n] = i
+        starts[i] = off
+        off += n
+    return seg, starts, np.asarray(lens, np.int32), off
+
+
+@pytest.mark.parametrize("t,lens,window,block", SEG_CASES)
+def test_segment_attention_plain_matches_jax(t, lens, window, block):
+    rng = np.random.default_rng(t + len(lens))
+    h, kv, d = 4, 2, 64
+    q = rng.standard_normal((1, t, h, d), np.float32)
+    k = rng.standard_normal((1, t, kv, d), np.float32)
+    v = rng.standard_normal((1, t, kv, d), np.float32)
+    seg, starts, slens, n_real = _seg_layout(t, lens)
+    row_len = 1 << (max(lens) - 1).bit_length()
+    pos = TL.packed_positions(_t(seg), _t(starts))
+    got = FA.segment_flash_attention_plain(
+        _t(q), _t(k), _t(v), _t(seg), pos, _t(starts), _t(slens),
+        row_len=row_len, window=window).numpy()[0, :n_real]
+    want = jax_segment_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(seg), window=window,
+                              block_q=block, block_k=block, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want)[0, :n_real],
+                               atol=KERNEL_ATOL)
+    jpos = JL.packed_positions(jnp.asarray(seg), jnp.asarray(starts))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+    path = jax_packed_path(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg),
+        jpos, jnp.asarray(starts), jnp.asarray(slens), row_len=row_len,
+        window=window)
+    np.testing.assert_allclose(got, np.asarray(path)[0, :n_real],
+                               **PATH_TOL)
+
+
+def test_segment_rows_round_trip_matches_jax():
+    rng = np.random.default_rng(3)
+    seg, starts, slens, n_real = _seg_layout(24, [7, 1, 12])
+    x = rng.standard_normal((24, 3, 8), np.float32)
+    rows = FA.segments_to_rows(_t(x), _t(starts), _t(slens), 16)
+    jrows = JL.segments_to_rows(jnp.asarray(x), jnp.asarray(starts),
+                                jnp.asarray(slens), 16)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    pos = TL.packed_positions(_t(seg), _t(starts))
+    back = FA.rows_to_segments(rows, _t(seg), pos).numpy()
+    np.testing.assert_array_equal(back[:n_real], x[:n_real])
+
+
+# ----------------------------------------------------- chunk (continuation)
+CHUNK_CASES = [
+    # (s, r, h, kv, d, page_size, max_pages, hists, slens)
+    (2, 4, 4, 2, 64, 8, 3, (8, 16), (4, 4)),        # page-aligned history
+    (3, 8, 4, 4, 64, 8, 4, (5, 13, 0), (8, 3, 6)),  # mid-page + fresh seq
+    (1, 16, 8, 2, 64, 16, 2, (13,), (16,)),         # chunk crosses a page
+    (2, 8, 14, 2, 64, 8, 3, (1, 7), (1, 8)),        # qwen2 heads, ragged
+    (4, 4, 4, 2, 64, 8, 2, (3, 0, 0, 0), (4, 2, 0, 0)),  # padding segments
+]
+
+
+def _chunk_case(seed, s, r, h, kv, d, ps, maxp, hists):
+    rng = np.random.default_rng(seed)
+    n_pages = s * maxp + 1
+    q = rng.standard_normal((s, r, h, d), np.float32)
+    kc = rng.standard_normal((s, r, kv, d), np.float32)
+    vc = rng.standard_normal((s, r, kv, d), np.float32)
+    kp = rng.standard_normal((n_pages, ps, kv, d), np.float32)
+    vp = rng.standard_normal((n_pages, ps, kv, d), np.float32)
+    tables = (rng.permutation(n_pages - 1) + 1)[:s * maxp] \
+        .reshape(s, maxp).astype(np.int32)
+    return q, kp, vp, kc, vc, tables
+
+
+@pytest.mark.parametrize("s,r,h,kv,d,ps,maxp,hists,slens", CHUNK_CASES)
+def test_chunk_attention_plain_matches_jax(s, r, h, kv, d, ps, maxp, hists,
+                                           slens):
+    q, kp, vp, kc, vc, tables = _chunk_case(s + r, s, r, h, kv, d, ps, maxp,
+                                            hists)
+    hist = np.asarray(hists, np.int32)
+    slen = np.asarray(slens, np.int32)
+    got = CA.paged_chunk_attention_plain(
+        _t(q), _t(kp), _t(vp), _t(kc), _t(vc), _t(tables), _t(hist),
+        _t(slen)).numpy()
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, kc, vc, tables, hist, slen)]
+    want = np.asarray(jax_chunk_kernel(*jargs, interpret=True))
+    path = np.asarray(jax_chunk_path(*jargs))
+    for i, n in enumerate(slens):
+        np.testing.assert_allclose(got[i, :n], want[i, :n], atol=KERNEL_ATOL,
+                                   err_msg=f"segment {i}")
+        np.testing.assert_allclose(got[i, :n], path[i, :n], **PATH_TOL,
+                                   err_msg=f"segment {i}")
+
+
+@pytest.mark.parametrize("window", [4, 16])
+def test_chunk_attention_plain_window_matches_jax_kernel(window):
+    # history + chunk fit the slot (cap 32), as the engine guarantees
+    s, r, h, kv, d, ps, maxp = 2, 8, 4, 2, 64, 8, 4
+    q, kp, vp, kc, vc, tables = _chunk_case(window, s, r, h, kv, d, ps, maxp,
+                                            None)
+    hist = np.asarray([19, 7], np.int32)
+    slen = np.asarray([8, 8], np.int32)
+    got = CA.paged_chunk_attention_plain(
+        _t(q), _t(kp), _t(vp), _t(kc), _t(vc), _t(tables), _t(hist),
+        _t(slen), window=window).numpy()
+    want = jax_chunk_kernel(*[jnp.asarray(a) for a in
+                              (q, kp, vp, kc, vc, tables, hist, slen)],
+                            window=window, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=KERNEL_ATOL)
+
+
+# ------------------------------------------------- CUDA wrapper contracts
+def test_cuda_wrappers_refuse_cpu_tensors():
+    q, kp, vp, tables = _paged_case(1, 2, 4, 2, 64, 8, 2)
+    lens = _t(np.asarray([3, 9], np.int32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        PA.paged_decode_attention_cuda(_t(q), _t(kp), _t(vp), _t(tables),
+                                       lens)
+    x = torch.zeros(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        FA.segment_flash_attention_cuda(x, x[:, :, :2], x[:, :, :2],
+                                        torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        CA.paged_chunk_attention_cuda(
+            torch.zeros(1, 4, 4, 64), _t(kp), _t(vp),
+            torch.zeros(1, 4, 2, 64), torch.zeros(1, 4, 2, 64),
+            _t(tables[:1]), lens[:1], lens[:1])
+
+
+_C_KINDS = {"void*": build._P, "const void*": build._P, "int": build._I,
+            "float": build._F}
+
+
+@pytest.mark.parametrize("entry", sorted(build.SIGNATURES))
+def test_ctypes_signatures_match_c_entry_points(entry):
+    """Every C argument is declared to ctypes with its own kind (an
+    undeclared pointer would be cut to 32 bits)."""
+    src = (build.CSRC / f"{build.ENTRY_LIBRARY[entry]}.cu").read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert m, entry
+    kinds = []
+    for param in m.group(1).split(","):
+        ctype = " ".join(param.split()[:-1]).replace(" *", "*")
+        kinds.append(_C_KINDS[ctype])
+    assert tuple(kinds) == build.SIGNATURES[entry]
+
+
+def test_build_hash_covers_every_source():
+    names = {p.name for p in build.CSRC.iterdir()}
+    assert {f"{n}.cu" for n in build.SOURCES} <= names
+    assert "attn_common.cuh" in names
+    assert len(build.source_hash()) == 16
+    assert build.build_dir().parent == build.BUILD_ROOT

@@ -1,0 +1,228 @@
+"""The port's dense model against the JAX package's on the CPU: the same
+JAX-initialised weights (converted through numpy with
+``params_from_numpy``) and the same numpy inputs go through
+``prefill_packed``, ``prefill_chunk`` and ``decode_step`` of both, for
+olmo-1b and qwen2-0.5b reduced (float32). Logits and written K/V must
+agree within atol/rtol 1e-5 — not bit for bit: the two frameworks reduce
+float32 matmuls in different orders (even the JAX package misses
+bit-equality across its own shapes). Plus the layer primitives, the
+parameter plan and the device rules of the entry points.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models.registry import build_model as jax_build  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.models.weights import (init_params,  # noqa: E402
+                                        params_from_numpy)
+from repro_torch.serving.engine import make_engine  # noqa: E402
+
+MODELS = ["olmo-1b", "qwen2-0.5b"]
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(cfg, JAX api, JAX params, port api, port params) per model."""
+    built = {}
+
+    def get(name):
+        if name not in built:
+            jcfg = jax_config(name).reduced()
+            japi = jax_build(jcfg)
+            jparams = japi.init(jax.random.PRNGKey(0))
+            cfg = get_config(name).reduced()
+            api = build_model(cfg, device="cpu")
+            params = params_from_numpy(
+                cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+            built[name] = (cfg, japi, jparams, api, params)
+        return built[name]
+
+    return get
+
+
+def _packed(lens, s_max, t, vocab, seed):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((1, t), np.int32)
+    seg = np.full((t,), s_max, np.int32)
+    starts = np.zeros((s_max,), np.int32)
+    slens = np.zeros((s_max,), np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        tokens[0, off:off + n] = rng.integers(1, vocab, n)
+        seg[off:off + n] = i
+        starts[i] = off
+        slens[i] = n
+        off += n
+    return {"tokens": tokens, "seg_ids": seg, "seg_starts": starts,
+            "seg_lens": slens}
+
+
+def _to_jax(d):
+    return {k: jnp.asarray(v) for k, v in d.items()}
+
+
+def _to_torch(d):
+    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+
+def _paged_cache(cfg, n_rows, n_pages, ps, max_pages, seed):
+    """Random page pools and scrambled block tables (numpy)."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.num_layers, n_pages, ps, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    tables = (rng.permutation(n_pages - 1) + 1)[:n_rows * max_pages]
+    return {"k": rng.standard_normal(shape, np.float32),
+            "v": rng.standard_normal(shape, np.float32),
+            "block_tables": tables.reshape(n_rows, max_pages)
+            .astype(np.int32)}
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_prefill_packed_matches_jax(pair, name):
+    cfg, japi, jparams, api, params = pair(name)
+    lens = [5, 11, 3]
+    packed = _packed(lens, 4, 24, cfg.vocab_size, 0)
+    jl, jc = jax.jit(japi.prefill_packed, static_argnums=2)(
+        jparams, _to_jax(packed), 16)
+    tl, tc = api.prefill_packed(params, _to_torch(packed), 16)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    n = sum(lens)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy()[:, :n],
+                                   np.asarray(jc[key])[:, :n], **TOL)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_prefill_chunk_matches_jax(pair, name):
+    cfg, japi, jparams, api, params = pair(name)
+    ps, max_pages, n_rows = 8, 4, 3
+    cache = _paged_cache(cfg, n_rows, n_rows * max_pages + 1, ps, max_pages,
+                         1)
+    lens = [4, 7]                                   # new tokens per segment
+    packed = _packed(lens, 2, 12, cfg.vocab_size, 2)
+    packed["seg_slots"] = np.asarray([2, 0], np.int32)
+    packed["hist_lens"] = np.asarray([13, 0], np.int32)   # 0: fresh row
+    jl, ja, jc = jax.jit(japi.prefill_chunk, static_argnums=3)(
+        jparams, _to_jax(packed), _to_jax(cache), 8)
+    tl, ta, tc = api.prefill_chunk(params, _to_torch(packed),
+                                   _to_torch(cache), 8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    n = sum(lens)
+    np.testing.assert_array_equal(ta.numpy()[:n], np.asarray(ja)[:n])
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy()[:, :n],
+                                   np.asarray(jc[key])[:, :n], **TOL)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_decode_step_matches_jax(pair, name):
+    """Same logits and the same written pool: the port writes every row's
+    K/V in place (vacant rows on the null page), the JAX step returns the
+    rewritten pool."""
+    cfg, japi, jparams, api, params = pair(name)
+    ps, max_pages, n_rows = 8, 4, 4
+    cache = _paged_cache(cfg, n_rows, n_rows * max_pages + 1, ps, max_pages,
+                         3)
+    cache["block_tables"][3] = 0                       # vacant row
+    cache["pos"] = np.asarray([9, 0, 31, 0], np.int32)
+    token = np.asarray([7, 1, 300, 0], np.int32)
+    jl, jc = jax.jit(japi.decode_step)(jparams, jnp.asarray(token),
+                                       _to_jax(cache))
+    tcache = _to_torch(cache)
+    tl, tc = api.decode_step(params, torch.from_numpy(token), tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert tc["k"] is tcache["k"] and tc["v"] is tcache["v"]   # in place
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    for key in ("k", "v"):
+        got, want = tc[key].numpy(), np.asarray(jc[key])
+        # the null page takes every vacant row's write: compare real pages
+        np.testing.assert_allclose(got[:, 1:], want[:, 1:], **TOL)
+
+
+def test_layer_primitives_match_jax():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 6, 3, 64), np.float32)
+    pos = rng.integers(0, 500, size=(2, 6)).astype(np.int32)
+    np.testing.assert_allclose(
+        TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                      10_000.0).numpy(),
+        np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                 10_000.0)), **TOL)
+    h = rng.standard_normal((3, 32), np.float32)
+    p = {"scale": rng.standard_normal(32).astype(np.float32),
+         "bias": rng.standard_normal(32).astype(np.float32)}
+    for kind in ("rmsnorm", "layernorm", "layernorm_nonparam"):
+        np.testing.assert_allclose(
+            TL.apply_norm(_to_torch(p), torch.from_numpy(h), kind).numpy(),
+            np.asarray(JL.apply_norm(_to_jax(p), jnp.asarray(h), kind)),
+            **TOL)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_init_params_follow_the_plan(name):
+    cfg = get_config(name).reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device="cpu")
+    jshapes = jax.tree.map(lambda a: tuple(a.shape),
+                           jax_build(jax_config(name).reduced()).init(
+                               jax.random.PRNGKey(0)))
+    tshapes = jax.tree.map(lambda t: tuple(t.shape), params)
+    assert tshapes == jshapes
+    wq = params["layers"]["attn"]["wq"]
+    assert abs(float(wq.std()) - 0.02) < 2e-3
+    if cfg.qkv_bias:
+        assert not params["layers"]["attn"]["bq"].any()
+    again = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(again["embed"]["embedding"],
+                       params["embed"]["embedding"])
+
+
+def test_params_from_numpy_checks_shapes():
+    cfg = get_config("olmo-1b").reduced()
+    tree = jax.tree.map(np.asarray, jax_build(jax_config("olmo-1b").reduced())
+                        .init(jax.random.PRNGKey(1)))
+    tree["layers"]["mlp"]["wo"] = tree["layers"]["mlp"]["wo"][:, :3]
+    with pytest.raises(ValueError, match="mlp/wo"):
+        params_from_numpy(cfg, tree, device="cpu")
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("olmo-1b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator())
+    assert make_engine(cfg, cache_len=16, device="cpu").device.type == "cpu"
+
+
+def test_unported_features_raise():
+    cfg = get_config("olmo-1b").reduced()
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, num_experts=4), device="cpu")
+    cache = transformer.init_paged_cache(cfg, 2, 5, 8, 2)
+    pos = torch.zeros(2, dtype=torch.int32)
+    _, attend, _ = TL.decode_index(pos, cache, "k")
+    q = torch.zeros(2, cfg.num_heads, cfg.resolved_head_dim)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        attend(q, cache["k"][0], cache["v"][0], window=4)
+    del cache["block_tables"]
+    with pytest.raises(NotImplementedError, match="ring"):
+        TL.decode_index(pos, cache, "k")

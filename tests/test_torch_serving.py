@@ -1,0 +1,249 @@
+"""The port's serving slice against the JAX package's on the CPU: the same
+JAX-initialised weights, the same seeded workload (the shape of
+``tests/test_plan.py``'s) and the same planner settings go through
+``serve_ticks`` on a paged engine of each package. The greedy token
+streams must be equal token for token, the engines' ``EngineStats`` equal
+field for field, and every tick of the port must run at most three
+dispatches — for whole-prompt admission, chunked prefill, a lazy tight
+pool that preempts, a seeded fault schedule and tiered admission; plus
+the engines' page bookkeeping call by call.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.serving import faults as jax_faults  # noqa: E402
+from repro.serving import plan as jax_plan  # noqa: E402
+from repro.serving import request as jax_request  # noqa: E402
+from repro.serving.engine import make_engine as jax_make_engine  # noqa
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.models.weights import params_from_numpy  # noqa: E402
+from repro_torch.serving import faults as port_faults  # noqa: E402
+from repro_torch.serving import plan as port_plan  # noqa: E402
+from repro_torch.serving import request as port_request  # noqa: E402
+from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+
+CACHE_LEN = 32
+N_SLOTS = 4
+PAGE = 8
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """(JAX engine, port engine) with the same weights, per (model, page
+    budget), built once for the module."""
+    built = {}
+
+    def get(name, pages=None):
+        key = (name, pages)
+        if key not in built:
+            jeng = jax_make_engine(jax_config(name).reduced(),
+                                   cache_len=CACHE_LEN).init_slots(
+                N_SLOTS, paged=True, page_size=PAGE, total_pages=pages)
+            cfg = get_config(name).reduced()
+            params = params_from_numpy(
+                cfg, jax.tree.map(np.asarray, jeng.params), device="cpu")
+            peng = InferenceEngine(build_model(cfg, device="cpu"), params,
+                                   cache_len=CACHE_LEN).init_slots(
+                N_SLOTS, page_size=PAGE, total_pages=pages)
+            built[key] = (cfg, jeng, peng)
+        return built[key]
+
+    return get
+
+
+def _workload(cfg, seed, n, prompt_range=(3, 20), budget_range=(2, 8)):
+    """[(rid, prompt_len, n_tokens, arrival)] and numpy prompts, seeded."""
+    rng = np.random.default_rng(seed)
+    spec, prompts = [], {}
+    for i in range(n):
+        p = int(rng.integers(*prompt_range))
+        nt = int(rng.integers(*budget_range))
+        spec.append((i, p, nt, 0.0))
+        prompts[i] = np.random.default_rng(1000 + i).integers(
+            1, cfg.vocab_size, size=(1, p)).astype(np.int32)
+    return spec, prompts
+
+
+def _serve(side, cfg, eng, spec, prompts, *, fault_kw=None,
+           max_retries=None, tiers_of=None, **planner_kw):
+    """Serve the workload to drain on one package's engine. Returns
+    (streams, planner, server, per-tick dispatch counts)."""
+    plan, request, faults = ((jax_plan, jax_request, jax_faults)
+                             if side == "jax"
+                             else (port_plan, port_request, port_faults))
+    if side == "jax":
+        def prompt_fn(r):
+            return {"tokens": jnp.asarray(prompts[r.rid])}
+    else:
+        def prompt_fn(r):
+            return {"tokens": prompts[r.rid]}
+    eng.release_all_slots()
+    eng.reset_stats()
+    reqs = [request.Request(arrival=at, rid=i, model=cfg.name, slo=1e9,
+                            n_tokens=nt, prompt_len=p)
+            for i, p, nt, at in spec]
+    for r in reqs:
+        if tiers_of is not None:
+            r.tier, r.tenant = tiers_of(r.rid)
+    planner = plan.StepPlanner(eng, request.RequestQueue(cfg.name, slo=1e9),
+                               plan.PlannerConfig(gen_len=4, **planner_kw))
+    inj = faults.FaultInjector(**fault_kw) if fault_kw else None
+    per_tick = []
+    execute = eng.execute
+
+    def counted(p):
+        res = execute(p)
+        per_tick.append(res.dispatches)
+        return res
+
+    eng.execute = counted
+    if inj is not None:
+        eng.attach_faults(inj, max_retries=max_retries)
+    try:
+        srv = plan.serve_ticks(planner, reqs, prompt_fn, faults=inj,
+                               stall_limit=50)
+    finally:
+        del eng.execute
+        eng.attach_faults(None, max_retries=2)
+    assert not srv.truncated
+    assert eng.free_pages == eng.total_pages, "leaked pages"
+    assert eng.check_page_invariants()
+    streams = {r: tuple(t) for r, t in planner.streams.items()}
+    return streams, planner, srv, per_tick
+
+
+def _assert_same(a, b):
+    (sa, pa, va, _), (sb, pb, vb, ticks) = a, b
+    assert sb == sa, "port streams differ from the JAX package's"
+    assert dataclasses.asdict(pb.engine.stats) == \
+        dataclasses.asdict(pa.engine.stats)
+    assert dataclasses.asdict(pb.metrics) == dataclasses.asdict(pa.metrics)
+    assert (vb.ticks, vb.dispatches) == (va.ticks, va.dispatches)
+    assert max(ticks) <= 3, "more than three dispatches in a tick"
+
+
+@pytest.mark.parametrize("chunk_tokens", [0, 3, 8])
+def test_serve_ticks_streams_match_jax(engines, chunk_tokens):
+    cfg, jeng, peng = engines("olmo-1b")
+    spec, prompts = _workload(cfg, seed=7, n=6)
+    a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=chunk_tokens)
+    b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=chunk_tokens)
+    assert all(len(t) for t in b[0].values())
+    _assert_same(a, b)
+    if chunk_tokens:
+        assert b[1].engine.stats.incr_chunks > 0
+
+
+def test_lazy_tight_pool_preempts_and_matches_jax(engines):
+    """Lazy reservation on a 6-page pool: residents are preempted and
+    requeued, and the streams still equal the unchunked ones."""
+    cfg, jeng, peng = engines("olmo-1b")
+    spec, prompts = _workload(cfg, seed=3, n=8, budget_range=(10, 20),
+                              prompt_range=(4, 12))
+    base = _serve("port", cfg, peng, spec, prompts)
+    _, jtight, ptight = engines("olmo-1b", pages=6)
+    a = _serve("jax", cfg, jtight, spec, prompts, chunk_tokens=4, lazy=True)
+    b = _serve("port", cfg, ptight, spec, prompts, chunk_tokens=4, lazy=True)
+    _assert_same(a, b)
+    assert b[0] == base[0]
+    m = b[1].metrics
+    assert m.preemptions > 0 and m.requeues == m.preemptions
+    assert b[1].engine.stats.grows > 0
+
+
+def test_gqa_bias_model_streams_match_jax(engines):
+    """qwen2-0.5b: grouped KV heads and QKV biases, chunked."""
+    cfg, jeng, peng = engines("qwen2-0.5b")
+    spec, prompts = _workload(cfg, seed=11, n=6)
+    a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=8)
+    b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=8)
+    _assert_same(a, b)
+
+
+def test_seeded_faults_recover_like_jax(engines):
+    """The same seeded fault schedule (transient dispatch faults, spurious
+    allocator failures, stuck ticks) drives the same retries, resets and
+    requeues in both packages, and the same streams come out."""
+    cfg, jeng, peng = engines("olmo-1b")
+    spec, prompts = _workload(cfg, seed=5, n=8)
+    kw = dict(seed=13, dispatch_rate=0.1, alloc_rate=0.05, stuck_rate=0.05,
+              max_faults=10)
+    a = _serve("jax", cfg, jeng, spec, prompts, fault_kw=kw, max_retries=1,
+               chunk_tokens=3, lazy=True)
+    b = _serve("port", cfg, peng, spec, prompts, fault_kw=kw, max_retries=1,
+               chunk_tokens=3, lazy=True)
+    _assert_same(a, b)
+    m = b[1].metrics
+    assert m.engine_retries + m.engine_resets + b[2].stuck_ticks > 0
+    assert (b[2].stuck_ticks, b[2].recoveries) == \
+        (a[2].stuck_ticks, a[2].recoveries)
+
+
+def test_tiered_admission_matches_jax(engines):
+    """Weighted tiers and tenant-fair picks under staggered arrivals: the
+    copied ``TieredAdmission`` orders admissions as the JAX one does."""
+    cfg, jeng, peng = engines("olmo-1b")
+    spec, prompts = _workload(cfg, seed=9, n=10)
+    spec = [(i, p, nt, 0.002 * (i // 3)) for i, p, nt, _ in spec]
+
+    def tiers_of(rid):
+        return (("batch", "interactive", "standard")[rid % 3],
+                f"tenant{rid % 2}")
+
+    kw = dict(tiers={"interactive": 4.0, "standard": 2.0, "batch": 1.0},
+              tier_bypass_limit=2, chunk_tokens=8, tiers_of=tiers_of)
+    a = _serve("jax", cfg, jeng, spec, prompts, **kw)
+    b = _serve("port", cfg, peng, spec, prompts, **kw)
+    _assert_same(a, b)
+    assert b[1].admission is not None
+
+
+def test_page_bookkeeping_matches_jax(engines):
+    """Admission with a lazy horizon, decode-room growth, frees and an
+    engine reset leave the same pages and slots in both packages."""
+    cfg, jeng, peng = engines("olmo-1b")
+    _, prompts = _workload(cfg, seed=2, n=3, prompt_range=(5, 15))
+    views = []
+    for side, eng in (("jax", jeng), ("port", peng)):
+        eng.release_all_slots()
+        eng.reset_stats()
+        wrap = jnp.asarray if side == "jax" else np.asarray
+        batches = [{"tokens": wrap(prompts[i])} for i in range(3)]
+        slots = eng.insert_many(batches, n_tokens=[6, 6, 6],
+                                reserve_tokens=[b["tokens"].shape[1]
+                                                for b in batches])
+        eng.ensure_decode_room(slots)
+        grown = eng.grow_slot(slots[1], 24)
+        eng.free(slots[0])
+        view = (slots, grown, eng.free_pages, eng.free_slots,
+                [eng.reserved_tokens(s) for s in slots[1:]],
+                [eng.slot_page_count(s) for s in slots[1:]],
+                eng.stats.grows, eng.recover(), eng.free_pages)
+        views.append(view)
+    assert views[1] == views[0]
+    assert peng.kv_cache_bytes() == jeng.kv_cache_bytes()
+
+
+def test_unported_planner_features_raise():
+    with pytest.raises(NotImplementedError, match="speculative"):
+        port_plan.PlannerConfig(spec_k=2)
+    with pytest.raises(NotImplementedError, match="prompt cache"):
+        port_plan.PlannerConfig(prefix_cache=True)
+    cfg = get_config("olmo-1b").reduced()
+    eng = InferenceEngine(build_model(cfg, device="cpu"), None,
+                          cache_len=CACHE_LEN)
+    with pytest.raises(NotImplementedError, match="ring"):
+        eng.init_slots(2, paged=False)
+    with pytest.raises(NotImplementedError, match="sampled"):
+        eng.init_slots(2, sampling=object())
+    with pytest.raises(ValueError, match="multiple of page_size"):
+        eng.init_slots(2, cache_len=20, page_size=8)
