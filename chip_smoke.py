@@ -6,26 +6,37 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases a   # kernels only (a quick first check)
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs three phases, each printing one JSON line:
+with ``nvcc`` and runs five phases, each printing one JSON line:
 
-  (a) kernels vs plain: each hand-written kernel against its plain
-      PyTorch version on the card, at the serving path's head shapes
+  (a) kernels vs plain: each of the five hand-written kernels against its
+      plain PyTorch version on the card, at the serving path's head shapes
       (olmo-1b: 16 heads of 128; qwen2-0.5b: 14 query / 2 KV heads of 64),
       in float32 (TF32 off) and bfloat16, with length-0 rows, fresh
-      sequences (history 0), padding segments and ragged packed lengths;
-      times the kernel, the plain version and (for the packed prefill)
-      one ``scaled_dot_product_attention`` call as a yardstick, beside the
-      least time the card could take;
+      sequences (history 0), padding segments, ragged packed lengths,
+      ragged prompt lengths, windows and non-causal attention; times every
+      case's kernel, plain version and, where one PyTorch call computes the
+      same function, that call (``scaled_dot_product_attention``, a
+      yardstick the port never calls), beside the least time the card
+      could take;
   (b) serve: olmo-1b at full width in bfloat16 with seeded random weights
       answers 16 requests through ``StepPlanner``/``serve_ticks`` on one
       paged engine (admissions, chunk continuations and decodes all
-      occur), and every kernel must have launched during it;
+      occur), and every kernel of the paged path must have launched;
+  (d) generate: the same olmo-1b runs batch ``generate`` (padded prefill
+      through the flash kernel, decode through the contiguous decode
+      kernel) on four batches of 8 prompts (128 to 2000 tokens, 64 new
+      tokens each), then qwen2-0.5b at full width on one;
+  (e) ring serve: phase (b)'s requests on 8 ring slots, so admissions and
+      prefix-recompute continuations run the packed prefill and decodes
+      the contiguous decode kernel (and never the chunk kernel);
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
-      off, serves the same seeded requests once on the GPU (the kernels)
-      and once on the CPU (the plain versions); the greedy streams must be
-      identical.
+      off, runs each path once on the GPU (the kernels) and once on the
+      CPU (the plain versions) — a paged serve, ``generate``, a ring serve
+      with continuations, and a sliding-window ring that wraps; the greedy
+      streams must be identical.
 
-Then it prints the ``kernels`` summary line, the card's name and power
+Then it prints the ``kernels`` summary line (each kernel's launches are
+its count over the main paths (b), (d) and (e)), the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
@@ -51,6 +62,9 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 HEADS = {"olmo-1b": (16, 16, 128), "qwen2-0.5b": (14, 2, 64)}
+KERNEL_NAMES = ("paged_decode_attention", "segment_flash_attention",
+                "paged_chunk_attention", "decode_attention",
+                "flash_attention")
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
 
 
@@ -203,9 +217,73 @@ def _chunk_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64,
                 pad_rows=pad_rows, nbytes=nbytes, flops=flops, library=None)
 
 
+def _ring_decode_case(torch, gen, dev, dtype, h, kv, d, c=4096,
+                      lengths=(0, 1, 256, 512, 1024, 1500, 2048, 4096)):
+    """bench_decode --quick's ragged shape: 8 rows of a 4096-row cache,
+    lengths from 0 to C."""
+    b = len(lengths)
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
+    kc = torch.randn(b, c, kv, d, generator=gen, device=dev).to(dtype)
+    vc = torch.randn(b, c, kv, d, generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    elt = q.element_size()
+    live_tok = sum(lengths)
+    nbytes = 2 * q.numel() * elt + 2 * live_tok * kv * d * elt + b * 4
+
+    def library():
+        import torch.nn.functional as F
+        rows = [i for i, n in enumerate(lengths) if n > 0]
+        idx = torch.tensor(rows, device=dev)
+        mask = (torch.arange(c, device=dev)[None, :]
+                < lens[idx].long()[:, None])[:, None, None, :]
+        qt = q[idx][:, :, None, :]                      # (B', H, 1, D)
+        kt, vt = kc[idx].transpose(1, 2), vc[idx].transpose(1, 2)
+        kw = {"enable_gqa": True} if kv != h else {}
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, **kw)
+
+    return dict(args_kernel=(q, kc, vc, lens), args_plain=(q, kc, vc, lens),
+                real=lambda out: out,
+                zero_rows=[i for i, n in enumerate(lengths) if n == 0],
+                nbytes=nbytes, flops=4.0 * live_tok * h * d,
+                library=library)
+
+
+def _dense_flash_case(torch, gen, dev, dtype, h, kv, d, b=8, s=1000,
+                      causal=True, window=0):
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    i = np.arange(s)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, s - 1)
+    pairs = int((hi - lo + 1).sum()) * b            # visible (i, j) per head
+    elt = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+    kw = {"causal": causal, "window": window}
+
+    def library():
+        import torch.nn.functional as F
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        extra = {"enable_gqa": True} if kv != h else {}
+        if window:
+            ii = torch.arange(s, device=dev)
+            mask = ii[:, None] - ii[None, :] < window
+            if causal:
+                mask &= ii[None, :] <= ii[:, None]
+            extra["attn_mask"] = mask
+        else:
+            extra["is_causal"] = causal
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **extra)
+
+    return dict(args_kernel=(q, k, v), kernel_kw=kw, args_plain=(q, k, v),
+                plain_kw=kw, real=lambda out: out, nbytes=nbytes,
+                flops=4.0 * pairs * h * d, library=library)
+
+
 def phase_a(torch, timing_model: str = "olmo-1b"):
-    from repro_torch.kernels import chunk_attention, flash_attention
-    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels import chunk_attention, decode_attention
+    from repro_torch.kernels import flash_attention, paged_attention
     dev = torch.device("cuda")
     kernels = {
         "paged_decode_attention": (
@@ -223,6 +301,16 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
             chunk_attention.paged_chunk_attention_plain, _chunk_case,
             "src/repro_torch/kernels/csrc/chunk_attention.cu",
             "src/repro/kernels/chunk_attention.py:38"),
+        "decode_attention": (
+            decode_attention.decode_attention_cuda,
+            decode_attention.decode_attention_plain, _ring_decode_case,
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:43"),
+        "flash_attention": (
+            flash_attention.flash_attention_cuda,
+            flash_attention.flash_attention_plain, _dense_flash_case,
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:30"),
     }
     extra = {  # further shapes checked for correctness only
         "segment_flash_attention": [
@@ -232,6 +320,11 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
         "paged_chunk_attention": [
             dict(r=8, hist=(13, 0), slen=(8, 3), ps=8, max_pages=4)],
         "paged_decode_attention": [dict(ps=8, max_pages=128)],
+        "decode_attention": [dict(c=200, lengths=(200, 0, 137, 1))],
+        "flash_attention": [
+            dict(s=2048),                                  # causal, 2^11
+            dict(s=1000, window=256),                      # window
+            dict(s=512, causal=False)],                    # non-causal
     }
     rows, summary = [], {}
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -261,27 +354,25 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                     row = {"kernel": name, "model": model, "dtype": dname,
                            "shape": kw or "main", "max_abs_err": err,
                            "ok": ok}
-                    if si == 0:
-                        run_k = lambda: cuda_fn(*case["args_kernel"],  # noqa
-                                                **case.get("kernel_kw", {}))
-                        run_p = lambda: plain_fn(*case["args_plain"],  # noqa
-                                                 **case.get("plain_kw", {}))
-                        row["ms"] = _time_ms(run_k, torch)
-                        row["plain_ms"] = _time_ms(run_p, torch, iters=5)
-                        row["bound_ms"], row["bound_by"] = _bound_ms(
-                            case["nbytes"], case["flops"], dname)
-                        lib = case["library"]
-                        row["library_ms"] = (_time_ms(lib(), torch)
-                                             if lib is not None else None)
-                        if model == timing_model and dname == "bfloat16":
-                            summary[name] = {
-                                "name": name, "route": "cuda",
-                                "source": source, "replaces": replaces,
-                                "max_abs_err": err, "ms": row["ms"],
-                                "plain_ms": row["plain_ms"],
-                                "bound_ms": row["bound_ms"],
-                                "bound_by": row["bound_by"],
-                                "library_ms": row["library_ms"]}
+                    run_k = lambda: cuda_fn(*case["args_kernel"],  # noqa
+                                            **case.get("kernel_kw", {}))
+                    run_p = lambda: plain_fn(*case["args_plain"],  # noqa
+                                             **case.get("plain_kw", {}))
+                    row["ms"] = _time_ms(run_k, torch)
+                    row["plain_ms"] = _time_ms(run_p, torch, iters=5)
+                    row["bound_ms"], row["bound_by"] = _bound_ms(
+                        case["nbytes"], case["flops"], dname)
+                    lib = case["library"]
+                    row["library_ms"] = (_time_ms(lib(), torch)
+                                         if lib is not None else None)
+                    if si == 0 and model == timing_model \
+                            and dname == "bfloat16":
+                        summary[name] = {
+                            "name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "max_abs_err": err,
+                            **{k: row[k] for k in (
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}}
                     rows.append(row)
                     _log(json.dumps(row))
                     del case, kout, pout
@@ -295,7 +386,7 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
 
 
 # --------------------------------------------------------------------------
-# phases (b) and (c): the serving path
+# phase (b): the paged serving path
 # --------------------------------------------------------------------------
 def _requests(n, prompt_range, budget_range, vocab, seed):
     from repro_torch.serving.request import Request
@@ -325,20 +416,38 @@ def _serve(eng, reqs, prompts, chunk_tokens):
     return {r: list(t) for r, t in planner.streams.items()}, srv
 
 
+def _counters():
+    """(module, attribute) of each kernel's launch count."""
+    from repro_torch.kernels import chunk_attention, decode_attention
+    from repro_torch.kernels import flash_attention, paged_attention
+    return {"paged_decode_attention": (paged_attention, "launches"),
+            "segment_flash_attention": (flash_attention, "segment_launches"),
+            "paged_chunk_attention": (chunk_attention, "launches"),
+            "decode_attention": (decode_attention, "launches"),
+            "flash_attention": (flash_attention, "flash_launches")}
+
+
 def _launch_counts():
-    from repro_torch.kernels import chunk_attention, flash_attention
-    from repro_torch.kernels import paged_attention
-    return {"paged_decode_attention": paged_attention.launches,
-            "segment_flash_attention": flash_attention.launches,
-            "paged_chunk_attention": chunk_attention.launches}
+    return {n: getattr(m, a) for n, (m, a) in _counters().items()}
 
 
 def _reset_launch_counts():
-    from repro_torch.kernels import chunk_attention, flash_attention
-    from repro_torch.kernels import paged_attention
-    paged_attention.launches = 0
-    flash_attention.launches = 0
-    chunk_attention.launches = 0
+    for m, a in _counters().values():
+        setattr(m, a, 0)
+
+
+def _check_launches(launches, ran, phase):
+    """Every kernel in ``ran`` launched during the path, no other did."""
+    want = {n: n in ran for n in KERNEL_NAMES}
+    got = {n: launches[n] > 0 for n in KERNEL_NAMES}
+    assert got == want, f"phase {phase}: launches {launches}, expected " \
+        f"exactly {sorted(ran)} to run"
+
+
+PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
+              "paged_chunk_attention")
+RING_PATH = ("segment_flash_attention", "decode_attention")
+GENERATE_PATH = ("flash_attention", "decode_attention")
 
 
 def phase_b(torch):
@@ -369,9 +478,11 @@ def phase_b(torch):
         assert all(0 <= t < cfg.vocab_size for t in s), r.rid
     st = eng.stats
     assert st.incr_chunks > 0 and st.packed_prefills > st.incr_chunks
-    assert all(n > 0 for n in launches.values()), launches
+    _check_launches(launches, PAGED_PATH, "b")
     walls = sorted(w for w, _ in srv.tick_walls)
-    profile = _profile_serve(torch, eng, reqs, prompts, streams)
+    again, profile = _profile(
+        torch, lambda: _serve(eng, reqs, prompts, chunk_tokens=512)[0])
+    assert again == streams, "a repeated serve changed the streams"
     out = {"phase": "b", "model": cfg.name, "dtype": "bfloat16",
            "layers": cfg.num_layers, "params": cfg.param_count(),
            "requests": len(reqs), "prompt_tokens": sum(
@@ -389,21 +500,20 @@ def phase_b(torch):
     _emit(out)
     del eng
     torch.cuda.empty_cache()
-    return out
+    return out, streams
 
 
-def _profile_serve(torch, eng, reqs, prompts, streams, top: int = 8):
-    """Serve the same requests again under ``torch.profiler`` and return
-    the device time by kernel (the largest ``top``), the total, and the
-    device's busy share of the wall time. The streams must repeat."""
+def _profile(torch, run, top: int = 8):
+    """Run ``run`` once more under ``torch.profiler``. Returns its result
+    and the device time by kernel (the largest ``top``), the total, and
+    the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        again, srv = _serve(eng, reqs, prompts, chunk_tokens=512)
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    assert again == streams, "a repeated serve changed the streams"
     kernels = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -412,11 +522,152 @@ def _profile_serve(torch, eng, reqs, prompts, streams, top: int = 8):
                         e.count, e.key[:90]))
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
-    return {"wall_ms": 1e3 * wall, "device_ms": device_ms,
-            "device_busy_share": device_ms / (1e3 * wall),
-            "ticks": srv.ticks,
-            "top": [{"kernel": k, "ms": ms, "count": n}
-                    for ms, n, k in kernels[:top]]}
+    return out, {"wall_ms": 1e3 * wall, "device_ms": device_ms,
+                 "device_busy_share": device_ms / (1e3 * wall),
+                 "top": [{"kernel": k, "ms": ms, "count": n}
+                         for ms, n, k in kernels[:top]]}
+
+
+# --------------------------------------------------------------------------
+# phase (d): batch generate; phase (e): ring serve
+# --------------------------------------------------------------------------
+def phase_d(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    runs = [("olmo-1b", (128, 512, 1000, 2000)), ("qwen2-0.5b", (512,))]
+    rows, total = [], {n: 0 for n in KERNEL_NAMES}
+    rng = np.random.default_rng(3)
+    for name, prompt_lens in runs:
+        cfg = get_config(name)
+        eng = make_engine(cfg, seed=0, cache_len=256, dtype=torch.bfloat16,
+                          device="cuda")
+        warm = rng.integers(1, cfg.vocab_size, (8, 64)).astype(np.int32)
+        eng.generate({"tokens": warm}, 8)            # not measured
+        for s in prompt_lens:
+            tokens = rng.integers(1, cfg.vocab_size, (8, s)).astype(np.int32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eng.reset_stats()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            out = eng.generate({"tokens": tokens}, 64)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            _check_launches(launches, GENERATE_PATH, "d")
+            assert tuple(out.shape) == (8, 64), out.shape
+            assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+            for n in KERNEL_NAMES:
+                total[n] += launches[n]
+            # the prefill alone, once more, for the split of the wall time
+            t1 = time.perf_counter()
+            eng.prefill({"tokens": tokens}, eng.bucket_len(s + 64))
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            row = {"model": name, "batch": 8, "prompt_len": s,
+                   "new_tokens": 64, "wall_s": wall,
+                   "tokens_per_s": 8 * 64 / wall, "prefill_s": prefill_s,
+                   "cache_len": eng.bucket_len(s + 64),
+                   "peak_mem_bytes": peak, "launches": launches,
+                   "stats": dataclasses.asdict(eng.stats)}
+            if (name, s) == ("olmo-1b", 2000):
+                again, row["profile"] = _profile(
+                    torch, lambda: eng.generate({"tokens": tokens}, 64))
+                row["profile"]["repeat_identical"] = bool(
+                    torch.equal(again, out))
+            rows.append(row)
+            _log(json.dumps(row))
+        del eng
+        torch.cuda.empty_cache()
+    out = {"phase": "d", "runs": [
+        {k: r[k] for k in ("model", "prompt_len", "wall_s", "tokens_per_s",
+                           "prefill_s", "peak_mem_bytes")} for r in rows],
+        "profile": next(r["profile"] for r in rows if "profile" in r),
+        "launches": total}
+    _emit(out)
+    return dict(out, runs=rows)
+
+
+def phase_e(torch, paged_streams=None):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    cfg = get_config("olmo-1b")
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda").init_slots(8, cache_len=1024,
+                                                paged=False)
+    assert not eng.paged
+    wreqs, wprompts = _requests(3, (40, 200), (4, 8), cfg.vocab_size, 99)
+    _serve(eng, wreqs, wprompts, chunk_tokens=128)   # warm-up
+    reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, srv = _serve(eng, reqs, prompts, chunk_tokens=512)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    _check_launches(launches, RING_PATH, "e")
+    n_tok = sum(len(s) for s in streams.values())
+    for r in reqs:
+        s = streams[r.rid]
+        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
+        assert all(0 <= t < cfg.vocab_size for t in s), r.rid
+    st = eng.stats
+    assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
+    walls = sorted(w for w, _ in srv.tick_walls)
+    same = (None if paged_streams is None else
+            sum(streams[r] == paged_streams[r] for r in streams))
+    out = {"phase": "e", "model": cfg.name, "dtype": "bfloat16",
+           "slots": "8 ring x 1024", "requests": len(reqs),
+           "tokens_served": n_tok, "ticks": srv.ticks,
+           "dispatches": srv.dispatches, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "tick_ms_p50": 1e3 * walls[len(walls) // 2],
+           "tick_ms_p99": 1e3 * walls[min(len(walls) - 1,
+                                          int(0.99 * len(walls)))],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "kv_cache_bytes": eng.kv_cache_bytes(),
+           "streams_equal_to_paged": same, "stats": dataclasses.asdict(st),
+           "launches": launches}
+    _emit(out)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _insert_step_serve(eng, prompts, budgets):
+    """Continuous batching through ``insert``/``step``/``free``: requests
+    enter free slots in order, every active slot steps, done slots free.
+    Returns each request's greedy tokens."""
+    streams = {i: [] for i in range(len(prompts))}
+    owner, nxt = {}, 0
+    while nxt < len(prompts) or owner:
+        while nxt < len(prompts) and eng.can_admit(prompts[nxt].shape[1],
+                                                   budgets[nxt]):
+            owner[eng.insert({"tokens": prompts[nxt]},
+                             n_tokens=budgets[nxt])] = nxt
+            nxt += 1
+        tok, done = eng.step()
+        t = tok.cpu().numpy()
+        for slot, rid in owner.items():
+            streams[rid].append(int(t[slot]))
+        for slot in done:
+            eng.free(slot)
+            del owner[slot]
+    return streams
+
+
+def _both(engines, run):
+    """``run`` on the GPU engine, then on the CPU one. Returns the two
+    results, the GPU run's launches and the CPU run's seconds."""
+    _reset_launch_counts()
+    gpu = run(engines[0])
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    cpu = run(engines[1])
+    return (gpu, cpu), launches, time.perf_counter() - t0
 
 
 def phase_c(torch):
@@ -426,42 +677,93 @@ def phase_c(torch):
                                             make_engine)
     cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2,
                               dtype="float32")
-    gpu = make_engine(cfg, seed=1, cache_len=512,
-                      device="cuda").init_slots(4, page_size=16)
-    cpu_params = _to_cpu(gpu.params)
-    cpu = InferenceEngine(build_model(cfg, device="cpu"), cpu_params,
-                          cache_len=512).init_slots(4, page_size=16)
+    gpu_params = make_engine(cfg, seed=1, device="cuda").params
+    params = {"cuda": gpu_params, "cpu": _to_cpu(gpu_params)}
+
+    def pair(c, cache_len):
+        """(GPU engine, CPU engine) of config ``c`` on the same weights."""
+        return tuple(InferenceEngine(build_model(c, device=d), params[d],
+                                     cache_len=cache_len)
+                     for d in ("cuda", "cpu"))
+
+    checks = {}
+
+    def check(name, engines, run, ran, first_logits, **extra):
+        """Run a path on both devices: identical streams, exactly the
+        path's kernels launched on the GPU; records the first-token
+        logits' max difference."""
+        streams, launches, cpu_s = _both(engines, run)
+        lg = [first_logits(e).float().cpu() for e in engines]
+        same = streams[0] == streams[1]
+        checks[name] = dict(
+            streams_identical=same,
+            first_token_logits_max_abs_diff=float(
+                (lg[0] - lg[1]).abs().max()),
+            launches=launches, cpu_s=cpu_s, **extra)
+        _log(json.dumps({name: checks[name]}))
+        assert same, f"{name}: GPU and CPU greedy streams differ: {streams}"
+        _check_launches(launches, ran, f"c/{name}")
+        return streams[0]
+
     reqs, prompts = _requests(6, (20, 301), (8, 33), cfg.vocab_size, 1)
-    _reset_launch_counts()
-    gs, gsrv = _serve(gpu, reqs, prompts, chunk_tokens=128)
-    launches = _launch_counts()
-    t0 = time.perf_counter()
-    cs, _ = _serve(cpu, reqs, prompts, chunk_tokens=128)
-    cpu_s = time.perf_counter() - t0
-    assert gpu.stats.incr_chunks > 0, "no continuation ran"
-    assert all(n > 0 for n in launches.values()), launches
-    # first-token logits: one packed prefill of every prompt, both sides
     lens = [r.prompt_len for r in reqs]
-    packed = gpu._pack_prompts([{"tokens": prompts[r.rid]} for r in reqs],
-                               lens)
+    engines = [e.init_slots(4, page_size=16) for e in pair(cfg, 512)]
+    packed = {k: torch.from_numpy(v) for k, v in engines[1]._pack_prompts(
+        [{"tokens": prompts[r.rid]} for r in reqs], lens).items()}
     row_len = 1 << max(0, max(lens) - 1).bit_length()
-    logits = {}
-    for name, eng in (("cuda", gpu), ("cpu", cpu)):
-        dev = {k: torch.from_numpy(v).to(eng.device)
-               for k, v in packed.items()}
-        lg, _ = eng.api.prefill_packed(eng.params, dev, row_len)
-        logits[name] = lg[:len(reqs)].float().cpu()
-    diff = float((logits["cuda"] - logits["cpu"]).abs().max())
-    same = gs == cs
+
+    def packed_logits(eng):
+        dev = {k: v.to(eng.device) for k, v in packed.items()}
+        return eng.api.prefill_packed(eng.params, dev, row_len)[0][:len(reqs)]
+
+    def serve(eng):
+        return _serve(eng, reqs, prompts, chunk_tokens=128)[0]
+
+    # 1. paged serve with incremental continuations
+    got = check("paged_serve", engines, serve, PAGED_PATH, packed_logits,
+                requests=len(reqs), packed_tokens=_packed_bucket(sum(lens)))
+    assert engines[0].stats.incr_chunks > 0, "no continuation ran"
+    checks["paged_serve"]["tokens"] = sum(map(len, got.values()))
+
+    # 2. batch generate: 4 prompts of 300 tokens, 24 new tokens each
+    tokens = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (4, 300)).astype(np.int32)
+    check("generate", pair(cfg, 256),
+          lambda e: e.generate({"tokens": tokens}, 24).cpu().tolist(),
+          GENERATE_PATH,
+          lambda e: e.prefill({"tokens": tokens}, e.bucket_len(300 + 32))[0],
+          batch=4, prompt_len=300, new_tokens=24)
+
+    # 3. ring serve: continuations recompute the prefix
+    engines = [e.init_slots(4, paged=False) for e in pair(cfg, 512)]
+    check("ring_serve", engines, serve, RING_PATH, packed_logits)
+    assert engines[0].stats.chunk_prefills > 0, "no continuation ran"
+
+    # 4. sliding window 128 on 128-row rings. serve_ticks caps a ring
+    # slot's budget at slot_len - prompt, so to wrap the rings the
+    # requests go through insert/step, whose ring budgets are uncapped:
+    # prompt + budget > 128 for every request
+    wcfg = dataclasses.replace(cfg, sliding_window=128)
+    engines = [e.init_slots(4) for e in pair(wcfg, 128)]
+    assert not engines[0].paged, "a windowed config must take ring slots"
+    rng = np.random.default_rng(4)
+    wprompts = [rng.integers(1, cfg.vocab_size, (1, int(n))).astype(
+        np.int32) for n in rng.integers(60, 129, size=5)]
+    wbudgets = [int(n) for n in rng.integers(40, 90, size=5)]
+    assert all(p.shape[1] + b > 128 for p, b in zip(wprompts, wbudgets))
+    got = check("window_ring", engines,
+                lambda e: _insert_step_serve(e, wprompts, wbudgets),
+                GENERATE_PATH,
+                lambda e: e.prefill({"tokens": wprompts[0]}, 128)[0],
+                window=128, requests=len(wprompts))
+    checks["window_ring"]["tokens"] = sum(map(len, got.values()))
+
     out = {"phase": "c", "model": "olmo-1b (2 layers)", "dtype": "float32",
-           "requests": len(reqs), "tokens": sum(len(s) for s in gs.values()),
-           "ticks": gsrv.ticks, "streams_identical": same,
-           "first_token_logits_max_abs_diff": diff,
-           "packed_tokens": _packed_bucket(sum(lens)), "cpu_serve_s": cpu_s,
-           "launches": launches}
+           "checks": {k: {kk: v[kk] for kk in (
+               "streams_identical", "first_token_logits_max_abs_diff")}
+               for k, v in checks.items()}}
     _emit(out)
-    assert same, f"GPU and CPU greedy streams differ: {gs} vs {cs}"
-    return out
+    return dict(out, checks=checks)
 
 
 def _to_cpu(tree):
@@ -472,8 +774,9 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abc",
-                    help="which phases to run (default: abc)")
+    ap.add_argument("--phases", default="abdec",
+                    help="which phases to run, of a, b, d, e, c "
+                         "(default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -500,17 +803,26 @@ def main(argv=None) -> int:
                 _log(f"{n}: {line.strip()}")
     _log(f"kernels built in {build_s:.1f} s")
     report = {"build_s": build_s}
-    summary = {}
+    summary, paged_streams = {}, None
+    main_launches = {n: 0 for n in KERNEL_NAMES}
     if "a" in args.phases:
         report["a"], summary = phase_a(torch)
     if "b" in args.phases:
-        report["b"] = phase_b(torch)
-        for name, n in report["b"]["launches"].items():
-            if name in summary:
-                summary[name]["launches"] = n
+        report["b"], paged_streams = phase_b(torch)
+    if "d" in args.phases:
+        report["d"] = phase_d(torch)
+    if "e" in args.phases:
+        report["e"] = phase_e(torch, paged_streams)
+    for phase in "bde":
+        for name, n in report.get(phase, {}).get("launches", {}).items():
+            main_launches[name] += n
     if "c" in args.phases:
         report["c"] = phase_c(torch)
     if summary:
+        if all(p in args.phases for p in "bde"):
+            assert all(main_launches.values()), main_launches
+            for name, row in summary.items():
+                row["launches"] = main_launches[name]
         _emit({"kernels": list(summary.values())})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -27,12 +27,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_attention", "flash_attention", "chunk_attention")
+SOURCES = ("paged_attention", "flash_attention", "chunk_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
 
-# C argument kinds of the three entry points; ctypes needs them declared,
+# C argument kinds of the entry points; ctypes needs them declared,
 # or it passes every pointer as a 32-bit int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
@@ -42,11 +43,17 @@ SIGNATURES = {
         (_P,) * 5 + (_I,) * 7 + (_F, _P),
     "paged_chunk_attention":
         (_P,) * 9 + (_I,) * 9 + (_F, _P),
+    "decode_attention":
+        (_P,) * 5 + (_I,) * 6 + (_F, _P),
+    "flash_attention":
+        (_P,) * 4 + (_I,) * 8 + (_F, _P),
 }
 ENTRY_LIBRARY = {
     "paged_decode_attention": "paged_attention",
     "segment_flash_attention": "flash_attention",
     "paged_chunk_attention": "chunk_attention",
+    "decode_attention": "decode_attention",
+    "flash_attention": "flash_attention",
 }
 
 

@@ -1,11 +1,11 @@
-// Tile machinery shared by the three attention kernels of the port.
+// Tile machinery shared by the attention kernels of the port.
 //
 // Every kernel here computes, for a tile of up to kBQ query rows, an online
 // (flash-style) softmax over a sequence of key tiles of kBK keys each. The
 // kernels differ only in where a query row and a key row live in device
-// memory (a packed row, a block-table page, a chunk) and in which
-// (query, key) pairs are visible (a segment/causal mask, a length, a
-// window); both are passed in as small device lambdas.
+// memory (a padded or packed row, a contiguous or paged cache, a chunk)
+// and in which (query, key) pairs are visible (a causal or segment mask, a
+// length, a window); both are passed in as small device lambdas.
 //
 // Layout of the work inside a block of kThreads = 128 threads:
 //   * the query tile and one key/value tile sit in shared memory as f32
@@ -190,6 +190,42 @@ __device__ __forceinline__ void store_rows(const RowState<D>& st,
 #pragma unroll
     for (int i = 0; i < kDPL; ++i)
       out[off + lane + 32 * i] = from_f<T>(st.acc[rr][i] / denom);
+  }
+}
+
+// Single-token decode attention of one (row b, KV head g) block: the rep
+// query heads of the group are the rows of the tile (in tiles of kBQ when
+// rep > kBQ), and the key loop runs over the row's first len tokens only,
+// so nothing of the cache past a row's length is read. key_off(p) is the
+// element offset of token p of KV head g in k and v: a block-table lookup
+// for the paged kernel, a plain stride for the contiguous one. len == 0
+// writes exact zeros. q, out: (B, H, D).
+template <typename T, int D, class KeyOff>
+__device__ __forceinline__ void decode_group(T* __restrict__ out,
+                                             const T* __restrict__ q,
+                                             const T* __restrict__ k,
+                                             const T* __restrict__ v, int b,
+                                             int g, int H, int rep, int len,
+                                             float scale, KeyOff key_off) {
+  Smem<D>& sm = smem<D>();
+  for (int r0 = 0; r0 < rep; r0 += kBQ) {
+    const int nrows = min(kBQ, rep - r0);
+    auto qoff = [&](int r) -> long long {
+      return r < nrows ? ((long long)b * H + g * rep + r0 + r) * D : -1;
+    };
+    __syncthreads();  // the previous group's tiles are no longer read
+    load_q<T, D>(sm, q, qoff);
+    RowState<D> st;
+    st.init();
+    for (int k0 = 0; k0 < len; k0 += kBK) {
+      load_kv<T, D>(sm, k, v, [&](int t) -> long long {
+        const int p = k0 + t;
+        return p < len ? key_off(p) : -1;
+      });
+      fold_tile<D>(sm, st, scale,
+                   [&](int r, int t) { return r < nrows && k0 + t < len; });
+    }
+    store_rows<T, D>(st, out, qoff);
   }
 }
 

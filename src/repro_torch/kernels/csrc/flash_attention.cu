@@ -1,33 +1,115 @@
-// Segment-masked causal attention over a packed prefill row, for Hopper
-// (sm_90a).
+// Flash attention forward kernels for Hopper (sm_90a): the dense (padded)
+// GQA forward and the segment-masked packed prefill. Both TPU kernels live
+// in one JAX module, so both ports live in this one file; both run the
+// tile machinery of attn_common.cuh.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py,
-// segment_flash_attention (_segment_flash_kernel).
+// 1. flash_attention replaces the TPU kernel
+//    src/repro/kernels/flash_attention.py, flash_attention (_flash_kernel).
+//    q: (B, S, H, D); k, v: (B, S, KV, D). Token i attends token j iff
+//    (causal -> j <= i) and (window > 0 -> i - j < window); non-causal
+//    attention without a window sees every key. Query head h reads KV head
+//    h * KV / H. S is any prompt length: the kernel masks the ragged edge
+//    itself, so every padded prefill on the card goes through it (the TPU
+//    needs S to be a multiple of its 512 tile).
 //
-// A packed row concatenates the prompts of one admission batch; seg[b, i]
-// is the (non-decreasing) segment id of token i, padding tokens carry an
-// id no prompt uses. Token i attends token j iff seg[i] == seg[j], j <= i,
-// and, when window > 0, i - j < window. Query head h reads KV head
-// h * KV / H. T is any packed bucket (3·2^k as well as 2^k): the kernel
-// masks the ragged edge itself.
+// 2. segment_flash_attention replaces the TPU kernel
+//    src/repro/kernels/flash_attention.py, segment_flash_attention
+//    (_segment_flash_kernel). A packed row concatenates the prompts of one
+//    admission batch; seg[b, i] is the (non-decreasing) segment id of token
+//    i, padding tokens carry an id no prompt uses. Token i attends token j
+//    iff seg[i] == seg[j], j <= i, and, when window > 0, i - j < window. T
+//    is any packed bucket (3·2^k as well as 2^k).
 //
-// What bounds it on this card: operations. A tile of 32 query rows reuses
-// every key it loads 32 times, so at prompt lengths of hundreds of tokens
-// the QK^T and PV products dominate; their floor is 4·pairs·D flops per
-// head over the tensor-core peak, and this version, which runs them as f32
-// FMAs on the CUDA cores, stays well above that floor.
+// What bounds them on this card: operations. A tile of 32 query rows
+// reuses every key it loads 32 times, so at prompt lengths of hundreds of
+// tokens the QK^T and PV products dominate; their floor is 4·pairs·D
+// flops per head over the tensor-core peak, and this version, which runs
+// them as f32 FMAs on the CUDA cores, stays well above that floor.
 //
 // What the design does about it: one block per (query tile, head, row)
-// walks only the key tiles that can hold a visible pair. The walk starts
-// at the tile holding the first token of the query tile's first segment
-// (a binary search over the non-decreasing ids; with a window, no earlier
-// than q0 - window + 1) and stops at the diagonal, so a packed batch pays
-// for the pairs inside its segments, not for T^2. Not yet done (later
-// work): wgmma tensor-core products on bf16 tiles, TMA loads and a
-// persistent schedule.
+// walks only the key tiles that can hold a visible pair. The dense kernel
+// stops at the diagonal when causal and, with a window, starts at the
+// first tile whose newest key is still inside the window of the tile's
+// first query. The segment kernel starts at the tile holding the first
+// token of the query tile's first segment (a binary search over the
+// non-decreasing ids; with a window, no earlier than q0 - window + 1) and
+// stops at the diagonal, so a packed batch pays for the pairs inside its
+// segments, not for T^2. Not yet done (later work): wgmma tensor-core
+// products on bf16 tiles, TMA loads and a persistent schedule.
 #include "attn_common.cuh"
 
 using namespace attn;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_kernel(T* __restrict__ out, const T* __restrict__ q,
+             const T* __restrict__ k, const T* __restrict__ v, int S, int H,
+             int KV, int causal, int window, float scale) {
+  Smem<D>& sm = smem<D>();
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int g = h * KV / H;
+  const int q_last = min(q0 + kBQ, S) - 1;
+  auto qoff = [&](int r) -> long long {
+    const int i = q0 + r;
+    return i < S ? (((long long)b * S + i) * H + h) * D : -1;
+  };
+  load_q<T, D>(sm, q, qoff);
+
+  RowState<D> st;
+  st.init();
+  // keys [first, last]: a window starts the walk at the oldest key the
+  // tile's first query still sees, causality ends it at the diagonal
+  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int last = causal ? q_last : S - 1;
+  for (int kt = first / kBK; kt <= last / kBK; ++kt) {
+    const int k0 = kt * kBK;
+    load_kv<T, D>(sm, k, v, [&](int t) -> long long {
+      const int j = k0 + t;
+      return j < S ? (((long long)b * S + j) * KV + g) * D : -1;
+    });
+    fold_tile<D>(sm, st, scale, [&](int r, int t) {
+      const int i = q0 + r, j = k0 + t;
+      return i < S && j < S && (!causal || j <= i) &&
+             (window <= 0 || i - j < window);
+    });
+  }
+  store_rows<T, D>(st, out, qoff);
+}
+
+template <typename T, int D>
+static cudaError_t run_dense(void* out, const void* q, const void* k,
+                             const void* v, int B, int S, int H, int KV,
+                             int causal, int window, float scale,
+                             cudaStream_t stream) {
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  return launch(flash_kernel<T, D>, grid, smem_bytes<D>(), stream, (T*)out,
+                (const T*)q, (const T*)k, (const T*)v, S, H, KV, causal,
+                window, scale);
+}
+
+// q, out: (B, S, H, D); k, v: (B, S, KV, D); all contiguous. causal: 0/1;
+// window: 0 = none. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError().
+extern "C" int flash_attention(void* out, const void* q, const void* k,
+                               const void* v, int B, int S, int H, int KV,
+                               int D, int causal, int window, int dtype,
+                               float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B == 0 || S == 0) return cudaSuccess;
+  if (D == 64 && dtype == 0)
+    return run_dense<float, 64>(out, q, k, v, B, S, H, KV, causal, window,
+                                scale, s);
+  if (D == 64 && dtype == 1)
+    return run_dense<__nv_bfloat16, 64>(out, q, k, v, B, S, H, KV, causal,
+                                        window, scale, s);
+  if (D == 128 && dtype == 0)
+    return run_dense<float, 128>(out, q, k, v, B, S, H, KV, causal, window,
+                                 scale, s);
+  if (D == 128 && dtype == 1)
+    return run_dense<__nv_bfloat16, 128>(out, q, k, v, B, S, H, KV, causal,
+                                         window, scale, s);
+  return cudaErrorInvalidValue;
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)

@@ -22,6 +22,10 @@
 // ones after them. Not yet done (later work): 16-byte vector loads,
 // cp.async/TMA double buffering, and splitting long rows across blocks
 // (flash-decoding) when B * KV blocks do not fill the 132 SMs.
+//
+// The block body is decode_group of attn_common.cuh, shared with the
+// contiguous-cache decode kernel (decode_attention.cu): the two differ
+// only in the address of key p, here a block-table lookup.
 #include "attn_common.cuh"
 
 using namespace attn;
@@ -33,35 +37,16 @@ paged_decode_kernel(T* __restrict__ out, const T* __restrict__ q,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths, int H, int KV,
                     int page_size, int max_pages, float scale) {
-  Smem<D>& sm = smem<D>();
   const int g = blockIdx.x, b = blockIdx.y;
-  const int rep = H / KV;
-  const int len = lengths[b];
   const int* trow = tables + (long long)b * max_pages;
   const long long tok_stride = (long long)KV * D;
   const long long page_stride = (long long)page_size * tok_stride;
-  // rows of the tile are query heads g*rep + r0 + r of row b
-  for (int r0 = 0; r0 < rep; r0 += kBQ) {
-    const int nrows = min(kBQ, rep - r0);
-    auto qoff = [&](int r) -> long long {
-      return r < nrows ? ((long long)b * H + g * rep + r0 + r) * D : -1;
-    };
-    __syncthreads();  // the previous group's tiles are no longer read
-    load_q<T, D>(sm, q, qoff);
-    RowState<D> st;
-    st.init();
-    for (int k0 = 0; k0 < len; k0 += kBK) {
-      load_kv<T, D>(sm, kp, vp, [&](int t) -> long long {
-        const int p = k0 + t;
-        if (p >= len) return -1;
-        return trow[p / page_size] * page_stride +
-               (long long)(p % page_size) * tok_stride + (long long)g * D;
-      });
-      fold_tile<D>(sm, st, scale,
-                   [&](int r, int t) { return r < nrows && k0 + t < len; });
-    }
-    store_rows<T, D>(st, out, qoff);
-  }
+  decode_group<T, D>(out, q, kp, vp, b, g, H, H / KV, lengths[b], scale,
+                     [&](int p) -> long long {
+                       return trow[p / page_size] * page_stride +
+                              (long long)(p % page_size) * tok_stride +
+                              (long long)g * D;
+                     });
 }
 
 template <typename T, int D>

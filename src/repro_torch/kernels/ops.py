@@ -8,6 +8,7 @@ never reaches a plain version here.
 from __future__ import annotations
 
 from repro_torch.kernels import chunk_attention as _chunk
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 
@@ -26,6 +27,22 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
             q, k_pages, v_pages, block_tables, lengths)
     return _paged.paged_decode_attention_plain(
         q, k_pages, v_pages, block_tables, lengths)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q: (B, H, D); caches: (B, C, KV, D); lengths: (B,) int32 ->
+    (B, H, D)."""
+    if _route(q) == "cuda":
+        return _decode.decode_attention_cuda(q, k_cache, v_cache, lengths)
+    return _decode.decode_attention_plain(q, k_cache, v_cache, lengths)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, H, D); k, v: (B, S, KV, D) -> (B, S, H, D)."""
+    if _route(q) == "cuda":
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+    return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
 def segment_flash_attention(q, k, v, seg_ids, positions, seg_starts,

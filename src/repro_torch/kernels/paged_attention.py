@@ -11,8 +11,9 @@ Replaces the TPU kernel ``src/repro/kernels/paged_attention.py``
 block per (KV head, row), walking only the row's live pages);
 ``paged_decode_attention_plain`` gathers the pages into logical order and
 runs the masked decode body the JAX package's CPU path runs
-(``layers._masked_decode_attention``). ``repro_torch.kernels.ops`` picks
-one by the device the tensors lie on.
+(``layers._masked_decode_attention``; here
+``decode_attention.masked_decode_attention``). ``repro_torch.kernels.ops``
+picks one by the device the tensors lie on.
 """
 from __future__ import annotations
 
@@ -21,32 +22,11 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import masked_decode_attention
 
 # kernel launches so far; a run resets it to 0 and reads it back to show
 # that its path went through the kernel
 launches = 0
-
-
-def masked_decode_attention(q, k_cache, v_cache, lengths):
-    """The masked decode-attention body over a logical cache.
-
-    q: (B, H, D); caches: (B, C, KV, D); lengths: (B,) int. Scores and
-    the weighted sum accumulate in float32, the softmax weights round to
-    q's dtype in between (as the JAX CPU path does); rows with length 0
-    return zeros."""
-    b, c, kvh, d = k_cache.shape
-    h = q.shape[1]
-    qg = q.reshape(b, kvh, h // kvh, d)
-    sc = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k_cache.float())
-    sc = sc / math.sqrt(d)
-    pos = torch.arange(c, device=q.device)
-    mask = pos[None, None, None, :] < lengths.reshape(b, 1, 1, 1)
-    sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
-    w = torch.softmax(sc, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrk,bkgd->bgrd", w.float(), v_cache.float())
-    out = torch.where(lengths.reshape(b, 1, 1, 1) > 0, out,
-                      torch.zeros_like(out))
-    return out.reshape(b, h, d).to(q.dtype)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,

@@ -1,5 +1,6 @@
 """Model-building primitives of the port: the dense-decoder subset of the
-JAX package's ``repro.models.layers``, as plain functions on tensors.
+JAX package's ``repro.models.layers``, as plain functions on tensors —
+for padded and packed prefill, and decode over ring or paged caches.
 
 Parameters are declared through a *plan* of ``ParamDef``s (same shapes and
 initialisers as the JAX package), and the apply functions take the same
@@ -21,16 +22,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (rows_to_segments,
+from repro_torch.kernels.flash_attention import (attention_dense, repeat_kv,
+                                                 rows_to_segments,
                                                  segments_to_rows)
 
 __all__ = [
     "ParamDef", "stack_plan", "norm_plan", "attn_plan", "mlp_plan",
     "embed_plan", "apply_norm", "rope_tables", "apply_rope", "attn_qkv",
-    "attn_out", "apply_mlp", "embed_tokens", "unembed", "packed_positions",
+    "attn_out", "apply_mlp", "embed_tokens", "unembed", "repeat_kv",
+    "attention_dense", "big_attention", "cp_attention", "packed_positions",
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
-    "paged_cache_update", "paged_decode_attention", "paged_chunk_attention",
-    "decode_index", "carry_cache_meta",
+    "cache_row_update", "paged_cache_update", "decode_attention",
+    "paged_decode_attention", "paged_chunk_attention", "decode_index",
+    "carry_cache_meta",
 ]
 
 
@@ -194,6 +198,24 @@ def unembed(p, x, cfg):
 
 
 # --------------------------------------------------------------------------
+# padded (dense) attention
+# --------------------------------------------------------------------------
+def big_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Self-attention of a padded batch. q: (B, S, H, D); k, v:
+    (B, S, KV, D). On a GPU every prompt length goes through the flash
+    kernel (it masks the ragged edge, so there is no tile-multiple gate);
+    on the CPU the plain version runs ``attention_dense`` under the
+    causal/window mask, as the JAX CPU path does."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def cp_attention(cfg, q, k, v, *, causal: bool, window: int = 0):
+    """Context-parallel self-attention on one device: ``big_attention``
+    (the JAX package's sequence-sharded branch needs a mesh)."""
+    return big_attention(q, k, v, causal=causal, window=window)
+
+
+# --------------------------------------------------------------------------
 # packed ragged prefill
 # --------------------------------------------------------------------------
 def packed_positions(seg_ids, seg_starts):
@@ -218,8 +240,27 @@ def packed_prefill_attention(q, k, v, seg_ids, positions, seg_starts,
 
 
 # --------------------------------------------------------------------------
-# paged KV cache
+# ring and paged KV caches
 # --------------------------------------------------------------------------
+def cache_row_update(buf, new, slot):
+    """Write ``new`` (B, 1, ...) IN PLACE into ``buf`` (B, C, ...) at
+    per-row ring position ``slot`` (B,): one row per sequence."""
+    bidx = torch.arange(buf.shape[0], device=buf.device)
+    buf[bidx, slot.long()] = new[:, 0].to(buf.dtype)
+    return buf
+
+
+def decode_attention(q, k_cache, v_cache, valid_len):
+    """Single-token attention over contiguous per-row caches. q: (B, H, D);
+    caches: (B, C, KV, D); valid_len: (B,) lengths (0 = zeros). On a GPU
+    every C goes through the decode kernel (no tile-multiple gate)."""
+    lengths = torch.broadcast_to(
+        torch.as_tensor(valid_len, dtype=torch.int32,
+                        device=q.device).reshape(-1),
+        (q.shape[0],)).contiguous()
+    return ops.decode_attention(q, k_cache, v_cache, lengths)
+
+
 def paged_cache_update(buf, new, pages, slots):
     """Write ``new`` (B, 1, ...) IN PLACE into the paged pool ``buf``
     (P, page_size, ...) at physical page ``pages`` (B,) and in-page offset
@@ -248,34 +289,51 @@ def paged_chunk_attention(q_rows, k_pages, v_pages, k_rows, v_rows,
 
 
 def decode_index(pos, cache, key):
-    """Per-row write/read machinery of one decode step over a paged cache
-    (the port has no ring slots yet). pos: (B,) int32 positions; ``key``:
-    the K leaf the layout is read from. Returns ``(update, attend,
-    valid)``: ``update(buf, new)`` writes the step's (B, 1, ...) entries in
-    place at each row's (page, offset); ``attend(q, kc, vc, window=0)``
-    runs paged decode attention; ``valid`` is the (B,) lengths vector."""
-    if "block_tables" not in cache:
-        raise NotImplementedError("ring (non-paged) slot caches")
-    tables = cache["block_tables"]
-    page_size = cache[key].shape[2]
-    max_pages = tables.shape[1]
-    bidx = torch.arange(pos.shape[0], device=pos.device)
-    # past-capacity clamp is belt-and-braces: the engine caps every slot's
-    # budget at its page capacity (vacant rows sit at pos 0, null page)
-    page = tables[bidx, torch.clamp(pos // page_size, max=max_pages - 1)]
-    slot = pos % page_size
-    valid = torch.clamp(pos + 1, max=max_pages * page_size).to(torch.int32)
+    """Per-row write/read machinery of one decode step over either cache
+    layout (``block_tables`` present = paged). pos: (B,) int32 positions;
+    ``key``: the K leaf the layout is read from. Returns ``(update,
+    attend, valid)``: ``update(buf, new)`` writes the step's (B, 1, ...)
+    entries in place at each row's coordinates — (page, offset) when
+    paged, ring row ``pos % C`` otherwise; ``attend(q, kc, vc, window=0)``
+    runs decode attention against the updated buffer; ``valid`` is the
+    (B,) lengths vector."""
+    if "block_tables" in cache:
+        tables = cache["block_tables"]
+        page_size = cache[key].shape[2]
+        max_pages = tables.shape[1]
+        bidx = torch.arange(pos.shape[0], device=pos.device)
+        # past-capacity clamp is belt-and-braces: the engine caps every
+        # slot's budget at its page capacity (vacant rows sit at pos 0,
+        # null page)
+        page = tables[bidx, torch.clamp(pos // page_size, max=max_pages - 1)]
+        slot = pos % page_size
+        valid = torch.clamp(pos + 1, max=max_pages * page_size).to(
+            torch.int32)
+
+        def update(buf, new):
+            return paged_cache_update(buf, new, page, slot)
+
+        def attend(q, kc, vc, window: int = 0):
+            if window:
+                # a paged slot keeps its full history (pages never evict),
+                # so a window would need page-level masking that is not
+                # written; windowed configs stay on ring slots
+                raise NotImplementedError(
+                    "sliding-window attention over a paged cache")
+            return paged_decode_attention(q, kc, vc, tables, valid)
+
+        return update, attend, valid
+
+    cache_len = cache[key].shape[2]
+    slot = pos % cache_len if cache_len > 0 else torch.zeros_like(pos)
+    valid = torch.clamp(pos + 1, max=cache_len).to(torch.int32)
 
     def update(buf, new):
-        return paged_cache_update(buf, new, page, slot)
+        return cache_row_update(buf, new, slot)
 
     def attend(q, kc, vc, window: int = 0):
-        if window:
-            # a paged slot keeps its full history (pages never evict), so
-            # a window would need page-level masking that is not written
-            raise NotImplementedError(
-                "sliding-window attention over a paged cache")
-        return paged_decode_attention(q, kc, vc, tables, valid)
+        # a ring slot's overwrite is its window: nothing more to mask
+        return decode_attention(q, kc, vc, valid)
 
     return update, attend, valid
 

@@ -2,13 +2,15 @@
 fields carry the JAX package's names, so the serving engine never branches
 on architecture:
 
+  forward(params, batch)                         -> (logits (B, S, V), aux)
+  prefill(params, batch, cache_len)              -> (last logits (B, V), cache)
   prefill_packed(params, packed, row_len)        -> (seg_logits, packed cache)
   prefill_chunk(params, packed, cache, row_len)  -> (seg_logits, argmax, cache)
   decode_step(params, token (B,), cache)         -> (logits (B, V), cache)
 
-Only the dense family (no experts) over a paged cache is ported so far;
-``forward``/``prefill`` and ring caches come with the padded-prefill and
-ring-slot kernels.
+``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device. Only the
+dense family (no experts) is ported so far, over ring (``init_cache``) and
+paged (``init_paged_cache``) caches.
 """
 from __future__ import annotations
 
@@ -28,11 +30,14 @@ class ModelAPI:
     device: torch.device
     plan: Any
     init: Callable
+    forward: Callable
+    prefill: Callable
     # packed ragged prefill: a whole admission batch concatenated into one
     # (1, total_tokens) row; per-SEGMENT last logits plus a packed cache
     # whose per-token leaves the engine scatters straight into pages
     prefill_packed: Callable
     decode_step: Callable
+    init_cache: Callable
     paged_keys: tuple = ()
     init_paged_cache: Optional[Callable] = None
     # incremental chunk attention over K/V resident in the page pool
@@ -51,6 +56,9 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     def init(generator: torch.Generator, dtype=torch.float32):
         return weights.init_params(cfg, generator, dev, dtype)
 
+    def init_cache(batch, cache_len, dtype=None):
+        return mod.init_cache(cfg, batch, cache_len, dtype, device=dev)
+
     def init_paged(batch, num_pages, page_size, max_pages, dtype=None):
         return mod.init_paged_cache(cfg, batch, num_pages, page_size,
                                     max_pages, dtype, device=dev)
@@ -60,10 +68,15 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         device=dev,
         plan=mod.plan(cfg),
         init=init,
+        forward=lambda params, batch: mod.forward(params, cfg,
+                                                  batch["tokens"]),
+        prefill=lambda params, batch, cache_len: mod.prefill(
+            params, cfg, batch["tokens"], cache_len),
         prefill_packed=lambda params, packed, row_len: mod.prefill_packed(
             params, cfg, packed, row_len),
         decode_step=lambda params, token, cache: mod.decode_step(
             params, cfg, token, cache),
+        init_cache=init_cache,
         paged_keys=tuple(mod.PAGED_KEYS),
         init_paged_cache=init_paged,
         prefill_chunk=lambda params, packed, cache, row_len:

@@ -1,18 +1,21 @@
-"""Dense decoder-only transformer over a paged KV cache (olmo-1b,
-qwen2-0.5b, ...): the serving entry points of the JAX package's
-``repro.models.transformer`` for the dense family without experts.
+"""Dense decoder-only transformer (olmo-1b, qwen2-0.5b, ...): the serving
+entry points of the JAX package's ``repro.models.transformer`` for the
+dense family without experts — the full-sequence ``forward``, the padded
+``prefill`` into a ring/contiguous cache, the packed and chunked prefills
+of paged serving, and ``decode_step`` over either cache layout.
 
 Parameters are the JAX package's dictionary layout: ``embed``, ``layers``
 (every leaf stacked on a leading layer axis) and ``final_norm``. Layers run
 as a Python loop over that axis (the JAX package scans them).
 
 Unlike the JAX package, which threads the cache through functionally,
-``decode_step`` writes the step's K/V into the page pool IN PLACE (the
-returned cache holds the same pool tensors). The dead-write semantics are
-the JAX package's: every row writes, and rows the engine did not step
-land at a not-yet-valid position of their own pages or on the null page.
-``prefill_packed`` and ``prefill_chunk`` read the pool only; the engine
-scatters the K/V they return.
+``decode_step`` writes the step's K/V into the cache IN PLACE (the
+returned cache holds the same K/V tensors): at ring row ``pos % C`` of a
+contiguous cache, or at (page, offset) of the page pool. The dead-write
+semantics are the JAX package's: every row writes; the engine restores
+or parks the rows it did not step. ``prefill_packed`` and
+``prefill_chunk`` read the pool only; the engine scatters the K/V they
+return.
 """
 from __future__ import annotations
 
@@ -61,6 +64,79 @@ def _block(cfg, lp, x, rope, attention):
     x1 = x + L.attn_out(lp["attn"], x.dtype, attention(q, k, v))
     h2 = L.apply_norm(lp["ln2"], x1, cfg.norm)
     return x1 + L.apply_mlp(lp["mlp"], h2), k, v
+
+
+# --------------------------------------------------------------------------
+# full-sequence forward and padded prefill
+# --------------------------------------------------------------------------
+def forward(params, cfg, tokens):
+    """tokens: (B, S) int -> (logits (B, S, V), aux). The dense family has
+    no auxiliary losses: aux holds the JAX package's two keys at 0."""
+    dtype = dtype_of(cfg.dtype)
+    x = L.embed_tokens(params["embed"], tokens, dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    rope = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+    def attention(q, k, v):
+        return L.cp_attention(cfg, q, k, v, causal=True,
+                              window=cfg.sliding_window)
+
+    for i in range(cfg.num_layers):
+        x, _, _ = _block(cfg, _layer(params["layers"], i), x, rope,
+                         attention)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params["embed"], x, cfg), {
+        "load_balance_loss": zero, "dropped_fraction": zero}
+
+
+def cache_plan(cfg, batch: int, cache_len: int) -> dict:
+    """The contiguous (ring) cache: K/V (layers, batch, cache_len, KV, D)
+    and the per-row positions."""
+    lcfg = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+    return {"k": L.ParamDef(lcfg, "zeros"), "v": L.ParamDef(lcfg, "zeros"),
+            "pos": L.ParamDef((batch,), "zeros")}
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu"):
+    dtype = dtype_of(dtype or cfg.dtype)
+    cp = cache_plan(cfg, batch, cache_len)
+    return {
+        "k": torch.zeros(cp["k"].shape, dtype=dtype, device=device),
+        "v": torch.zeros(cp["v"].shape, dtype=dtype, device=device),
+        "pos": torch.zeros(cp["pos"].shape, dtype=torch.int32,
+                           device=device),
+    }
+
+
+def prefill(params, cfg, tokens, cache_len: int):
+    """Run a padded batch of prompts (B, S) through the model, building a
+    fresh contiguous cache of ``cache_len`` rows per sequence. Returns
+    (logits of the last position (B, V), cache with ``pos`` = S).
+
+    A prompt longer than the cache (a sliding-window ring) keeps its last
+    ``cache_len`` keys at rows 0..cache_len-1, as the JAX package does."""
+    dtype = dtype_of(cfg.dtype)
+    b, s = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens, dtype)
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    rope = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device)
+    keep = min(s, cache_len)
+
+    def attention(q, k, v):
+        return L.cp_attention(cfg, q, k, v, causal=True,
+                              window=cfg.sliding_window)
+
+    for i in range(cfg.num_layers):
+        x, k, v = _block(cfg, _layer(params["layers"], i), x, rope,
+                         attention)
+        cache["k"][i, :, :keep] = k[:, s - keep:]
+        cache["v"][i, :, :keep] = v[:, s - keep:]
+    x = L.apply_norm(params["final_norm"], x[:, -1], cfg.norm)
+    cache["pos"].fill_(s)
+    return L.unembed(params["embed"], x, cfg), cache
 
 
 # --------------------------------------------------------------------------
@@ -168,11 +244,12 @@ def prefill_chunk(params, cfg, packed, cache, max_seg_len: int):
 
 
 def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
-    """token: (B,) int; one autoregressive step against the paged cache.
-    Each row writes its new K/V at (block_tables[b, pos // page_size],
-    pos % page_size) — in place in ``cache["k"]``/``cache["v"]`` — and
-    attends its first pos + 1 tokens. Returns (logits (B, V), cache with
-    the same pools and ``pos`` + 1)."""
+    """token: (B,) int; one autoregressive step against the cache. Each row
+    writes its new K/V in place in ``cache["k"]``/``cache["v"]`` — at ring
+    row ``pos % C`` of a contiguous cache, attending its last
+    ``min(pos + 1, C)`` tokens, or at (block_tables[b, pos // page_size],
+    pos % page_size) of a paged one, attending its first pos + 1. Returns
+    (logits (B, V), cache with the same K/V tensors and ``pos`` + 1)."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], token, dtype)             # (B, d)
     pos = cache["pos"].to(torch.int32)

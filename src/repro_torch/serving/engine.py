@@ -1,30 +1,36 @@
-"""Paged slot engine of the port — the data plane under the step planner.
+"""Slot engine of the port — the data plane under the step planner.
 
-The paged-slot subset of the JAX package's ``InferenceEngine`` that
-``StepPlanner``/``TickServer`` drive, with the same method names, the same
-page bookkeeping (``repro_torch.serving.kv_cache``) and the same
-``EngineStats``:
+The JAX package's ``InferenceEngine`` for the dense family, with the same
+method names, the same page bookkeeping (``repro_torch.serving.kv_cache``)
+and the same ``EngineStats``:
 
-* ``insert_many`` admits a whole admission batch in ONE packed ragged
-  prefill (prompts concatenated into one row, bucketed by
-  ``_packed_bucket``) and scatters each segment's K/V straight into its
-  slot's pages;
+* ``generate`` (and its per-token twin ``generate_eager``) runs a padded
+  batch: one ``prefill`` into a contiguous cache of the bucketed length,
+  then greedy ``decode`` steps;
+* ``init_slots`` backs continuous-batching slots with a block-table page
+  pool (``paged=True``) or with per-slot rings (``paged=False``, and every
+  sliding-window config: the ring's overwrite is the window);
+* ``insert`` admits one request through a padded prefill; ``insert_many``
+  admits a whole admission batch in ONE packed ragged prefill (prompts
+  concatenated into one row, bucketed by ``_packed_bucket``) and scatters
+  each segment's K/V straight into its slot's pages or ring rows;
 * ``chunk_append`` advances every mid-prefill slot by one chunk in ONE
-  incremental dispatch: only the new tokens run, attending the K/V their
-  slot already holds in the page pool;
+  dispatch: incrementally on paged slots (only the new tokens run,
+  attending the K/V their slot holds in the page pool), by prefix
+  recompute on ring slots (the whole prefix re-runs the packed prefill);
 * ``step`` decodes one token for the stepped slots in ONE masked dispatch;
 * ``execute(plan)`` runs one ``StepPlan`` in at most these three
   dispatches per tick.
 
 What differs from the JAX engine: PyTorch runs eagerly, so there are no
-per-bucket executables to compile or count; the page pool and the block
+per-bucket executables to compile or count; the caches and the block
 table are updated IN PLACE on the device (the JAX engine donates and
 rebuilds them); and the packed metadata (segment ids, lengths,
 destinations, table rows) is built on the host in numpy and uploaded
 once per dispatch as one int32 buffer — nothing on the serving path reads
 a device value back except the one tick-end read of the decoded tokens.
-Sampled slot steps, the prefix cache, speculative decoding, telemetry and
-ring slots are not ported yet: those attributes stay ``None``.
+Sampled decoding, the prefix cache, speculative decoding and telemetry
+are not ported yet: those attributes stay ``None``.
 """
 from __future__ import annotations
 
@@ -124,6 +130,90 @@ class InferenceEngine:
         self._slot_pos: List[int] = []      # host mirror of cache["pos"]
         self._active_mask: Optional[np.ndarray] = None
         self._last_tok: Optional[torch.Tensor] = None
+        self._step_skip = frozenset()
+        self._ring_keys: Tuple[str, ...] = ()
+
+    # ------------------------------------------------------------------
+    def _tokens(self, batch) -> torch.Tensor:
+        """``batch["tokens"]`` (numpy or tensor) as an int32 tensor on the
+        engine's device."""
+        t = batch["tokens"]
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.asarray(t, np.int32))
+        return t.to(self.device)
+
+    def bucket_len(self, need: int) -> int:
+        """Cache-length bucket for ``need`` tokens: next power of two,
+        floored at the engine's base cache_len."""
+        return max(self.cache_len, _pow2_at_least(need))
+
+    def new_cache(self, batch: int, cache_len: Optional[int] = None):
+        return self.api.init_cache(batch, cache_len or self.cache_len)
+
+    def prefill(self, batch: Dict[str, Any],
+                cache_len: Optional[int] = None):
+        """Padded prefill of ``batch["tokens"]`` (B, S) into a fresh
+        contiguous cache of ``cache_len`` rows (default: the engine's).
+        Returns (last logits (B, V), cache)."""
+        tokens = self._tokens(batch)
+        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
+                                         cache_len or self.cache_len)
+        self.stats.prefills += 1
+        self.stats.prefill_tokens += int(tokens.shape[0] * tokens.shape[1])
+        return logits, cache
+
+    def decode(self, token, cache):
+        logits, cache = self.api.decode_step(self.params, token, cache)
+        self.stats.decode_steps += 1
+        return logits, cache
+
+    def generate(self, batch: Dict[str, Any], max_new_tokens: int,
+                 sampling=None) -> torch.Tensor:
+        """Greedy generation for a padded batch: one prefill into a cache
+        of ``bucket_len(S + t_bucket)`` rows, then ``t_bucket`` decode
+        steps (the JAX engine's scan length: the next power of two of
+        ``max_new_tokens``) whose surplus tokens are dropped. Returns
+        (B, max_new_tokens) token ids on the device."""
+        if sampling is not None:
+            raise NotImplementedError("sampled generation")
+        tokens = self._tokens(batch)
+        b, s = tokens.shape
+        t_bucket = max(1, _pow2_at_least(max_new_tokens))
+        logits, cache = self.prefill({"tokens": tokens},
+                                     self.bucket_len(s + t_bucket))
+        tok = torch.argmax(logits, -1)
+        out = torch.empty((b, t_bucket), dtype=tok.dtype, device=self.device)
+        for i in range(t_bucket):
+            out[:, i] = tok
+            logits, cache = self.api.decode_step(self.params, tok, cache)
+            tok = torch.argmax(logits, -1)
+        self.stats.decode_steps += t_bucket
+        self.stats.tokens_out += b * max_new_tokens
+        return out[:, :max_new_tokens]
+
+    def generate_eager(self, batch: Dict[str, Any],
+                       max_new_tokens: int) -> torch.Tensor:
+        """The JAX engine's reference path: an unbucketed prefill of exactly
+        ``max(cache_len, S + max_new_tokens)`` rows, then one counted
+        ``decode`` per token. Equal to ``generate`` under greedy decoding
+        (the counters differ as they do in the JAX engine)."""
+        tokens = self._tokens(batch)
+        b, s = tokens.shape
+        need = max(self.cache_len, s + max_new_tokens)
+        if need != self.cache_len:
+            logits, cache = self.api.prefill(self.params, {"tokens": tokens},
+                                             need)
+            self.stats.prefills += 1
+        else:
+            logits, cache = self.prefill({"tokens": tokens}, self.cache_len)
+        outs = []
+        tok = torch.argmax(logits, -1)
+        for _ in range(max_new_tokens):
+            outs.append(tok)
+            logits, cache = self.decode(tok, cache)
+            tok = torch.argmax(logits, -1)
+        self.stats.tokens_out += b * max_new_tokens
+        return torch.stack(outs, dim=1)
 
     # ------------------------------------------------------------------
     @property
@@ -145,35 +235,43 @@ class InferenceEngine:
     def init_slots(self, n_slots: int, cache_len: Optional[int] = None, *,
                    paged: bool = True, page_size: int = 8,
                    total_pages: Optional[int] = None, sampling=None):
-        """Allocate ``n_slots`` slots backed by a block-table page pool of
+        """Allocate ``n_slots`` greedy slots of ``cache_len`` tokens.
+        ``paged=True`` backs them with a block-table page pool of
         ``total_pages`` usable pages (default ``n_slots * cache_len /
-        page_size``). Only paged, greedy slots are ported."""
-        if not paged or not self.api.paged_keys:
-            raise NotImplementedError("ring (non-paged) slots")
-        if getattr(self.cfg, "sliding_window", 0):
-            raise NotImplementedError(
-                "sliding-window configs need ring slots")
+        page_size``); ``paged=False`` gives each slot its own ring (the
+        parity baseline). Sliding-window configs stay on ring slots even
+        when ``paged`` is asked for: the ring's overwrite is the window,
+        while a paged slot keeps its full history."""
         if sampling is not None:
             raise NotImplementedError("sampled slot steps")
         self.slot_len = cache_len or self.cache_len
-        if self.slot_len % page_size:
-            raise ValueError(
-                f"cache_len {self.slot_len} must be a multiple of "
-                f"page_size {page_size}")
-        self.paged = True
-        self.page_size = page_size
-        self.max_pages = self.slot_len // page_size
-        usable = total_pages or n_slots * self.max_pages
-        self._kv = PagedKVCache(n_slots, page_size, self.max_pages,
-                                num_pages=usable)
-        self._kv.allocator.fault_injector = self.fault_injector
-        # +1 physical page: id 0 is the reserved null page
-        self._slot_cache = self.api.init_paged_cache(
-            n_slots, usable + 1, page_size, self.max_pages)
-        # decode dispatches merge per-row leaves through the step mask;
-        # page-indexed leaves and the table pass through (dead writes land
-        # on the null page or at a not-yet-valid position)
-        self._step_skip = frozenset(self.api.paged_keys) | {"block_tables"}
+        self.paged = (bool(paged) and bool(self.api.paged_keys)
+                      and not getattr(self.cfg, "sliding_window", 0))
+        if self.paged:
+            if self.slot_len % page_size:
+                raise ValueError(
+                    f"cache_len {self.slot_len} must be a multiple of "
+                    f"page_size {page_size}")
+            self.page_size = page_size
+            self.max_pages = self.slot_len // page_size
+            usable = total_pages or n_slots * self.max_pages
+            self._kv = PagedKVCache(n_slots, page_size, self.max_pages,
+                                    num_pages=usable)
+            self._kv.allocator.fault_injector = self.fault_injector
+            # +1 physical page: id 0 is the reserved null page
+            self._slot_cache = self.api.init_paged_cache(
+                n_slots, usable + 1, page_size, self.max_pages)
+        else:
+            self._kv = None
+            self._slot_cache = self.api.init_cache(n_slots, self.slot_len)
+        # decode dispatches merge per-row leaves through the step mask. The
+        # K/V leaves pass through: paged, their masked-off rows' dead
+        # writes land on the null page or at a not-yet-valid position; on
+        # a ring the step restores the one entry each masked-off row wrote
+        # (``_ring_keys``), which is all the JAX engine's merge keeps
+        self._step_skip = frozenset(self.api.paged_keys) | (
+            {"block_tables"} if self.paged else frozenset())
+        self._ring_keys = () if self.paged else tuple(self.api.paged_keys)
         self._slot_free = list(range(n_slots))
         self._slot_active = [False] * n_slots
         self._slot_budget = [None] * n_slots
@@ -183,6 +281,78 @@ class InferenceEngine:
         self._last_tok = torch.zeros((n_slots,), dtype=torch.int64,
                                      device=self.device)
         return self
+
+    # ------------------------------------------------ admission accounting
+    def _need_tokens(self, prompt_len: int, n_tokens: Optional[int]) -> int:
+        """KV entries a request pins: prompt + decode budget, capped at the
+        slot maximum (an unbudgeted request reserves the full slot)."""
+        if n_tokens is None:
+            return self.slot_len
+        return min(self.slot_len, int(prompt_len) + max(1, int(n_tokens)))
+
+    def pages_needed(self, prompt_len: int, n_tokens: Optional[int]) -> int:
+        if not self.paged:
+            return 0
+        return self._kv.pages_needed(self._need_tokens(prompt_len, n_tokens))
+
+    def can_admit(self, prompt_len: int, n_tokens: Optional[int]) -> bool:
+        """A free slot and, when paged, a prompt that leaves decode room
+        and enough free pages for the request's whole horizon."""
+        if not self._slot_free:
+            return False
+        if not self.paged:
+            return True
+        if prompt_len >= self.slot_len:
+            return False
+        return self._kv.allocator.can_alloc(
+            self.pages_needed(prompt_len, n_tokens))
+
+    def insert(self, batch: Dict[str, Any], n_tokens: Optional[int] = None,
+               reserve_tokens: Optional[int] = None) -> int:
+        """Admit one request (batch size 1) into a free slot through a
+        padded prefill of ``slot_len`` rows: paged, its cache scatters into
+        freshly allocated pages and the slot's table row is set; ring, it
+        fills the slot's rows. ``n_tokens`` is the decode budget (paged:
+        capped at the page capacity); ``reserve_tokens`` overrides the
+        page horizon claimed now. Raises ``OutOfPages`` with the slot
+        untouched when the pool cannot cover it."""
+        if not self._slot_free:
+            raise RuntimeError("no free slots")
+        tokens = self._tokens(batch)
+        assert tokens.shape[0] == 1, "insert admits one request"
+        s = int(tokens.shape[1])
+        slot = self._slot_free[0]          # claim only after pages are ours
+        if self.paged:
+            if s >= self.slot_len:
+                raise ValueError(
+                    f"prompt of {s} tokens leaves no decode room in a "
+                    f"{self.slot_len}-token paged slot (pages are never "
+                    f"evicted; use a longer cache_len)")
+            room = self.slot_len - s
+            budget = room if n_tokens is None else max(
+                1, min(int(n_tokens), room))
+            horizon = s + budget if reserve_tokens is None else max(
+                s, min(int(reserve_tokens), self.slot_len))
+            self._kv.alloc(slot, horizon)
+            table_row = torch.from_numpy(np.asarray(
+                self._kv.table_row(slot), np.int32)).to(self.device)
+        else:
+            budget = None if n_tokens is None else max(1, int(n_tokens))
+        self._slot_free.pop(0)
+        logits, one = self.prefill({"tokens": tokens}, self.slot_len)
+        if self.paged:
+            _write_slot_paged(self._slot_cache, one, slot, table_row,
+                              self.page_size, self.api.paged_keys)
+        else:
+            _write_slot(self._slot_cache, one, slot)
+        self._last_tok[slot] = torch.argmax(logits[0], -1)
+        self._slot_active[slot] = True
+        self._slot_budget[slot] = budget
+        self._slot_generated[slot] = 0
+        self._slot_pos[slot] = s
+        self._active_mask[slot] = True
+        self.stats.inserts += 1
+        return slot
 
     # ------------------------------------------------ packed batch insert
     def _pack_prompts(self, batches: List[Dict[str, Any]],
@@ -212,11 +382,11 @@ class InferenceEngine:
                     reserve_tokens: Optional[List[Optional[int]]] = None
                     ) -> List[int]:
         """Admit a whole admission batch in ONE packed prefill dispatch and
-        scatter every segment's K/V into its slot's pages. Page allocation
-        is all-or-nothing: on ``OutOfPages`` every page already claimed
-        returns and no slot is touched. ``reserve_tokens[i]`` (>= prompt
-        i's length) overrides request i's page horizon (lazy
-        reservation)."""
+        scatter every segment's K/V into its slot's pages or ring rows.
+        Page allocation is all-or-nothing: on ``OutOfPages`` every page
+        already claimed returns and no slot is touched.
+        ``reserve_tokens[i]`` (>= prompt i's length) overrides request i's
+        page horizon (lazy reservation)."""
         n = len(batches)
         if n == 0:
             return []
@@ -231,8 +401,15 @@ class InferenceEngine:
             assert b["tokens"].shape[0] == 1, \
                 "insert_many packs single-request batches"
             lens.append(int(b["tokens"].shape[1]))
-        budgets: List[int] = []
+        budgets: List[Optional[int]] = []
         for s, nt in zip(lens, n_tokens):
+            if not self.paged:
+                if s > self.slot_len:
+                    raise ValueError(
+                        f"prompt of {s} tokens exceeds the {self.slot_len}-"
+                        f"token slot (packed prefill cannot ring-wrap)")
+                budgets.append(None if nt is None else max(1, int(nt)))
+                continue
             if s >= self.slot_len:
                 raise ValueError(
                     f"prompt of {s} tokens leaves no decode room in a "
@@ -241,28 +418,26 @@ class InferenceEngine:
             room = self.slot_len - s
             budgets.append(room if nt is None else max(1, min(int(nt), room)))
         slots = self._slot_free[:n]
-        claimed: List[int] = []
-        try:
-            for slot, s, budget, rsv in zip(slots, lens, budgets,
-                                            reserve_tokens):
-                horizon = s + budget if rsv is None else max(
-                    s, min(int(rsv), self.slot_len))
-                self._kv.alloc(slot, horizon)
-                claimed.append(slot)
-        except OutOfPages:
-            for slot in claimed:
-                self._kv.free(slot)
-            raise
+        if self.paged:
+            claimed: List[int] = []
+            try:
+                for slot, s, budget, rsv in zip(slots, lens, budgets,
+                                                reserve_tokens):
+                    horizon = s + budget if rsv is None else max(
+                        s, min(int(rsv), self.slot_len))
+                    self._kv.alloc(slot, horizon)
+                    claimed.append(slot)
+            except OutOfPages:
+                for slot in claimed:
+                    self._kv.free(slot)
+                raise
         del self._slot_free[:n]
 
         packed = self._pack_prompts(batches, lens)
         dest = self._segment_dest(slots, lens)
         dev = _upload(self.device, **packed, **dest)
         row_len = min(self.slot_len, _pow2_at_least(max(lens)))
-        logits, pcache = self.api.prefill_packed(self.params, dev, row_len)
-        self.stats.prefills += 1
-        self.stats.packed_prefills += 1
-        self.stats.prefill_tokens += sum(lens)
+        logits, pcache = self._prefill_packed(dev, row_len, sum(lens))
         _write_segments(self._slot_cache, self._last_tok, pcache, logits,
                         dev, n, sum(lens), self.api.paged_keys)
         for slot, s, budget in zip(slots, lens, budgets):
@@ -274,12 +449,36 @@ class InferenceEngine:
         self.stats.inserts += n
         return slots
 
+    def _prefill_packed(self, dev, row_len: int, n_tokens: int):
+        """One packed prefill dispatch over the uploaded ``dev`` leaves,
+        charged as the JAX engine's ``prefill_packed`` charges it."""
+        logits, pcache = self.api.prefill_packed(self.params, dev, row_len)
+        self.stats.prefills += 1
+        self.stats.packed_prefills += 1
+        self.stats.prefill_tokens += n_tokens
+        return logits, pcache
+
     def _segment_dest(self, slots: List[int], lens: List[int]):
-        """Host destination indices of the packed-segment scatter: per
-        token (physical page, in-page offset) from the pages just
-        allocated; per segment the slot id (padding: ``n_slots``) and the
-        slot's table row. Padding tokens target the null page."""
-        return self._segment_dest_at(slots, lens, [0] * len(slots))
+        """Host destination indices of the packed-segment scatter of whole
+        prompts: per token (physical page, in-page offset) from the pages
+        just allocated, or (slot row, column) on a ring; per segment the
+        slot id (padding: ``n_slots``) and, paged, the slot's table row.
+        Padding tokens target the null page (paged) or a column past the
+        ring; neither is written."""
+        if self.paged:
+            return self._segment_dest_at(slots, lens, [0] * len(slots))
+        t = max(1, _packed_bucket(sum(lens)))
+        s_max = max(1, _pow2_at_least(len(slots)))
+        seg_slots = np.full((s_max,), self.n_slots, np.int32)
+        seg_slots[:len(slots)] = slots
+        dest0 = np.zeros((t,), np.int32)
+        dest1 = np.full((t,), self.slot_len, np.int32)
+        off = 0
+        for slot, ln in zip(slots, lens):
+            dest0[off:off + ln] = slot
+            dest1[off:off + ln] = np.arange(ln)
+            off += ln
+        return {"dest0": dest0, "dest1": dest1, "seg_slots": seg_slots}
 
     def _pack_chunks(self, batches: List[Dict[str, Any]], lens: List[int],
                      hists: List[int]):
@@ -319,16 +518,19 @@ class InferenceEngine:
                 "table_rows": tables}
 
     def free(self, slot: int) -> None:
-        """Release a slot: its pages return to the pool, its table row
-        parks on the null page and its position pins to 0, so its dead
-        writes land in the null page and its reads are masked."""
+        """Release a slot: its position pins to 0 and, paged, its pages
+        return to the pool and its table row parks on the null page, so
+        its dead writes land in the null page and its reads are masked."""
         if not self._slot_active[slot]:
             return
         self._slot_active[slot] = False
         self._slot_free.append(slot)
         self._slot_pos[slot] = 0
-        self._kv.free(slot)
-        _clear_slot(self._slot_cache, slot)
+        if self.paged:
+            self._kv.free(slot)
+            _clear_slot(self._slot_cache, slot)
+        else:
+            _clear_ring(self._slot_cache, slot)
         self._active_mask[slot] = False
 
     # ---------------------------------------------------- capabilities
@@ -355,21 +557,31 @@ class InferenceEngine:
         return self._slot_pos[slot]
 
     def reserved_tokens(self, slot: int) -> int:
-        """Token horizon the slot's pages currently cover."""
+        """Token horizon the slot's pages currently cover (slot_len for a
+        ring: it is fully backed by construction)."""
+        if not self.paged:
+            return self.slot_len
         return self._kv.length(slot)
 
     def slot_page_count(self, slot: int) -> int:
-        return len(self._kv.pages(slot))
+        return len(self._kv.pages(slot)) if self.paged else 0
 
     def kv_pages_needed(self, tokens: int) -> int:
+        if not self.paged:
+            return 0
         return self._kv.pages_needed(max(1, int(tokens)))
+
+    def slot_active(self, slot: int) -> bool:
+        return self._slot_active[slot]
 
     # -------------------------------------------- lazy page reservation
     def grow_slot(self, slot: int, upto_tokens: int) -> int:
         """Extend a resident slot's page horizon to ``upto_tokens``. New
         pages push the slot's table row to the device (only when pages
         were added). Raises ``OutOfPages`` with the slot untouched.
-        Returns the number of pages added."""
+        Returns the number of pages added (always 0 on a ring)."""
+        if not self.paged:
+            return 0
         have = self._kv.length(slot)
         delta = min(int(upto_tokens), self.slot_len) - have
         if delta <= 0:
@@ -389,17 +601,20 @@ class InferenceEngine:
     # ------------------------------------------------- chunked prefill
     def chunk_append(self, chunks: List[Tuple[int, Dict[str, Any], bool]]
                      ) -> None:
-        """Advance every mid-prefill slot by one chunk in ONE incremental
-        dispatch. ``chunks`` is [(slot, prefix batch (1, done + chunk),
-        final)]; only the NEW tokens pack, and they attend the K/V the
-        slot already holds in its pages plus the chunk causally — each new
-        position runs the attention a decode step would. ``final``
-        segments leave the pending token = argmax of the prompt's last
-        logits, exactly what a one-shot admission seeds."""
+        """Advance every mid-prefill slot by one chunk in ONE dispatch.
+        ``chunks`` is [(slot, prefix batch (1, done + chunk), final)].
+        ``final`` segments leave the pending token = argmax of the prompt's
+        last logits, exactly what a one-shot admission seeds.
+
+        ``chunk_capable`` (paged) engines run only the NEW tokens: they
+        attend the K/V the slot already holds in its pages plus the chunk
+        causally, each new position running the attention a decode step
+        would. Ring engines recompute: the whole prefixes pack into the
+        admission path's packed prefill and ``_write_segments`` rewrites
+        each slot's rows from column 0 (the already-written prefix gets
+        the values it holds, the chunk lands for the first time)."""
         if not chunks:
             return
-        if not self.chunk_capable():
-            raise NotImplementedError("prefix-recompute continuations")
         lens = []
         for slot, b, _ in chunks:
             ln = int(b["tokens"].shape[1])
@@ -410,6 +625,9 @@ class InferenceEngine:
                 f"slot {slot}: chunk makes no progress"
             lens.append(ln)
         slots = [slot for slot, _, _ in chunks]
+        if not self.chunk_capable():
+            self._chunk_recompute(chunks, slots, lens)
+            return
         offs = [self._slot_pos[slot] for slot in slots]
         new_lens = [ln - off for ln, off in zip(lens, offs)]
         news = [{"tokens": np.asarray(b["tokens"])[:, off:ln]}
@@ -431,6 +649,21 @@ class InferenceEngine:
         self.stats.incr_chunks += 1
         self.stats.prefill_tokens += sum(new_lens)
 
+    def _chunk_recompute(self, chunks, slots: List[int],
+                         lens: List[int]) -> None:
+        """Prefix-recompute continuation: the full prefixes run the packed
+        prefill admissions use and scatter onto their slots."""
+        packed = self._pack_prompts([b for _, b, _ in chunks], lens)
+        dest = self._segment_dest(slots, lens)
+        dev = _upload(self.device, **packed, **dest)
+        row_len = min(self.slot_len, _pow2_at_least(max(lens)))
+        logits, pcache = self._prefill_packed(dev, row_len, sum(lens))
+        _write_segments(self._slot_cache, self._last_tok, pcache, logits,
+                        dev, len(slots), sum(lens), self.api.paged_keys)
+        for slot, ln in zip(slots, lens):
+            self._slot_pos[slot] = ln
+        self.stats.chunk_prefills += 1
+
     # ---------------------------------------------------- fault tolerance
     def attach_faults(self, injector, max_retries: Optional[int] = None,
                       backoff_s: Optional[float] = None) -> None:
@@ -450,15 +683,18 @@ class InferenceEngine:
         Returns how many slots were dropped."""
         dropped = sum(1 for a in self._slot_active if a)
         self.release_all_slots()
-        assert self._kv.free_pages == self._kv.allocator.num_pages, \
-            "engine recovery leaked pages"
+        if self.paged:
+            assert self._kv.free_pages == self._kv.allocator.num_pages, \
+                "engine recovery leaked pages"
         self.check_page_invariants()
         self.stats.engine_resets += 1
         return dropped
 
     def check_page_invariants(self) -> bool:
         """Host-side page audit: allocator conservation plus slot-level
-        ownership (vacant slots own no pages)."""
+        ownership (vacant slots own no pages). No-op for ring engines."""
+        if not self.paged:
+            return True
         self._kv.check_invariants()
         for slot in self._slot_free:
             assert not self._kv.pages(slot), \
@@ -551,8 +787,8 @@ class InferenceEngine:
             stepped = [s for s in slots if self._slot_active[s]]
         mask_d = torch.from_numpy(mask).to(self.device)
         self._last_tok, self._slot_cache = _slot_decode_step(
-            self.api, self._step_skip, self.params, self._last_tok,
-            self._slot_cache, mask_d)
+            self.api, self._step_skip, self._ring_keys, self.params,
+            self._last_tok, self._slot_cache, mask_d)
         for slot in stepped:
             self._slot_pos[slot] += 1
             self._slot_generated[slot] += 1
@@ -582,7 +818,8 @@ class InferenceEngine:
             if active:
                 self.free(slot)
         self._slot_free.sort()
-        self._kv.allocator.sort_free()
+        if self.paged:
+            self._kv.allocator.sort_free()
 
     def reset_stats(self) -> None:
         self.stats = EngineStats()
@@ -605,11 +842,23 @@ def _merge_rows(new, old, mask, skip):
     return out
 
 
-def _slot_decode_step(api, skip, params, tok, cache, mask):
+def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask):
     """One greedy decode step over every slot row; rows outside ``mask``
-    (vacant and mid-prefill slots) keep their position and pending
-    token."""
+    (vacant and mid-prefill slots) keep their position and pending token
+    and, on a ring, the cache entry the step overwrote in place (ring row
+    ``pos % C`` of each ``ring_keys`` leaf), so their rows stay
+    bit-identical as the JAX engine's merge keeps them."""
+    held = {}
+    if ring_keys:
+        c = cache[ring_keys[0]].shape[2]
+        bidx = torch.arange(mask.shape[0], device=mask.device)
+        at = (cache["pos"] % c).long()
+        held = {key: cache[key][:, bidx, at] for key in ring_keys}
     logits, new = api.decode_step(params, tok, cache)
+    for key, old in held.items():
+        leaf = new[key]
+        leaf[:, bidx, at] = torch.where(mask[None, :, None, None],
+                                        leaf[:, bidx, at], old)
     cache = _merge_rows(new, cache, mask, skip)
     nxt = torch.argmax(logits, -1)
     return torch.where(mask, nxt, tok), cache
@@ -640,6 +889,43 @@ def _write_segments(cache, last_tok, pcache, logits, dev, n_seg: int,
     last_tok[slots] = torch.argmax(logits[:n_seg], -1)
 
 
+def _write_row(leaf, o, slot: int) -> None:
+    """Write batch-1 leaf ``o`` into row ``slot`` of ``leaf``, in place:
+    stacked leaves are (layers, batch, ...), the position vector
+    (batch,)."""
+    o = o.to(leaf.dtype)
+    if leaf.dim() == 1:
+        leaf[slot] = o[0]
+    else:
+        leaf[:, slot] = o[:, 0]
+
+
+def _write_slot(big, one, slot: int) -> None:
+    """Write a batch-1 contiguous cache into row ``slot`` of a ring slot
+    cache, in place."""
+    for key, leaf in big.items():
+        _write_row(leaf, one[key], slot)
+
+
+def _write_slot_paged(big, one, slot: int, table_row, page_size: int,
+                      paged_keys) -> None:
+    """The paged insert scatter, in place: the paged leaves of a batch-1
+    contiguous cache (layers, 1, slot_len, ...) route through the slot's
+    full padded table row into the page pool (padding entries write their
+    zeros into the never-read null page); the table row and the per-row
+    leaves take a row write."""
+    for key, leaf in big.items():
+        if key == "block_tables":
+            leaf[slot] = table_row
+        elif key in paged_keys:
+            o = one[key][:, 0]
+            o = o.reshape((o.shape[0], table_row.shape[0], page_size)
+                          + tuple(o.shape[2:]))
+            leaf[:, table_row.long()] = o.to(leaf.dtype)
+        else:
+            _write_row(leaf, one[key], slot)
+
+
 def _set_table_row(cache, slot: int, table_row: np.ndarray) -> None:
     """Push a grown slot's block-table row to the device."""
     row = cache["block_tables"][slot]
@@ -651,6 +937,11 @@ def _clear_slot(cache, slot: int) -> None:
     page, so its dead writes can never alias a page granted later."""
     cache["pos"][slot] = 0
     cache["block_tables"][slot] = NULL_PAGE
+
+
+def _clear_ring(cache, slot: int) -> None:
+    """Park a freed ring slot: position 0."""
+    cache["pos"][slot] = 0
 
 
 def make_engine(cfg, *, seed: int = 0, cache_len: int = 256,

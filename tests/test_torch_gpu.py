@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test is marked ``gpu`` and skips (with its reason) where no
+card, and the serving paths through them against the CPU's. Every test is marked ``gpu`` and skips (with its reason) where no
 CUDA device is present — the decision is taken inside the ``cuda``
 fixture, so every worker collects the same tests. Run them on the GPU
 machine from the repository root:
@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import chunk_attention as CA  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.models.layers import packed_positions  # noqa: E402
@@ -84,6 +85,50 @@ def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype):
     want = PA.paged_decode_attention_plain(q, kp, vp, sane, lens)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     assert (got[0] == 0).all() and (got[6] == 0).all()
+
+
+@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,lengths", [
+    (256, [0, 1, 31, 32, 33, 200, 256, 0]),     # empty, tile edges, full
+    (200, [200, 0, 137, 1]),                    # C no multiple of 32
+])
+def test_decode_kernel_matches_plain(cuda, h, kv, d, dtype, c, lengths):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b = len(lengths)
+    q = _randn(gen, (b, h, d), dtype, cuda)
+    kc = _randn(gen, (b, c, kv, d), dtype, cuda)
+    vc = _randn(gen, (b, c, kv, d), dtype, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = DA.launches
+    got = DA.decode_attention_cuda(q, kc, vc, lens)
+    assert DA.launches == before + 1
+    want = DA.decode_attention_plain(q, kc, vc, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (got[i] == 0).all()
+
+
+@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,causal,window", [
+    (100, True, 0),                 # ragged last tile
+    (256, True, 48),                # window
+    (96, False, 0),                 # non-causal
+    (80, False, 24),                # non-causal window
+])
+def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
+                                    window):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, (2, s, h, d), dtype, cuda)
+    k = _randn(gen, (2, s, kv, d), dtype, cuda)
+    v = _randn(gen, (2, s, kv, d), dtype, cuda)
+    before = FA.flash_launches
+    got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert FA.flash_launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("h,kv,d", HEADS)
@@ -156,24 +201,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         x = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
         FA.segment_flash_attention_cuda(
             x, x, x, torch.zeros(8, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros(1, 8, 2, 96, device=cuda)
+        FA.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="int32"):
+        DA.decode_attention_cuda(q, pages[:2], pages[:2], lens.long())
 
 
-def test_gpu_serving_matches_cpu_serving(cuda):
+def _launch_counts():
+    return (PA.launches, FA.segment_launches, CA.launches, DA.launches,
+            FA.flash_launches)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_gpu_serving_matches_cpu_serving(cuda, paged):
     """The same seeded weights and requests, served through the kernels
     on the card and through the plain versions on the CPU (reduced
-    olmo-1b, float32): identical greedy streams, and every kernel ran."""
+    olmo-1b, float32), on paged and on ring slots: identical greedy
+    streams, and every kernel of the path ran."""
     cfg = get_config("olmo-1b").reduced()
     gpu = make_engine(cfg, seed=3, cache_len=64, device=cuda).init_slots(
-        4, page_size=8)
+        4, paged=paged, page_size=8)
     cpu = make_engine(cfg, cache_len=64, device="cpu").init_slots(
-        4, page_size=8)
+        4, paged=paged, page_size=8)
     cpu.params = _cpu(gpu.params)
     rng = np.random.default_rng(0)
     spec = [(i, int(rng.integers(3, 40)), int(rng.integers(2, 10)))
             for i in range(6)]
     prompts = {i: rng.integers(1, cfg.vocab_size, (1, p)).astype(np.int32)
                for i, p, _ in spec}
-    launches0 = (PA.launches, FA.launches, CA.launches)
+    launches0 = _launch_counts()
     streams = []
     for eng in (gpu, cpu):
         reqs = [Request(arrival=0.0, rid=i, model=cfg.name, slo=1e9,
@@ -184,8 +241,27 @@ def test_gpu_serving_matches_cpu_serving(cuda):
         assert not srv.truncated
         streams.append(planner.streams)
     assert streams[0] == streams[1]
-    assert all(n > n0 for n, n0 in zip(
-        (PA.launches, FA.launches, CA.launches), launches0))
+    ran = [n > n0 for n, n0 in zip(_launch_counts(), launches0)]
+    # paged: paged decode, packed prefill, chunk; ring: packed prefill
+    # (admissions and recomputed continuations) and contiguous decode
+    assert ran == ([True, True, True, False, False] if paged
+                   else [False, True, False, True, False])
+
+
+def test_gpu_generate_matches_cpu_generate(cuda):
+    """Batch ``generate`` through the flash and decode kernels equals the
+    plain versions' on the CPU, token for token."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    gpu = make_engine(cfg, seed=2, cache_len=32, device=cuda)
+    cpu = make_engine(cfg, cache_len=32, device="cpu")
+    cpu.params = _cpu(gpu.params)
+    tokens = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (3, 45)).astype(np.int32)
+    launches0 = _launch_counts()
+    got = gpu.generate({"tokens": tokens}, 12).cpu()
+    assert [n > n0 for n, n0 in zip(_launch_counts(), launches0)] == \
+        [False, False, False, True, True]
+    assert torch.equal(got, cpu.generate({"tokens": tokens}, 12))
 
 
 def _cpu(tree):

@@ -2,7 +2,9 @@
 against the JAX package's Pallas kernel (run in interpret mode, as the JAX
 tests run it) and against the JAX CPU path the serving engine takes, on
 the same numpy inputs; plus the CPU-side contracts of the CUDA wrappers
-(dispatch by device, refusal of CPU tensors, the ctypes signatures).
+(dispatch by device, refusal of CPU tensors, the ctypes signatures) — for
+the paged, packed and chunk kernels of paged serving and the contiguous
+decode and dense flash kernels of ring slots and ``generate``.
 
 Tolerance: 2e-5 absolute against the interpret-mode kernels (their online
 softmax sums in another order, as the JAX tests allow), 1e-5 against the
@@ -21,6 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.chunk_attention import \
     paged_chunk_attention as jax_chunk_kernel  # noqa: E402
+from repro.kernels.decode_attention import \
+    decode_attention as jax_decode_kernel  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as jax_flash_kernel  # noqa: E402
 from repro.kernels.flash_attention import \
     segment_flash_attention as jax_segment_kernel  # noqa: E402
 from repro.kernels.paged_attention import \
@@ -28,6 +34,7 @@ from repro.kernels.paged_attention import \
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunk_attention as CA  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -40,6 +47,8 @@ jax_paged_path = jax.jit(JL.paged_decode_attention)
 jax_chunk_path = jax.jit(JL.paged_chunk_attention)
 jax_packed_path = jax.jit(JL.packed_prefill_attention,
                           static_argnames=("row_len", "window"))
+jax_decode_path = jax.jit(JL.decode_attention)
+jax_big_path = jax.jit(JL.big_attention, static_argnames=("causal", "window"))
 
 
 def _t(a):
@@ -89,14 +98,110 @@ def test_ops_dispatches_cpu_tensors_to_plain():
     q, kp, vp, tables = _paged_case(0, 2, 4, 2, 64, 8, 2)
     lens = _t(np.asarray([5, 16], np.int32))
     args = (_t(q), _t(kp), _t(vp), _t(tables), lens)
-    before = PA.launches
+    before = (PA.launches, DA.launches, FA.flash_launches)
     np.testing.assert_array_equal(
         ops.paged_decode_attention(*args).numpy(),
         PA.paged_decode_attention_plain(*args).numpy())
-    assert PA.launches == before
+    kc = _t(kp[:2])                                 # (2, 8, 2, 64) caches
+    np.testing.assert_array_equal(
+        ops.decode_attention(_t(q), kc, kc, lens).numpy(),
+        DA.decode_attention_plain(_t(q), kc, kc, lens).numpy())
+    x = _t(kp[None, :3, 0])                         # (1, 3, 2, 64)
+    np.testing.assert_array_equal(
+        ops.flash_attention(x, x, x, causal=False).numpy(),
+        FA.flash_attention_plain(x, x, x, causal=False).numpy())
+    assert (PA.launches, DA.launches, FA.flash_launches) == before
     meta = torch.zeros(1, 4, 64, device="meta")
     with pytest.raises(ValueError, match="no attention kernel"):
         ops.paged_decode_attention(meta, *args[1:])
+
+
+# ------------------------------------------------ contiguous (ring) decode
+DECODE_CASES = [
+    # (b, h, kv, d, c, lengths, block_k): tests/test_kernels.py's shapes
+    # with a scalar length, plus ragged rows with length 0 and a C that
+    # is no multiple of 128
+    (2, 8, 2, 64, 256, 200, 64),
+    (1, 4, 4, 128, 512, 512, 128),
+    (2, 14, 2, 64, 256, 100, 64),               # qwen2 heads (rep 7)
+    (3, 8, 1, 64, 128, 77, 64),                 # MQA
+    (4, 8, 2, 64, 200, [0, 1, 137, 200], 200),  # ragged, C = 200
+    (3, 14, 2, 64, 96, [96, 0, 33], 32),        # full ring, empty row
+]
+
+
+@pytest.mark.parametrize("b,h,kv,d,c,lengths,blk", DECODE_CASES)
+def test_decode_attention_plain_matches_jax(b, h, kv, d, c, lengths, blk):
+    rng = np.random.default_rng(c + b)
+    q = rng.standard_normal((b, h, d), np.float32)
+    kc = rng.standard_normal((b, c, kv, d), np.float32)
+    vc = rng.standard_normal((b, c, kv, d), np.float32)
+    lens = np.broadcast_to(np.asarray(lengths, np.int32), (b,)).copy()
+    got = DA.decode_attention_plain(_t(q), _t(kc), _t(vc), _t(lens)).numpy()
+    jargs = [jnp.asarray(a) for a in (q, kc, vc, lens)]
+    want = jax_decode_kernel(*jargs, block_k=blk, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=KERNEL_ATOL)
+    np.testing.assert_allclose(got, np.asarray(jax_decode_path(*jargs)),
+                               **PATH_TOL)
+    # the layer the model calls routes CPU tensors to the same body
+    np.testing.assert_array_equal(
+        TL.decode_attention(_t(q), _t(kc), _t(vc), _t(lens)).numpy(), got)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert (got[i] == 0).all(), f"row {i} of length 0 not zero"
+
+
+# --------------------------------------------------- dense (padded) flash
+FLASH_CASES = [
+    # (b, s, h, kv, d, block, causal, window): tests/test_kernels.py's
+    # shapes and windows, a non-causal case and a bf16 one
+    (1, 128, 2, 2, 64, 64, True, 0, "float32"),
+    (2, 256, 4, 2, 64, 128, True, 0, "float32"),
+    (1, 256, 4, 1, 128, 64, True, 0, "float32"),    # MQA, wide head
+    (2, 512, 8, 8, 64, 256, True, 0, "float32"),    # MHA
+    (2, 256, 4, 2, 64, 64, True, 32, "float32"),    # window
+    (2, 256, 4, 2, 64, 64, True, 128, "float32"),
+    (1, 128, 14, 2, 64, 64, False, 0, "float32"),   # non-causal, rep 7
+    (1, 128, 4, 2, 64, 64, False, 48, "float32"),   # non-causal window
+    (2, 256, 4, 2, 64, 128, True, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,blk,causal,window,dtype", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(b, s, h, kv, d, blk, causal,
+                                           window, dtype):
+    rng = np.random.default_rng(s + h)
+    qkv = [rng.standard_normal((b, s, n, d), np.float32) for n in (h, kv, kv)]
+    jdt = jnp.dtype(dtype)
+    jargs = [jnp.asarray(a, jdt) for a in qkv]
+    targs = [_t(np.asarray(a, np.float32)).to(getattr(torch, dtype))
+             for a in jargs]
+    got = FA.flash_attention_plain(*targs, causal=causal,
+                                   window=window).float().numpy()
+    want = jax_flash_kernel(*jargs, causal=causal, window=window,
+                            block_q=blk, block_k=blk, interpret=True)
+    path = jax_big_path(*jargs, causal=causal, window=window)
+    tol = (dict(atol=KERNEL_ATOL) if dtype == "float32"
+           else dict(atol=2e-2, rtol=2e-2))
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+    np.testing.assert_allclose(got, np.asarray(path, np.float32),
+                               **(PATH_TOL if dtype == "float32" else tol))
+    np.testing.assert_array_equal(
+        TL.big_attention(*targs, causal=causal,
+                         window=window).float().numpy(), got)
+
+
+def test_flash_attention_plain_long_prompt_matches_jax_path():
+    """Past 1024 tokens the JAX CPU path switches to its chunked
+    ``flash_attention_vjp`` and the plain version to query blocks of
+    ``PLAIN_Q_BLOCK`` rows: same attention, another summation order."""
+    rng = np.random.default_rng(0)
+    s = 1536
+    qkv = [rng.standard_normal((1, s, n, 64), np.float32) for n in (2, 1, 1)]
+    got = FA.flash_attention_plain(*map(_t, qkv), causal=True,
+                                   window=600).numpy()
+    path = jax_big_path(*map(jnp.asarray, qkv), causal=True, window=600)
+    np.testing.assert_allclose(got, np.asarray(path), **PATH_TOL)
 
 
 # ------------------------------------------------------- segment (packed)
@@ -233,6 +338,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         FA.segment_flash_attention_cuda(x, x[:, :, :2], x[:, :, :2],
                                         torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        DA.decode_attention_cuda(_t(q), _t(kp[:2]), _t(vp[:2]), lens)
+    with pytest.raises(ValueError, match="CUDA device"):
+        FA.flash_attention_cuda(x, x[:, :, :2], x[:, :, :2])
     with pytest.raises(ValueError, match="CUDA device"):
         CA.paged_chunk_attention_cuda(
             torch.zeros(1, 4, 4, 64), _t(kp), _t(vp),

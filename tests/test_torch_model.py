@@ -1,8 +1,9 @@
 """The port's dense model against the JAX package's on the CPU: the same
 JAX-initialised weights (converted through numpy with
-``params_from_numpy``) and the same numpy inputs go through
-``prefill_packed``, ``prefill_chunk`` and ``decode_step`` of both, for
-olmo-1b and qwen2-0.5b reduced (float32). Logits and written K/V must
+``params_from_numpy``) and the same numpy inputs go through ``forward``,
+the padded ``prefill``, ``prefill_packed``, ``prefill_chunk`` and
+``decode_step`` (paged and ring) of both, for olmo-1b and qwen2-0.5b
+reduced (float32). Logits and written K/V must
 agree within atol/rtol 1e-5 — not bit for bit: the two frameworks reduce
 float32 matmuls in different orders (even the JAX package misses
 bit-equality across its own shapes). Plus the layer primitives, the
@@ -154,6 +155,140 @@ def test_decode_step_matches_jax(pair, name):
         np.testing.assert_allclose(got[:, 1:], want[:, 1:], **TOL)
 
 
+@pytest.mark.parametrize("name", MODELS)
+def test_forward_matches_jax(pair, name):
+    cfg, japi, jparams, api, params = pair(name)
+    tokens = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (2, 19)).astype(np.int32)
+    jl, jaux = jax.jit(japi.forward)(jparams, {"tokens": jnp.asarray(tokens)})
+    tl, taux = api.forward(params, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert sorted(taux) == sorted(jaux)
+    assert all(float(v) == 0.0 for v in taux.values())
+
+
+@pytest.mark.parametrize("name,s,cache_len", [
+    ("olmo-1b", 19, 32), ("qwen2-0.5b", 19, 32),
+    ("olmo-1b", 20, 8),               # prompt longer than the cache: tail
+])
+def test_prefill_matches_jax(pair, name, s, cache_len):
+    cfg, japi, jparams, api, params = pair(name)
+    tokens = np.random.default_rng(s).integers(
+        1, cfg.vocab_size, (2, s)).astype(np.int32)
+    jl, jc = jax.jit(japi.prefill, static_argnums=2)(
+        jparams, {"tokens": jnp.asarray(tokens)}, cache_len)
+    tl, tc = api.prefill(params, {"tokens": torch.from_numpy(tokens)},
+                         cache_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for key in ("k", "v"):
+        assert tc[key].shape == jc[key].shape
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   **TOL)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    cp = transformer.cache_plan(cfg, 2, cache_len)
+    assert {k: tuple(v.shape) for k, v in cp.items()} == \
+        {k: tuple(v.shape) for k, v in japi.cache_plan(2, cache_len).items()}
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_ring_decode_step_matches_jax(pair, name):
+    """Ring (contiguous) caches with rows before, at and past a wrap and a
+    vacant row: the same logits, positions and written rows."""
+    cfg, japi, jparams, api, params = pair(name)
+    rng = np.random.default_rng(6)
+    c = 16
+    shape = (cfg.num_layers, 4, c, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {"k": rng.standard_normal(shape, np.float32),
+             "v": rng.standard_normal(shape, np.float32),
+             "pos": np.asarray([5, 0, 16, 37], np.int32)}
+    token = np.asarray([3, 0, 99, 250], np.int32)
+    jl, jc = jax.jit(japi.decode_step)(jparams, jnp.asarray(token),
+                                       _to_jax(cache))
+    tcache = _to_torch(cache)
+    tl, tc = api.decode_step(params, torch.from_numpy(token), tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert tc["k"] is tcache["k"] and tc["v"] is tcache["v"]   # in place
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   **TOL)
+
+
+def _window_api(pair, window):
+    cfg, japi, jparams, api, params = pair("olmo-1b")
+    wcfg = dataclasses.replace(cfg, sliding_window=window)
+    jwcfg = dataclasses.replace(jax_config("olmo-1b").reduced(),
+                                sliding_window=window)
+    return (jax_build(jwcfg), jparams, build_model(wcfg, device="cpu"),
+            params, api)
+
+
+def test_sliding_window_ring_matches_full_for_short_seq(pair):
+    """While pos < window a ring of window rows decodes exactly as a full
+    cache does (``tests/test_serving.py``'s check, in the port)."""
+    _, _, wapi, params, api = _window_api(pair, 24)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, api.cfg.vocab_size, (1, 10)).astype(np.int32))
+    lf, cache_f = api.prefill(params, {"tokens": toks}, 40)
+    lw, cache_w = wapi.prefill(params, {"tokens": toks}, 24)
+    np.testing.assert_allclose(lf.numpy(), lw.numpy(), atol=1e-5)
+    tok = torch.argmax(lf, -1)
+    for _ in range(8):
+        lf, cache_f = api.decode_step(params, tok, cache_f)
+        lw, cache_w = wapi.decode_step(params, tok, cache_w)
+        np.testing.assert_allclose(lf.numpy(), lw.numpy(), atol=1e-4)
+        tok = torch.argmax(lf, -1)
+
+
+def test_ring_cache_wraps_beyond_window_like_jax(pair):
+    """Past the window the ring keeps the last W tokens: 20 steps wrap an
+    8-row ring 2.5 times, the logits stay finite and equal the JAX
+    package's step for step, and the position ends at 24."""
+    jwapi, jparams, wapi, params, _ = _window_api(pair, 8)
+    toks = np.ones((1, 4), np.int32)
+    jl, jc = jwapi.prefill(jparams, {"tokens": jnp.asarray(toks)}, 8)
+    tl, tc = wapi.prefill(params, {"tokens": torch.from_numpy(toks)}, 8)
+    jstep = jax.jit(jwapi.decode_step)
+    for _ in range(20):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        assert (torch.argmax(tl, -1).numpy() == tok).all()
+        jl, jc = jstep(jparams, jnp.asarray(tok), jc)
+        tl, tc = wapi.decode_step(params, torch.from_numpy(tok), tc)
+        assert torch.isfinite(tl).all()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert int(tc["pos"][0]) == int(jc["pos"][0]) == 24
+
+
+@pytest.mark.parametrize("s", [16, 11])
+def test_ring_prefill_longer_than_ring_like_jax(pair, s):
+    """A prompt longer than its ring: prefill keeps the last C keys at
+    rows 0..C-1 while decode writes row pos % C, so the two agree only
+    when s % C == 0 (a reference caveat, ROADMAP "Reference caveats").
+    The port reproduces the JAX package step for step either way; the
+    windowed ``forward`` over the whole sequence shows where the ring
+    decode departs from the window."""
+    jwapi, jparams, wapi, params, _ = _window_api(pair, 8)
+    toks = np.random.default_rng(s).integers(
+        1, wapi.cfg.vocab_size, (1, s + 4)).astype(np.int32)
+    full, _ = wapi.forward(params, {"tokens": torch.from_numpy(toks)})
+    jl, jc = jwapi.prefill(jparams, {"tokens": jnp.asarray(toks[:, :s])}, 8)
+    tl, tc = wapi.prefill(params, {"tokens": torch.from_numpy(toks[:, :s])},
+                          8)
+    jstep = jax.jit(jwapi.decode_step)
+    gaps = []
+    for i in range(4):
+        tok = toks[:, s + i].copy()
+        jl, jc = jstep(jparams, jnp.asarray(tok), jc)
+        tl, tc = wapi.decode_step(params, torch.from_numpy(tok), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        gaps.append(float((tl - full[:, s + i]).abs().max()))
+    if s % 8 == 0:
+        assert max(gaps) < 1e-5, gaps
+    else:
+        assert max(gaps) > 1e-2, gaps
+
+
 def test_layer_primitives_match_jax():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 6, 3, 64), np.float32)
@@ -223,6 +358,4 @@ def test_unported_features_raise():
     q = torch.zeros(2, cfg.num_heads, cfg.resolved_head_dim)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         attend(q, cache["k"][0], cache["v"][0], window=4)
-    del cache["block_tables"]
-    with pytest.raises(NotImplementedError, match="ring"):
-        TL.decode_index(pos, cache, "k")
+

@@ -1,12 +1,14 @@
 """The port's serving slice against the JAX package's on the CPU: the same
 JAX-initialised weights, the same seeded workload (the shape of
 ``tests/test_plan.py``'s) and the same planner settings go through
-``serve_ticks`` on a paged engine of each package. The greedy token
-streams must be equal token for token, the engines' ``EngineStats`` equal
-field for field, and every tick of the port must run at most three
-dispatches — for whole-prompt admission, chunked prefill, a lazy tight
-pool that preempts, a seeded fault schedule and tiered admission; plus
-the engines' page bookkeeping call by call.
+``serve_ticks`` on a paged or ring engine of each package. The greedy
+token streams must be equal token for token, the engines' ``EngineStats``
+equal field for field, and every tick of the port must run at most three
+dispatches — for whole-prompt admission, chunked prefill (incremental on
+pages, prefix recompute on rings), a lazy tight pool that preempts, a
+seeded fault schedule and tiered admission; plus the engines' page
+bookkeeping call by call, batch ``generate``, and ring ≡ paged within
+the port.
 """
 import dataclasses
 
@@ -30,6 +32,7 @@ from repro_torch.serving import faults as port_faults  # noqa: E402
 from repro_torch.serving import plan as port_plan  # noqa: E402
 from repro_torch.serving import request as port_request  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+from repro_torch.serving.engine import make_engine  # noqa: E402
 
 CACHE_LEN = 32
 N_SLOTS = 4
@@ -42,18 +45,18 @@ def engines():
     budget), built once for the module."""
     built = {}
 
-    def get(name, pages=None):
-        key = (name, pages)
+    def get(name, pages=None, paged=True):
+        key = (name, pages, paged)
         if key not in built:
             jeng = jax_make_engine(jax_config(name).reduced(),
                                    cache_len=CACHE_LEN).init_slots(
-                N_SLOTS, paged=True, page_size=PAGE, total_pages=pages)
+                N_SLOTS, paged=paged, page_size=PAGE, total_pages=pages)
             cfg = get_config(name).reduced()
             params = params_from_numpy(
                 cfg, jax.tree.map(np.asarray, jeng.params), device="cpu")
             peng = InferenceEngine(build_model(cfg, device="cpu"), params,
                                    cache_len=CACHE_LEN).init_slots(
-                N_SLOTS, page_size=PAGE, total_pages=pages)
+                N_SLOTS, paged=paged, page_size=PAGE, total_pages=pages)
             built[key] = (cfg, jeng, peng)
         return built[key]
 
@@ -141,6 +144,109 @@ def test_serve_ticks_streams_match_jax(engines, chunk_tokens):
     _assert_same(a, b)
     if chunk_tokens:
         assert b[1].engine.stats.incr_chunks > 0
+
+
+@pytest.mark.parametrize("chunk_tokens", [0, 3, 8])
+def test_ring_serve_ticks_streams_match_jax(engines, chunk_tokens):
+    """Ring slots: admissions are packed prefills, continuations recompute
+    the prefix through the same packed prefill, decodes run the
+    contiguous decode attention."""
+    cfg, jeng, peng = engines("olmo-1b", paged=False)
+    assert not peng.paged and peng.free_pages == 0
+    spec, prompts = _workload(cfg, seed=7, n=6)
+    a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=chunk_tokens)
+    b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=chunk_tokens)
+    _assert_same(a, b)
+    st = b[1].engine.stats
+    assert st.incr_chunks == 0
+    if chunk_tokens:
+        assert st.chunk_prefills > 0
+    # ring and paged slots serve the same streams
+    assert b[0] == _serve("port", cfg, engines("olmo-1b")[2], spec,
+                          prompts, chunk_tokens=chunk_tokens)[0]
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"])
+def test_generate_matches_jax(engines, name):
+    """Batch ``generate`` (bucketed prefill + decode loop) and
+    ``generate_eager`` give the JAX engine's tokens and counters."""
+    cfg, jeng, peng = engines(name)
+    tokens = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (3, 21)).astype(np.int32)
+    for fn in ("generate", "generate_eager"):
+        for n_new in (5, 13):                     # 13 > cache_len - 21
+            jeng.reset_stats()
+            peng.reset_stats()
+            want = getattr(jeng, fn)({"tokens": jnp.asarray(tokens)}, n_new)
+            got = getattr(peng, fn)({"tokens": tokens}, n_new)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            assert dataclasses.asdict(peng.stats) == \
+                dataclasses.asdict(jeng.stats), (fn, n_new)
+    with pytest.raises(NotImplementedError, match="sampled"):
+        peng.generate({"tokens": tokens}, 4, sampling=object())
+
+
+def _insert_step_stream(eng, prompts, budgets, n_steps):
+    """Continuous batching through ``insert``/``step``/``free`` (the shape
+    of ``tests/test_paged_kv.py``'s): the greedy token of every active
+    slot at every step."""
+    out, nxt = [], 0
+    for _ in range(n_steps):
+        while nxt < len(budgets) and eng.can_admit(
+                prompts[nxt].shape[1], budgets[nxt]):
+            eng.insert({"tokens": prompts[nxt]}, n_tokens=budgets[nxt])
+            nxt += 1
+        active = [s for s in range(eng.n_slots) if eng.slot_active(s)]
+        tok, done = eng.step()
+        t = np.asarray(tok)
+        out.append([(s, int(t[s])) for s in active])
+        for s in done:
+            eng.free(s)
+    return out
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"])
+def test_paged_matches_ring_greedy_mixed_lengths(name):
+    """``tests/test_paged_kv.py``'s acceptance bar inside the port: paged
+    decode equals ring-slot decode on a mixed-length continuous-batching
+    stream with churn."""
+    cfg = get_config(name).reduced()
+    prompts = [np.random.default_rng(i).integers(
+        1, cfg.vocab_size, (1, 8)).astype(np.int32) for i in range(6)]
+    budgets = [3, 7, 2, 5, 4, 6]
+    streams = []
+    for paged in (False, True):
+        eng = make_engine(cfg, cache_len=32, device="cpu").init_slots(
+            3, paged=paged, page_size=8)
+        assert eng.paged == paged
+        streams.append(_insert_step_stream(eng, prompts, budgets, 10))
+    assert streams[0] == streams[1]
+
+
+def test_windowed_ring_wraps_like_jax():
+    """A sliding-window config stays on ring slots even when paged slots
+    are asked for; budgets past the ring wrap it, and the streams equal
+    the JAX engine's."""
+    jcfg = dataclasses.replace(jax_config("olmo-1b").reduced(),
+                               sliding_window=16)
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(),
+                              sliding_window=16)
+    jeng = jax_make_engine(jcfg, cache_len=16).init_slots(2, paged=True)
+    peng = InferenceEngine(
+        build_model(cfg, device="cpu"),
+        params_from_numpy(cfg, jax.tree.map(np.asarray, jeng.params),
+                          device="cpu"), cache_len=16).init_slots(2)
+    assert not jeng.paged and not peng.paged
+    prompts = [np.random.default_rng(50 + i).integers(
+        1, cfg.vocab_size, (1, p)).astype(np.int32)
+        for i, p in enumerate((12, 5, 16, 9))]
+    budgets = [20, 6, 9, 14]
+    want = _insert_step_stream(jeng, [jnp.asarray(p) for p in prompts],
+                               budgets, 30)
+    got = _insert_step_stream(peng, prompts, budgets, 30)
+    assert got == want
+    assert max(len(s) for s in got) > 0
+    assert dataclasses.asdict(peng.stats) == dataclasses.asdict(jeng.stats)
 
 
 def test_lazy_tight_pool_preempts_and_matches_jax(engines):
@@ -241,8 +347,6 @@ def test_unported_planner_features_raise():
     cfg = get_config("olmo-1b").reduced()
     eng = InferenceEngine(build_model(cfg, device="cpu"), None,
                           cache_len=CACHE_LEN)
-    with pytest.raises(NotImplementedError, match="ring"):
-        eng.init_slots(2, paged=False)
     with pytest.raises(NotImplementedError, match="sampled"):
         eng.init_slots(2, sampling=object())
     with pytest.raises(ValueError, match="multiple of page_size"):
