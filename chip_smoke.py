@@ -4,20 +4,24 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py              # all phases, as the acceptance run
     python3 chip_smoke.py --phases a   # kernels only (a quick first check)
+    python3 chip_smoke.py --phases af  # kernels and the Mamba2 family
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs five phases, each printing one JSON line:
+with ``nvcc`` and runs six phases, each printing one JSON line:
 
-  (a) kernels vs plain: each of the five hand-written kernels against its
+  (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
-      (olmo-1b: 16 heads of 128; qwen2-0.5b: 14 query / 2 KV heads of 64),
-      in float32 (TF32 off) and bfloat16, with length-0 rows, fresh
-      sequences (history 0), padding segments, ragged packed lengths,
-      ragged prompt lengths, windows and non-causal attention; times every
-      case's kernel, plain version and, where one PyTorch call computes the
-      same function, that call (``scaled_dot_product_attention``, a
-      yardstick the port never calls), beside the least time the card
-      could take;
+      (olmo-1b: 16 heads of 128; qwen2-0.5b: 14 query / 2 KV heads of 64;
+      mamba2-1.3b's SSD: 64 heads, P 64, N 128, chunk 128), in float32
+      (TF32 off) and bfloat16, with length-0 rows, fresh sequences
+      (history 0), padding segments, ragged packed lengths, ragged prompt
+      lengths, windows, non-causal attention, L below the chunk and
+      packed SSD rows whose dt = 0 tails must leave the state bit for bit
+      as their unpadded runs do; times every main case's kernel, plain
+      version and, where one PyTorch call computes the same function, that
+      call (``scaled_dot_product_attention``, a yardstick the port never
+      calls; no single call computes the SSD scan), beside the least time
+      the card could take;
   (b) serve: olmo-1b at full width in bfloat16 with seeded random weights
       answers 16 requests through ``StepPlanner``/``serve_ticks`` on one
       paged engine (admissions, chunk continuations and decodes all
@@ -29,14 +33,21 @@ with ``nvcc`` and runs five phases, each printing one JSON line:
   (e) ring serve: phase (b)'s requests on 8 ring slots, so admissions and
       prefix-recompute continuations run the packed prefill and decodes
       the contiguous decode kernel (and never the chunk kernel);
+  (f) ssm: mamba2-1.3b at full width in bfloat16 (48 layers, d_model
+      2048, 64 SSD heads of 64, N 128) serves phase (b)'s requests on 8
+      slots of per-sequence state (packed admissions, prefix-recompute
+      continuations, recurrent decodes), then runs batch ``generate`` on 8
+      prompts of 512 and of 2000 tokens; every prefill dispatch scans each
+      layer through the SSD kernel;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels) and once on the
       CPU (the plain versions) — a paged serve, ``generate``, a ring serve
-      with continuations, and a sliding-window ring that wraps; the greedy
-      streams must be identical.
+      with continuations, and a sliding-window ring that wraps — and so
+      does mamba2-1.3b at full width cut to 2 layers (a serve and
+      ``generate``); the greedy streams must be identical.
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
-its count over the main paths (b), (d) and (e)), the card's name and power
+its count over the main paths (b), (d), (e) and (f)), the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
@@ -64,8 +75,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HEADS = {"olmo-1b": (16, 16, 128), "qwen2-0.5b": (14, 2, 64)}
 KERNEL_NAMES = ("paged_decode_attention", "segment_flash_attention",
                 "paged_chunk_attention", "decode_attention",
-                "flash_attention")
+                "flash_attention", "ssd_scan")
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
+# the SSD scan in float32: max |kernel - plain| <= this * max(1, max |plain|)
+# (its chunk sums reassociate terms as large as the output)
+SSD_F32_TOL = 1e-4
+# mamba2-1.3b's SSD heads: H, P, N, chunk
+SSD_HEADS = (64, 64, 128, 128)
 
 
 def _log(*a):
@@ -376,6 +392,8 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                     rows.append(row)
                     _log(json.dumps(row))
                     del case, kout, pout
+    ssd_rows, summary["ssd_scan"] = _ssd_cases(torch, gen, dev)
+    rows += ssd_rows
     bad = [r for r in rows if not r["ok"]]
     _emit({"phase": "a", "cases": len(rows), "failed": len(bad),
            "max_abs_err": {f"{r['kernel']}/{r['model']}/{r['dtype']}":
@@ -385,17 +403,124 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
     return rows, summary
 
 
+def _ssd_bound(b, lens, h, p, n, cl, dname):
+    """Least time for one scan: each input read and each output written
+    once, and the operations the data needs — per chunk of r real rows and
+    head, the lower triangle of C·B^T and of its product with x·dt
+    (r (r + 1) / 2 pairs, 2 (N + P) flops each) and the two (r, N, P)
+    products of the state (4 r N P)."""
+    elt = 4 if dname == "float32" else 2
+    rows = sum(lens)
+    nbytes = (2 * rows * h * p * elt + 2 * rows * n * elt + rows * h * 4
+              + h * 4 + b * h * n * p * 4)
+    flops = 0.0
+    for length in lens:
+        for t0 in range(0, length, cl):
+            r = min(cl, length - t0)
+            flops += h * (r * (r + 1) / 2 * 2 * (n + p) + 4 * r * n * p)
+    return _bound_ms(nbytes, flops, dname)
+
+
+def _ssd_cases(torch, gen, dev):
+    """The SSD scan against its plain version at mamba2-1.3b heads, in
+    float32 and bfloat16: the main shape (B 8, L 2048), a ragged L, L <
+    chunk, and packed rows whose tails carry dt = 0, whose final states
+    must equal their unpadded runs' bit for bit. Returns the rows and the
+    kernel's summary entry (the main shape in bfloat16)."""
+    from repro_torch.kernels import ssd_scan
+    h, p, n, chunk = SSD_HEADS
+    rows, summary = [], None
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for shape, (b, length) in (("main", (8, 2048)), ("L 1000", (4, 1000)),
+                                   ("L 100", (2, 100))):
+            x = torch.randn(b, length, h, p, generator=gen,
+                            device=dev).to(dtype)
+            dt = torch.nn.functional.softplus(
+                torch.randn(b, length, h, generator=gen, device=dev) - 1.0)
+            a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+            bb = torch.randn(b, length, n, generator=gen, device=dev).to(dtype)
+            cc = torch.randn(b, length, n, generator=gen, device=dev).to(dtype)
+            args = (x, dt, a, bb, cc, chunk)
+            ky, ks = ssd_scan.ssd_scan_cuda(*args)
+            py, ps = ssd_scan.ssd_chunked_plain(*args)
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(ky.float()).all()
+                      and torch.isfinite(ks).all())
+            errs = []
+            for got, want, kind in ((ky, py, dname), (ks, ps, "float32")):
+                got, want = got.float(), want.float()
+                err = float((got - want).abs().max())
+                errs.append(err)
+                if kind == "float32":
+                    ok &= err <= SSD_F32_TOL * max(
+                        1.0, float(want.abs().max()))
+                else:
+                    ok &= bool(torch.allclose(got, want,
+                                              atol=TOL[kind][0],
+                                              rtol=TOL[kind][1]))
+            row = {"kernel": "ssd_scan", "model": "mamba2-1.3b",
+                   "dtype": dname, "shape": shape,
+                   "max_abs_err": max(errs),
+                   "plain_max_abs": float(py.float().abs().max()), "ok": ok}
+            if shape == "main":
+                row["ms"] = _time_ms(lambda: ssd_scan.ssd_scan_cuda(*args),
+                                     torch)
+                row["plain_ms"] = _time_ms(
+                    lambda: ssd_scan.ssd_chunked_plain(*args), torch,
+                    iters=5)
+                row["bound_ms"], row["bound_by"] = _ssd_bound(
+                    b, [length] * b, h, p, n, chunk, dname)
+                row["library_ms"] = None
+                if dname == "bfloat16":
+                    summary = {
+                        "name": "ssd_scan", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        "replaces": "src/repro/kernels/ssd_scan.py:28",
+                        "max_abs_err": row["max_abs_err"],
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}}
+            rows.append(row)
+            _log(json.dumps(row))
+            del x, dt, bb, cc, args, ky, ks, py, ps
+        # packed rows: tails of dt = 0 freeze the state exactly
+        lens, row_len = (2048, 1000, 1500, 130), 2048
+        b = len(lens)
+        x = torch.randn(b, row_len, h, p, generator=gen, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, row_len, h, generator=gen, device=dev) - 1.0)
+        for i, length in enumerate(lens):
+            dt[i, length:] = 0.0
+        a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+        bb = torch.randn(b, row_len, n, generator=gen, device=dev).to(dtype)
+        cc = torch.randn(b, row_len, n, generator=gen, device=dev).to(dtype)
+        _, ks = ssd_scan.ssd_scan_cuda(x, dt, a, bb, cc, chunk)
+        same = []
+        for i, length in enumerate(lens):
+            one = [v[i:i + 1, :length].contiguous() for v in (x, dt)] + [a] \
+                + [v[i:i + 1, :length].contiguous() for v in (bb, cc)]
+            same.append(bool(torch.equal(
+                ks[i:i + 1], ssd_scan.ssd_scan_cuda(*one, chunk)[1])))
+        torch.cuda.synchronize()
+        rows.append({"kernel": "ssd_scan", "model": "mamba2-1.3b",
+                     "dtype": dname, "shape": f"packed {lens} dt=0 tails",
+                     "max_abs_err": 0.0, "states_bit_identical": same,
+                     "ok": all(same)})
+        _log(json.dumps(rows[-1]))
+    return rows, summary
+
+
 # --------------------------------------------------------------------------
 # phase (b): the paged serving path
 # --------------------------------------------------------------------------
-def _requests(n, prompt_range, budget_range, vocab, seed):
+def _requests(n, prompt_range, budget_range, vocab, seed, model="olmo-1b"):
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(seed)
     reqs, prompts = [], {}
     for i in range(n):
         p = int(rng.integers(*prompt_range))
         nt = int(rng.integers(*budget_range))
-        reqs.append(Request(arrival=0.0, rid=i, model="olmo-1b", slo=1e9,
+        reqs.append(Request(arrival=0.0, rid=i, model=model, slo=1e9,
                             n_tokens=nt, prompt_len=p))
         prompts[i] = rng.integers(1, vocab, size=(1, p)).astype(np.int32)
     return reqs, prompts
@@ -408,7 +533,7 @@ def _serve(eng, reqs, prompts, chunk_tokens):
     from repro_torch.serving.request import RequestQueue
     eng.release_all_slots()
     eng.reset_stats()
-    planner = StepPlanner(eng, RequestQueue("olmo-1b", slo=1e9),
+    planner = StepPlanner(eng, RequestQueue(reqs[0].model, slo=1e9),
                           PlannerConfig(chunk_tokens=chunk_tokens))
     srv = serve_ticks(planner, copy.deepcopy(reqs),
                       lambda r: {"tokens": prompts[r.rid]})
@@ -416,15 +541,24 @@ def _serve(eng, reqs, prompts, chunk_tokens):
     return {r: list(t) for r, t in planner.streams.items()}, srv
 
 
+def _walls(srv):
+    """Tick wall time p50 and p99 of a serve, in ms."""
+    walls = sorted(w for w, _ in srv.tick_walls)
+    return (1e3 * walls[len(walls) // 2],
+            1e3 * walls[min(len(walls) - 1, int(0.99 * len(walls)))])
+
+
 def _counters():
     """(module, attribute) of each kernel's launch count."""
     from repro_torch.kernels import chunk_attention, decode_attention
     from repro_torch.kernels import flash_attention, paged_attention
+    from repro_torch.kernels import ssd_scan
     return {"paged_decode_attention": (paged_attention, "launches"),
             "segment_flash_attention": (flash_attention, "segment_launches"),
             "paged_chunk_attention": (chunk_attention, "launches"),
             "decode_attention": (decode_attention, "launches"),
-            "flash_attention": (flash_attention, "flash_launches")}
+            "flash_attention": (flash_attention, "flash_launches"),
+            "ssd_scan": (ssd_scan, "launches")}
 
 
 def _launch_counts():
@@ -448,6 +582,7 @@ PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
               "paged_chunk_attention")
 RING_PATH = ("segment_flash_attention", "decode_attention")
 GENERATE_PATH = ("flash_attention", "decode_attention")
+SSM_PATH = ("ssd_scan",)
 
 
 def phase_b(torch):
@@ -479,7 +614,7 @@ def phase_b(torch):
     st = eng.stats
     assert st.incr_chunks > 0 and st.packed_prefills > st.incr_chunks
     _check_launches(launches, PAGED_PATH, "b")
-    walls = sorted(w for w, _ in srv.tick_walls)
+    p50, p99 = _walls(srv)
     again, profile = _profile(
         torch, lambda: _serve(eng, reqs, prompts, chunk_tokens=512)[0])
     assert again == streams, "a repeated serve changed the streams"
@@ -490,9 +625,7 @@ def phase_b(torch):
            "tokens_served": n_tok, "ticks": srv.ticks,
            "dispatches": srv.dispatches, "wall_s": wall,
            "tokens_per_s": n_tok / wall,
-           "tick_ms_p50": 1e3 * walls[len(walls) // 2],
-           "tick_ms_p99": 1e3 * walls[min(len(walls) - 1,
-                                          int(0.99 * len(walls)))],
+           "tick_ms_p50": p50, "tick_ms_p99": p99,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "kv_cache_bytes": eng.kv_cache_bytes(), "setup_s": setup_s,
            "stats": dataclasses.asdict(st), "launches": launches,
@@ -616,7 +749,7 @@ def phase_e(torch, paged_streams=None):
         assert all(0 <= t < cfg.vocab_size for t in s), r.rid
     st = eng.stats
     assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
-    walls = sorted(w for w, _ in srv.tick_walls)
+    p50, p99 = _walls(srv)
     same = (None if paged_streams is None else
             sum(streams[r] == paged_streams[r] for r in streams))
     out = {"phase": "e", "model": cfg.name, "dtype": "bfloat16",
@@ -624,9 +757,7 @@ def phase_e(torch, paged_streams=None):
            "tokens_served": n_tok, "ticks": srv.ticks,
            "dispatches": srv.dispatches, "wall_s": wall,
            "tokens_per_s": n_tok / wall,
-           "tick_ms_p50": 1e3 * walls[len(walls) // 2],
-           "tick_ms_p99": 1e3 * walls[min(len(walls) - 1,
-                                          int(0.99 * len(walls)))],
+           "tick_ms_p50": p50, "tick_ms_p99": p99,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "kv_cache_bytes": eng.kv_cache_bytes(),
            "streams_equal_to_paged": same, "stats": dataclasses.asdict(st),
@@ -635,6 +766,109 @@ def phase_e(torch, paged_streams=None):
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase (f): the Mamba2 family
+# --------------------------------------------------------------------------
+def phase_f(torch):
+    """mamba2-1.3b at full width, bfloat16, seeded random weights: (i)
+    phase (b)'s 16 requests through ``serve_ticks`` on 8 slots (paged
+    slots asked for, per-slot state given), ``chunk_tokens=512``, so
+    packed admissions and prefix-recompute continuations both run; (ii)
+    batch ``generate`` of 8 prompts of 512 and of 2000 tokens, 64 new
+    tokens each. Every prefill dispatch scans each of the 48 layers
+    through the kernel: launches = 48 x prefill dispatches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    cfg = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda").init_slots(8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    assert not eng.paged
+    wreqs, wprompts = _requests(3, (40, 200), (4, 8), cfg.vocab_size, 99,
+                                cfg.name)
+    _serve(eng, wreqs, wprompts, chunk_tokens=128)   # warm-up
+    reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0,
+                              cfg.name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, srv = _serve(eng, reqs, prompts, chunk_tokens=512)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    _check_launches(launches, SSM_PATH, "f/serve")
+    st = eng.stats
+    assert launches["ssd_scan"] == cfg.num_layers * st.prefills, \
+        (launches, st)
+    assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
+    n_tok = sum(len(s) for s in streams.values())
+    for r in reqs:
+        s = streams[r.rid]
+        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
+        assert all(0 <= t < cfg.vocab_size for t in s), r.rid
+    p50, p99 = _walls(srv)
+    serve = {"requests": len(reqs), "prompt_tokens": sum(
+        r.prompt_len for r in reqs), "tokens_served": n_tok,
+        "ticks": srv.ticks, "dispatches": srv.dispatches, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "tick_ms_p50": p50,
+        "tick_ms_p99": p99,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "state_bytes": eng.kv_cache_bytes(), "setup_s": setup_s,
+        "stats": dataclasses.asdict(st), "launches": launches}
+    _log(json.dumps({"f/serve": serve}))
+    total = dict(launches)
+    runs = []
+    rng = np.random.default_rng(5)
+    for s in (512, 2000):
+        tokens = rng.integers(1, cfg.vocab_size, (8, s)).astype(np.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.reset_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.generate({"tokens": tokens}, 64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        _check_launches(launches, SSM_PATH, "f/generate")
+        assert launches["ssd_scan"] == cfg.num_layers, launches
+        assert tuple(out.shape) == (8, 64), out.shape
+        assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+        for name in KERNEL_NAMES:
+            total[name] += launches[name]
+        t1 = time.perf_counter()
+        eng.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        row = {"batch": 8, "prompt_len": s, "new_tokens": 64,
+               "wall_s": wall, "tokens_per_s": 8 * 64 / wall,
+               "prefill_s": time.perf_counter() - t1,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches}
+        if s == 2000:
+            again, row["profile"] = _profile(
+                torch, lambda: eng.generate({"tokens": tokens}, 64))
+            row["profile"]["repeat_identical"] = bool(torch.equal(again,
+                                                                  out))
+        runs.append(row)
+        _log(json.dumps(row))
+    out = {"phase": "f", "model": cfg.name, "dtype": "bfloat16",
+           "layers": cfg.num_layers, "params": cfg.param_count(),
+           "serve": {k: serve[k] for k in (
+               "tokens_served", "ticks", "wall_s", "tokens_per_s",
+               "tick_ms_p50", "tick_ms_p99", "peak_mem_bytes")},
+           "generate": [{k: r[k] for k in (
+               "prompt_len", "wall_s", "tokens_per_s", "prefill_s",
+               "peak_mem_bytes")} for r in runs],
+           "profile": runs[-1]["profile"], "launches": total}
+    _emit(out)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(out, serve=serve, runs=runs)
 
 
 def _insert_step_serve(eng, prompts, budgets):
@@ -680,9 +914,9 @@ def phase_c(torch):
     gpu_params = make_engine(cfg, seed=1, device="cuda").params
     params = {"cuda": gpu_params, "cpu": _to_cpu(gpu_params)}
 
-    def pair(c, cache_len):
+    def pair(c, cache_len, weights=params):
         """(GPU engine, CPU engine) of config ``c`` on the same weights."""
-        return tuple(InferenceEngine(build_model(c, device=d), params[d],
+        return tuple(InferenceEngine(build_model(c, device=d), weights[d],
                                      cache_len=cache_len)
                      for d in ("cuda", "cpu"))
 
@@ -758,7 +992,32 @@ def phase_c(torch):
                 window=128, requests=len(wprompts))
     checks["window_ring"]["tokens"] = sum(map(len, got.values()))
 
-    out = {"phase": "c", "model": "olmo-1b (2 layers)", "dtype": "float32",
+    # 5. mamba2-1.3b at full width cut to 2 layers: a serve with
+    # recomputed continuations, then batch generate
+    mcfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2,
+                               dtype="float32")
+    mgpu = make_engine(mcfg, seed=1, device="cuda").params
+    mparams = {"cuda": mgpu, "cpu": _to_cpu(mgpu)}
+    mreqs, mprompts = _requests(6, (20, 301), (8, 33), mcfg.vocab_size, 6,
+                                mcfg.name)
+    engines = [e.init_slots(4) for e in pair(mcfg, 512, mparams)]
+    assert not engines[0].paged
+    got = check("ssm_serve", engines,
+                lambda e: _serve(e, mreqs, mprompts, chunk_tokens=128)[0],
+                SSM_PATH,
+                lambda e: e.prefill({"tokens": mprompts[0]})[0],
+                requests=len(mreqs))
+    assert engines[0].stats.chunk_prefills > 0, "no continuation ran"
+    checks["ssm_serve"]["tokens"] = sum(map(len, got.values()))
+    mtokens = np.random.default_rng(7).integers(
+        1, mcfg.vocab_size, (4, 300)).astype(np.int32)
+    check("ssm_generate", pair(mcfg, 256, mparams),
+          lambda e: e.generate({"tokens": mtokens}, 24).cpu().tolist(),
+          SSM_PATH, lambda e: e.prefill({"tokens": mtokens})[0],
+          batch=4, prompt_len=300, new_tokens=24)
+
+    out = {"phase": "c", "model": "olmo-1b, mamba2-1.3b (2 layers)",
+           "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff")}
                for k, v in checks.items()}}
@@ -774,8 +1033,8 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdec",
-                    help="which phases to run, of a, b, d, e, c "
+    ap.add_argument("--phases", default="abdefc",
+                    help="which phases to run, of a, b, d, e, f, c "
                          "(default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -813,13 +1072,15 @@ def main(argv=None) -> int:
         report["d"] = phase_d(torch)
     if "e" in args.phases:
         report["e"] = phase_e(torch, paged_streams)
-    for phase in "bde":
+    if "f" in args.phases:
+        report["f"] = phase_f(torch)
+    for phase in "bdef":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = phase_c(torch)
     if summary:
-        if all(p in args.phases for p in "bde"):
+        if all(p in args.phases for p in "bdef"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

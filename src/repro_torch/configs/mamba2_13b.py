@@ -1,0 +1,17 @@
+"""Mamba2-1.3B [arXiv:2405.21060] — attention-free SSD (state-space duality)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b",
+    family="ssm",
+    source="arXiv:2405.21060",
+    num_layers=48,
+    d_model=2048,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    tie_embeddings=True,
+)

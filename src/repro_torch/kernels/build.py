@@ -21,14 +21,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "flash_attention", "chunk_attention",
-           "decode_attention")
+           "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -47,6 +47,8 @@ SIGNATURES = {
         (_P,) * 5 + (_I,) * 6 + (_F, _P),
     "flash_attention":
         (_P,) * 4 + (_I,) * 8 + (_F, _P),
+    "ssd_scan":
+        (_P,) * 8 + (_I,) * 7 + (_P,),
 }
 ENTRY_LIBRARY = {
     "paged_decode_attention": "paged_attention",
@@ -54,6 +56,7 @@ ENTRY_LIBRARY = {
     "paged_chunk_attention": "chunk_attention",
     "decode_attention": "decode_attention",
     "flash_attention": "flash_attention",
+    "ssd_scan": "ssd_scan",
 }
 
 
@@ -140,14 +143,15 @@ def dtype_code(dtype) -> int:
     """The kernels' element type code: 0 = float32, 1 = bfloat16."""
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
-        raise ValueError(f"CUDA attention kernels take float32 or bfloat16, "
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16, "
                          f"not {dtype}")
     return codes[dtype]
 
 
-def check_operands(entry: str, head_dim: int, **tensors) -> None:
+def check_operands(entry: str, head_dim: Optional[int], **tensors) -> None:
     """Raise unless every operand is a contiguous tensor on one CUDA device
-    and the head dimension is one the kernels are built for."""
+    and the head dimension (``None``: no attention heads) is one the
+    attention kernels are built for."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{entry}: operands must share one CUDA device, "
@@ -155,7 +159,7 @@ def check_operands(entry: str, head_dim: int, **tensors) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{entry}: {name} must be contiguous")
-    if head_dim not in (64, 128):
+    if head_dim is not None and head_dim not in (64, 128):
         raise ValueError(f"{entry}: head_dim {head_dim} not built "
                          f"(64 or 128)")
 

@@ -1,4 +1,4 @@
-"""Device dispatch for the attention kernels.
+"""Device dispatch for the attention kernels and the SSD scan.
 
 A tensor on a CUDA device goes to the hand-written kernel (which raises on
 what it does not take); a tensor on the CPU goes to the kernel's plain
@@ -11,6 +11,7 @@ from repro_torch.kernels import chunk_attention as _chunk
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _route(t) -> str:
@@ -70,3 +71,23 @@ def paged_chunk_attention(q, k_pages, v_pages, k_rows, v_rows, block_tables,
     return _chunk.paged_chunk_attention_plain(
         q, k_pages, v_pages, k_rows, v_rows, block_tables, hist_lens,
         seg_lens, window=window)
+
+
+def ssd(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
+    """Chunked SSD (Mamba2). x: (B, L, H, P); dt: (B, L, H); a: (H,);
+    b, c: (B, L, N) -> (y (B, L, H, P), final_state (B, H, N, P) float32).
+    Any L: the chunk is ``min(chunk, L)`` rows and positions past L act as
+    dt = 0. On a GPU the kernel takes dt, a and the initial state in
+    float32."""
+    if _route(x) == "cuda":
+        return _ssd.ssd_scan_cuda(x, dt.float(), a.float(), b, c, chunk,
+                                  initial_state)
+    return _ssd.ssd_chunked_plain(x, dt, a, b, c, chunk, initial_state)
+
+
+def ssd_decode(x, dt, a, b, c, state):
+    """One-token SSD update. x: (B, H, P); dt: (B, H); b, c: (B, N);
+    state (B, H, N, P) -> (y (B, H, P), new state float32). Elementwise
+    work and a mat-vec: the JAX package has no kernel for it, and this is
+    plain PyTorch on either device."""
+    return _ssd.ssd_decode_plain(x, dt, a, b, c, state)

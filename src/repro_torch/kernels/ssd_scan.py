@@ -1,0 +1,164 @@
+"""Mamba2 SSD (state-space duality) chunked scan: the CUDA kernel's wrapper,
+its plain PyTorch versions, and the kernel's launch count.
+
+Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py`` (``ssd_scan``,
+body ``_ssd_kernel``) together with the wrapper ``ops.ssd`` that feeds it.
+For x (B, L, H, P), dt (B, L, H), a (H,) (negative), b, c (B, L, N) the
+recurrence is
+
+    s_t = s_{t-1} · exp(dt_t · a) + dt_t · (b_t ⊗ x_t),   y_t = c_t · s_t
+
+and the functions return ``(y (B, L, H, P) in x's dtype, final state
+(B, H, N, P) in float32)``. The chunked form splits L into chunks of
+``cl = min(chunk, L)`` rows; within a chunk the quadratic (dual) form runs,
+across chunks the state is carried. ``L`` need not be a multiple of
+``cl``: positions past L act as ``dt = 0`` (decay exp(0) = 1, update 0),
+which is exact — the state freezes at the last real row.
+
+* ``ssd_chunked_plain`` is the JAX CPU path (``ops._ssd_chunked_jnp``):
+  the same padding, chunk length and sequential inter-chunk carry;
+* ``ssd_ref_plain`` is the sequential oracle (``ref.ssd_ref``);
+* ``ssd_decode_plain`` is one recurrent step (``ref.ssd_decode_ref``); the
+  JAX package has no kernel for it (elementwise work and a mat-vec), so
+  this is the port's only version;
+* ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``: one block per
+  (batch, head) walks its chunks in order with the state on chip, reading
+  x, dt, b and c where they lie (no per-head copies of b and c).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+# kernel launches so far; a run resets it to 0 and reads it back to show
+# that its path went through the kernel
+launches = 0
+
+# (N, P) pairs the kernel is built for, and the longest chunk it holds on
+# chip (csrc/ssd_scan.cu: kMaxCL)
+BUILT_SHAPES = ((128, 64),)
+MAX_CHUNK = 128
+
+
+def ssd_chunked_plain(x, dt, a, b, c, chunk: int, initial_state=None):
+    """Chunked SSD in plain PyTorch, the arithmetic of the JAX CPU path.
+
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) ->
+    (y (B, L, H, P), final_state (B, H, N, P) float32)."""
+    bs, l0, h, p = x.shape
+    n = b.shape[-1]
+    cl = min(chunk, l0)
+    pad = (-l0) % cl
+    if pad:
+        # dt = 0 padding is exact: decay exp(0) = 1, update 0
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    l = l0 + pad
+    nc = l // cl
+
+    adt = dt.float() * a.float()                              # (B, L, H)
+    xdt = x.float() * dt.float()[..., None]                   # (B, L, H, P)
+    adt = adt.reshape(bs, nc, cl, h)
+    xdt = xdt.reshape(bs, nc, cl, h, p)
+    bc = b.float().reshape(bs, nc, cl, n)
+    cc = c.float().reshape(bs, nc, cl, n)
+
+    a_cs = torch.cumsum(adt, dim=2)                           # (B, NC, cl, H)
+    a_tot = a_cs[:, :, -1, :]                                 # (B, NC, H)
+
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
+    lmask = torch.where(
+        tri[None, None, :, :, None],
+        torch.exp(a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]),
+        0.0)                                            # (B, NC, cl, cl, H)
+    y_diag = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, lmask, xdt)
+
+    decay_out = torch.exp(a_tot[:, :, None, :] - a_cs)        # (B, NC, cl, H)
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, decay_out, xdt)
+
+    s = (torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    prev = []
+    for ci in range(nc):                        # state BEFORE each chunk
+        prev.append(s)
+        s = s * torch.exp(a_tot[:, ci])[..., None, None] + states[:, ci]
+    s_prev = torch.stack(prev, dim=1)                   # (B, NC, H, N, P)
+
+    y_off = torch.einsum("bcin,bchnp,bcih->bcihp", cc, s_prev,
+                         torch.exp(a_cs))
+    y = (y_diag + y_off).reshape(bs, l, h, p)[:, :l0]
+    return y.to(x.dtype), s
+
+
+def ssd_ref_plain(x, dt, a, b, c, initial_state=None):
+    """The sequential recurrence, token by token: the exact oracle."""
+    bs, l, h, p = x.shape
+    n = b.shape[-1]
+    s = (torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(l):
+        ys_t, s = ssd_decode_plain(x[:, t], dt[:, t], a, b[:, t], c[:, t], s)
+        ys.append(ys_t.float())
+    return torch.stack(ys, dim=1).to(x.dtype), s
+
+
+def ssd_decode_plain(x, dt, a, b, c, state):
+    """One SSD step. x: (B, H, P); dt: (B, H); b, c: (B, N); state
+    (B, H, N, P) -> (y (B, H, P) in x's dtype, new state float32)."""
+    decay = torch.exp(dt.float() * a.float())
+    update = torch.einsum("bh,bn,bhp->bhnp", dt.float(), b.float(),
+                          x.float())
+    state = state.float() * decay[..., None, None] + update
+    y = torch.einsum("bn,bhnp->bhp", c.float(), state)
+    return y.to(x.dtype), state
+
+
+def ssd_scan_cuda(x, dt, a, b, c, chunk: int, initial_state=None):
+    """Launch the CUDA kernel. x: (B, L, H, P) and b, c: (B, L, N) in one
+    dtype (float32 or bfloat16); dt: (B, L, H) and a: (H,) float32;
+    initial_state: None (zeros) or (B, H, N, P) float32. (N, P) must be
+    one of ``BUILT_SHAPES``; ``min(chunk, L)`` at most ``MAX_CHUNK``."""
+    global launches
+    bs, l, h, p = x.shape
+    n = b.shape[-1]
+    operands = dict(x=x, dt=dt, a=a, b=b, c=c)
+    if initial_state is not None:
+        operands["initial_state"] = initial_state
+    build.check_operands("ssd_scan", None, **operands)
+    if (tuple(dt.shape) != (bs, l, h) or tuple(a.shape) != (h,)
+            or tuple(b.shape) != (bs, l, n) or c.shape != b.shape
+            or (initial_state is not None
+                and tuple(initial_state.shape) != (bs, h, n, p))):
+        raise ValueError(f"bad shapes: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)}")
+    if (n, p) not in BUILT_SHAPES:
+        raise ValueError(f"ssd_scan: (N, P) = {(n, p)} not built "
+                         f"{BUILT_SHAPES}")
+    if b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError("x, b and c must share one dtype")
+    floats = [dt, a] + ([initial_state] if initial_state is not None else [])
+    if any(t.dtype != torch.float32 for t in floats):
+        raise ValueError("dt, a and initial_state must be float32")
+    if l < 1 or chunk < 1:
+        raise ValueError(f"ssd_scan: L {l} and chunk {chunk} must be >= 1")
+    cl = min(chunk, l)
+    if cl > MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {cl} above {MAX_CHUNK}")
+    y = torch.empty_like(x)
+    state = torch.empty((bs, h, n, p), dtype=torch.float32, device=x.device)
+    fn = build.function("ssd_scan")
+    err = fn(y.data_ptr(), state.data_ptr(), x.data_ptr(), dt.data_ptr(),
+             a.data_ptr(), b.data_ptr(), c.data_ptr(),
+             0 if initial_state is None else initial_state.data_ptr(),
+             bs, l, h, p, n, cl, build.dtype_code(x.dtype),
+             build.stream_of(x))
+    build.check(err, "ssd_scan")
+    launches += 1
+    return y, state

@@ -28,8 +28,9 @@ from repro_torch.kernels.flash_attention import (attention_dense, repeat_kv,
 
 __all__ = [
     "ParamDef", "stack_plan", "norm_plan", "attn_plan", "mlp_plan",
-    "embed_plan", "apply_norm", "rope_tables", "apply_rope", "attn_qkv",
-    "attn_out", "apply_mlp", "embed_tokens", "unembed", "repeat_kv",
+    "embed_plan", "layer_params", "apply_norm", "rope_tables", "apply_rope",
+    "attn_qkv", "attn_out", "apply_mlp", "embed_tokens", "unembed",
+    "repeat_kv",
     "attention_dense", "big_attention", "cp_attention", "packed_positions",
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
     "cache_row_update", "paged_cache_update", "decode_attention",
@@ -53,6 +54,13 @@ def stack_plan(plan, n: int):
     if isinstance(plan, ParamDef):
         return ParamDef((n,) + tuple(plan.shape), plan.init, plan.std)
     return {k: stack_plan(v, n) for k, v in plan.items()}
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s parameters: a view into every stacked leaf."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def norm_plan(d: int, kind: str):

@@ -8,9 +8,12 @@ on architecture:
   prefill_chunk(params, packed, cache, row_len)  -> (seg_logits, argmax, cache)
   decode_step(params, token (B,), cache)         -> (logits (B, V), cache)
 
-``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device. Only the
-dense family (no experts) is ported so far, over ring (``init_cache``) and
-paged (``init_paged_cache``) caches.
+``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device. Two
+families are ported so far: the dense family (no experts), over ring
+(``init_cache``) and paged (``init_paged_cache``) caches, and the Mamba2
+family (``ssm``), whose per-sequence state has nothing to page and which
+ships no ``prefill_chunk`` — the engine keeps it in per-slot state and
+runs its continuations by prefix recompute.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer, weights
+from repro_torch.models import ssm, transformer, weights
 
 
 @dataclasses.dataclass
@@ -48,10 +51,13 @@ class ModelAPI:
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     """The API of ``cfg`` on ``device`` (default: the CUDA device; raises
     where there is none unless ``device="cpu"`` is passed)."""
-    if cfg.family != "dense" or cfg.num_experts:
+    if cfg.family == "ssm":
+        mod = ssm
+    elif cfg.family == "dense" and not cfg.num_experts:
+        mod = transformer
+    else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
-    mod = transformer
 
     def init(generator: torch.Generator, dtype=torch.float32):
         return weights.init_params(cfg, generator, dev, dtype)
@@ -59,9 +65,14 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     def init_cache(batch, cache_len, dtype=None):
         return mod.init_cache(cfg, batch, cache_len, dtype, device=dev)
 
-    def init_paged(batch, num_pages, page_size, max_pages, dtype=None):
-        return mod.init_paged_cache(cfg, batch, num_pages, page_size,
-                                    max_pages, dtype, device=dev)
+    init_paged = prefill_chunk = None
+    if mod.PAGED_KEYS:
+        def init_paged(batch, num_pages, page_size, max_pages, dtype=None):
+            return mod.init_paged_cache(cfg, batch, num_pages, page_size,
+                                        max_pages, dtype, device=dev)
+    if hasattr(mod, "prefill_chunk"):
+        def prefill_chunk(params, packed, cache, row_len):
+            return mod.prefill_chunk(params, cfg, packed, cache, row_len)
 
     return ModelAPI(
         cfg=cfg,
@@ -79,6 +90,5 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         init_cache=init_cache,
         paged_keys=tuple(mod.PAGED_KEYS),
         init_paged_cache=init_paged,
-        prefill_chunk=lambda params, packed, cache, row_len:
-            mod.prefill_chunk(params, cfg, packed, cache, row_len),
+        prefill_chunk=prefill_chunk,
     )

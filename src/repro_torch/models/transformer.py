@@ -50,13 +50,6 @@ def plan(cfg) -> dict:
     }
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s parameters: a view into every stacked leaf."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _block(cfg, lp, x, rope, attention):
     """One pre-norm block; ``attention(q, k, v)`` mixes the sequence."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
@@ -82,7 +75,7 @@ def forward(params, cfg, tokens):
                               window=cfg.sliding_window)
 
     for i in range(cfg.num_layers):
-        x, _, _ = _block(cfg, _layer(params["layers"], i), x, rope,
+        x, _, _ = _block(cfg, L.layer_params(params["layers"], i), x, rope,
                          attention)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -130,7 +123,7 @@ def prefill(params, cfg, tokens, cache_len: int):
                               window=cfg.sliding_window)
 
     for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, _layer(params["layers"], i), x, rope,
+        x, k, v = _block(cfg, L.layer_params(params["layers"], i), x, rope,
                          attention)
         cache["k"][i, :, :keep] = k[:, s - keep:]
         cache["v"][i, :, :keep] = v[:, s - keep:]
@@ -182,7 +175,8 @@ def prefill_packed(params, cfg, packed, max_seg_len: int):
 
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, _layer(params["layers"], i), x, rope, attention)
+        x, k, v = _block(cfg, L.layer_params(params["layers"], i), x, rope,
+                         attention)
         ks.append(k[0])
         vs.append(v[0])
     last = torch.clamp(seg_starts + seg_lens - 1, 0, t - 1)
@@ -230,7 +224,7 @@ def prefill_chunk(params, cfg, packed, cache, max_seg_len: int):
 
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, _layer(params["layers"], i), x, rope,
+        x, k, v = _block(cfg, L.layer_params(params["layers"], i), x, rope,
                          functools.partial(attention, i))
         ks.append(k[0])
         vs.append(v[0])
@@ -264,7 +258,7 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
 
     h = x[:, None, :]
     for i in range(cfg.num_layers):
-        h, _, _ = _block(cfg, _layer(params["layers"], i), h, rope,
+        h, _, _ = _block(cfg, L.layer_params(params["layers"], i), h, rope,
                          functools.partial(attention, i))
     h = L.apply_norm(params["final_norm"], h[:, 0], cfg.norm)
     logits = L.unembed(params["embed"], h, cfg)

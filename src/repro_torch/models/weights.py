@@ -14,7 +14,12 @@ import torch
 
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
+
+
+def plan_of(cfg) -> dict:
+    """The parameter plan of ``cfg``'s family."""
+    return (ssm if cfg.family == "ssm" else transformer).plan(cfg)
 
 
 def _materialize(pd: L.ParamDef, generator, device, dtype):
@@ -36,19 +41,19 @@ def _init_tree(plan, generator, device, dtype):
 
 def init_params(cfg, generator: torch.Generator, device=None,
                 dtype=torch.float32):
-    """Random parameters following ``transformer.plan(cfg)``: normal with
+    """Random parameters following the family's plan: normal with
     std 0.02, ones or zeros, as each ``ParamDef`` says. ``generator`` must
     live on ``device`` (default: the CUDA device; raises where there is
     none unless ``device="cpu"`` is passed)."""
     dev = resolve_device(device)
-    return _init_tree(transformer.plan(cfg), generator, dev, dtype_of(dtype))
+    return _init_tree(plan_of(cfg), generator, dev, dtype_of(dtype))
 
 
 def params_from_numpy(cfg, tree: Any, device=None):
     """Convert the JAX package's ``api.init(...)`` parameters — the same
     nested dictionaries with numpy arrays (``np.asarray`` of each leaf) at
     the leaves — into the port's parameters on ``device``. Every leaf of
-    ``transformer.plan(cfg)`` must be present with the plan's shape."""
+    the family's plan must be present with the plan's shape."""
     dev = resolve_device(device)
 
     def convert(plan, sub, path):
@@ -61,4 +66,4 @@ def params_from_numpy(cfg, tree: Any, device=None):
         return {k: convert(v, sub[k], f"{path}/{k}")
                 for k, v in plan.items()}
 
-    return convert(transformer.plan(cfg), tree, "")
+    return convert(plan_of(cfg), tree, "")

@@ -1,15 +1,17 @@
 """Slot engine of the port — the data plane under the step planner.
 
-The JAX package's ``InferenceEngine`` for the dense family, with the same
-method names, the same page bookkeeping (``repro_torch.serving.kv_cache``)
-and the same ``EngineStats``:
+The JAX package's ``InferenceEngine`` for the dense and Mamba2 families,
+with the same method names, the same page bookkeeping
+(``repro_torch.serving.kv_cache``) and the same ``EngineStats``:
 
 * ``generate`` (and its per-token twin ``generate_eager``) runs a padded
   batch: one ``prefill`` into a contiguous cache of the bucketed length,
   then greedy ``decode`` steps;
 * ``init_slots`` backs continuous-batching slots with a block-table page
   pool (``paged=True``) or with per-slot rings (``paged=False``, and every
-  sliding-window config: the ring's overwrite is the window);
+  sliding-window config: the ring's overwrite is the window); a family
+  with nothing to page (Mamba2: an SSM state and a conv tail per
+  sequence) always takes per-slot rows;
 * ``insert`` admits one request through a padded prefill; ``insert_many``
   admits a whole admission batch in ONE packed ragged prefill (prompts
   concatenated into one row, bucketed by ``_packed_bucket``) and scatters
@@ -870,7 +872,8 @@ def _write_segments(cache, last_tok, pcache, logits, dev, n_seg: int,
     per-token leaves (the family's paged keys, packed (layers, T, ...)
     order) land at their (page, offset) from ``dev["dest0"/"dest1"]`` —
     padding tokens, whose targets are the never-read null page, are not
-    written; every other leaf is per segment and the first ``n_seg``
+    written; every other leaf is per segment — (S,) like ``pos``, or
+    stacked (layers, S, ...) like an SSM state — and the first ``n_seg``
     segments write it at their slot ids, with the block-table rows and
     the pending tokens (the segments' argmax)."""
     slots = dev["seg_slots"][:n_seg].long()
@@ -880,12 +883,10 @@ def _write_segments(cache, last_tok, pcache, logits, dev, n_seg: int,
             leaf[slots] = dev["table_rows"][:n_seg]
         elif key in paged_keys:
             leaf[:, dest0, dest1] = pcache[key][:, :n_tok].to(leaf.dtype)
+        elif leaf.dim() == 1:
+            leaf[slots] = pcache[key][:n_seg].to(leaf.dtype)
         else:
-            o = pcache[key][:n_seg].to(leaf.dtype)
-            if leaf.dim() == 1:
-                leaf[slots] = o
-            else:
-                leaf[:, slots] = o
+            leaf[:, slots] = pcache[key][:, :n_seg].to(leaf.dtype)
     last_tok[slots] = torch.argmax(logits[:n_seg], -1)
 
 

@@ -9,8 +9,12 @@ machine from the repository root:
 Tolerance: 2e-5 absolute in float32 (TF32 off; the kernels sum in
 another order than the plain versions' matmuls) and 2e-2 absolute and
 relative in bfloat16 (the plain versions round the softmax weights to
-bfloat16 before the weighted sum, the kernels keep them in float32).
+bfloat16 before the weighted sum, the kernels keep them in float32). The
+SSD scan in float32: 1e-4 of the output's scale (max |plain|, at least
+1), since its chunk sums reassociate terms as large as the output.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -21,6 +25,7 @@ from repro_torch.kernels import chunk_attention as CA  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.models.layers import packed_positions  # noqa: E402
 from repro_torch.serving.engine import make_engine  # noqa: E402
 from repro_torch.serving.plan import (PlannerConfig, StepPlanner,  # noqa
@@ -268,3 +273,118 @@ def _cpu(tree):
     if isinstance(tree, dict):
         return {k: _cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+def _ssd_inputs(gen, dev, dtype, b, l, h, n=128, p=64):
+    """x, b, c in ``dtype``; dt (softplus of a normal) and a (negative) in
+    float32, as the model feeds them."""
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, generator=gen, device=dev))
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    return (_randn(gen, (b, l, h, p), dtype, dev), dt, a,
+            _randn(gen, (b, l, n), dtype, dev),
+            _randn(gen, (b, l, n), dtype, dev))
+
+
+def _ssd_close(got, want, dtype):
+    if dtype == "float32":
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.float().abs().max())), err
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,l,h,chunk,with_state", [
+    (2, 300, 4, 128, False),        # ragged last chunk
+    (1, 64, 3, 128, False),         # L < chunk: one chunk of L rows
+    (2, 1, 2, 128, False),          # one token
+    (1, 257, 2, 64, True),          # chunk 64, a carried-in state
+    (2, 45, 2, 18, False),          # chunk 18: rows not a multiple of 4
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, l, h, chunk, with_state):
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, b, l, h)
+    s0 = (torch.randn(b, h, 128, 64, generator=gen, device=cuda)
+          if with_state else None)
+    before = SSD.launches
+    y, s = SSD.ssd_scan_cuda(x, dt, a, bb, cc, chunk, initial_state=s0)
+    assert SSD.launches == before + 1
+    wy, ws = SSD.ssd_chunked_plain(x, dt, a, bb, cc, chunk,
+                                   initial_state=s0)
+    assert y.dtype == x.dtype and s.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    _ssd_close(y, wy, dtype)
+    _ssd_close(s, ws, "float32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_dt_zero_tail_freezes_the_state(cuda, dtype):
+    """Packed rows whose tails carry dt = 0 (x, b, c there are not zero)
+    end with the state of their unpadded runs, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    lens, row_len = (300, 512, 129), 512
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, len(lens), row_len, 4)
+    for i, n in enumerate(lens):
+        dt[i, n:] = 0.0
+    y, s = SSD.ssd_scan_cuda(x, dt, a, bb, cc, 128)
+    for i, n in enumerate(lens):
+        one = [v[i:i + 1, :n].contiguous() for v in (x, dt)] + [a] + \
+            [v[i:i + 1, :n].contiguous() for v in (bb, cc)]
+        y1, s1 = SSD.ssd_scan_cuda(*one, 128)
+        assert torch.equal(s[i:i + 1], s1), f"row {i}: state moved"
+        assert torch.equal(y[i:i + 1, :n], y1), f"row {i}: outputs differ"
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, "float32", 1, 8, 2, n=64)
+    with pytest.raises(ValueError, match="not built"):
+        SSD.ssd_scan_cuda(x, dt, a, bb, cc, 128)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, "float32", 1, 300, 2)
+    with pytest.raises(ValueError, match="above"):
+        SSD.ssd_scan_cuda(x, dt, a, bb, cc, 256)
+    with pytest.raises(ValueError, match="one dtype"):
+        SSD.ssd_scan_cuda(x, dt, a, bb.bfloat16(), cc, 128)
+    with pytest.raises(ValueError, match="float32"):
+        SSD.ssd_scan_cuda(x, dt.bfloat16(), a, bb, cc, 128)
+
+
+def _ssm_cfg():
+    """mamba2-1.3b reduced to 2 layers and d_model 256, with the full
+    model's SSD heads (N 128, P 64), the shapes the kernel is built for."""
+    return dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                               ssm_state=128, ssm_head_dim=64,
+                               ssm_chunk=128)
+
+
+def test_gpu_ssm_serving_and_generate_match_cpu(cuda):
+    """The Mamba2 family on the card: ``serve_ticks`` with recomputed
+    continuations, then batch ``generate``, equal the CPU's plain run
+    token for token, and every scan went through the kernel."""
+    cfg = _ssm_cfg()
+    gpu = make_engine(cfg, seed=3, cache_len=256, device=cuda).init_slots(4)
+    cpu = make_engine(cfg, cache_len=256, device="cpu").init_slots(4)
+    cpu.params = _cpu(gpu.params)
+    assert not gpu.paged
+    rng = np.random.default_rng(0)
+    spec = [(i, int(rng.integers(3, 200)), int(rng.integers(2, 10)))
+            for i in range(6)]
+    prompts = {i: rng.integers(1, cfg.vocab_size, (1, p)).astype(np.int32)
+               for i, p, _ in spec}
+    before = SSD.launches
+    streams = []
+    for eng in (gpu, cpu):
+        reqs = [Request(arrival=0.0, rid=i, model=cfg.name, slo=1e9,
+                        n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+        planner = StepPlanner(eng, RequestQueue(cfg.name, slo=1e9),
+                              PlannerConfig(chunk_tokens=64))
+        srv = serve_ticks(planner, reqs, lambda r: {"tokens": prompts[r.rid]})
+        assert not srv.truncated
+        streams.append(planner.streams)
+    assert streams[0] == streams[1]
+    assert gpu.stats.chunk_prefills > 0
+    assert SSD.launches > before
+    tokens = rng.integers(1, cfg.vocab_size, (3, 150)).astype(np.int32)
+    got = gpu.generate({"tokens": tokens}, 12).cpu()
+    assert torch.equal(got, cpu.generate({"tokens": tokens}, 12))

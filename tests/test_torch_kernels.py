@@ -4,12 +4,21 @@ tests run it) and against the JAX CPU path the serving engine takes, on
 the same numpy inputs; plus the CPU-side contracts of the CUDA wrappers
 (dispatch by device, refusal of CPU tensors, the ctypes signatures) — for
 the paged, packed and chunk kernels of paged serving and the contiguous
-decode and dense flash kernels of ring slots and ``generate``.
+decode and dense flash kernels of ring slots and ``generate``, and the
+SSD scan of the Mamba2 family (its chunked plain version against the JAX
+CPU path, the interpret-mode Pallas kernel and the sequential oracle).
 
 Tolerance: 2e-5 absolute against the interpret-mode kernels (their online
 softmax sums in another order, as the JAX tests allow), 1e-5 against the
 JAX CPU paths (same arithmetic, another framework's float32 reductions).
-Padding rows/tokens are unspecified by contract and not compared.
+Padding rows/tokens are unspecified by contract and not compared. The SSD
+scan: 1e-5 of the output's scale (max |y|, at least 1) against the JAX
+CPU path and the interpret-mode kernel — the same chunked arithmetic in
+other float32 reduction orders, whose rounding grows with the summands
+(|y| reaches ~100 here, and each framework is ~3e-5 from a float64 run),
+so an absolute 1e-5 on small entries would test the rounding, not the
+port — and 2e-3 against the sequential oracle (the chunked form
+reassociates L-long sums), as ``tests/test_kernels.py`` allows.
 """
 import re
 
@@ -31,12 +40,15 @@ from repro.kernels.flash_attention import \
     segment_flash_attention as jax_segment_kernel  # noqa: E402
 from repro.kernels.paged_attention import \
     paged_decode_attention as jax_paged_kernel  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import chunk_attention as CA  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 KERNEL_ATOL = 2e-5
@@ -327,6 +339,129 @@ def test_chunk_attention_plain_window_matches_jax_kernel(window):
     np.testing.assert_allclose(got, np.asarray(want), atol=KERNEL_ATOL)
 
 
+# ------------------------------------------------------------ SSD scan
+SSD_SHAPES = [
+    # (b, l, h, p, n, chunk): tests/test_kernels.py's shapes
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 2, 64, 64, 64),
+    (2, 96, 3, 32, 16, 32),        # l not a multiple of chunk: padding
+]
+SSD_TOL = 1e-5
+
+
+def _close_at_scale(got, want, tol=SSD_TOL):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(1.0, float(np.abs(want).max())), err
+jax_ssd = jax.jit(jax_ops.ssd, static_argnames=("chunk", "backend"))
+
+
+def _ssd_case(seed, b, l, h, p, n):
+    """x, dt (softplus of a normal), a (negative), b, c as numpy f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h)))).astype(np.float32)
+    a = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    bb = rng.standard_normal((b, l, n), np.float32)
+    cc = rng.standard_normal((b, l, n), np.float32)
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_chunked_plain_matches_jax(b, l, h, p, n, chunk):
+    args = _ssd_case(l, b, l, h, p, n)
+    y, s = SSD.ssd_chunked_plain(*map(_t, args), chunk)
+    jy, js = jax_ssd(*map(jnp.asarray, args), chunk=chunk, backend="jnp")
+    _close_at_scale(y.numpy(), jy)
+    _close_at_scale(s.numpy(), js)
+    ry, rs = jax_ref.ssd_ref(*map(jnp.asarray, args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), atol=2e-3,
+                               rtol=2e-3)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD_SHAPES[:3])
+def test_ssd_chunked_plain_matches_pallas_interpret(b, l, h, p, n, chunk):
+    args = _ssd_case(l + 1, b, l, h, p, n)
+    y, s = SSD.ssd_chunked_plain(*map(_t, args), chunk)
+    jy, js = jax_ssd(*map(jnp.asarray, args), chunk=chunk,
+                     backend="interpret")
+    _close_at_scale(y.numpy(), jy)
+    _close_at_scale(s.numpy(), js)
+
+
+def test_ssd_initial_state_and_short_sequence_match_jax():
+    """A carried-in state, and L < chunk (one chunk of L rows)."""
+    x, dt, a, bb, cc = _ssd_case(9, 2, 20, 3, 16, 8)
+    s0 = np.random.default_rng(10).standard_normal((2, 3, 8, 16),
+                                                   np.float32)
+    args = (x, dt, a, bb, cc)
+    y, s = SSD.ssd_chunked_plain(*map(_t, args), 32, initial_state=_t(s0))
+    jy, js = jax_ops.ssd(*map(jnp.asarray, args), chunk=32, backend="jnp",
+                         initial_state=jnp.asarray(s0))
+    _close_at_scale(y.numpy(), jy)
+    _close_at_scale(s.numpy(), js)
+    ry, rs = SSD.ssd_ref_plain(*map(_t, args), initial_state=_t(s0))
+    jry, jrs = jax_ref.ssd_ref(*map(jnp.asarray, args),
+                               initial_state=jnp.asarray(s0))
+    _close_at_scale(ry.numpy(), jry)
+    _close_at_scale(rs.numpy(), jrs)
+
+
+@pytest.mark.parametrize("lens", [(70, 96, 33), (32, 64, 95)])
+def test_ssd_dt_zero_padding_freezes_the_state_bit_for_bit(lens):
+    """Rows of a packed batch whose tails carry dt = 0 (x, b and c there
+    are NOT zero, as after the causal conv) end with the state of their
+    unpadded runs, bit for bit, and agree on every real row — as long as
+    both runs chunk alike (each length >= chunk)."""
+    chunk, row_len = 32, 96
+    x, dt, a, bb, cc = _ssd_case(11, len(lens), row_len, 2, 16, 8)
+    for i, n in enumerate(lens):
+        dt[i, n:] = 0.0
+    y, s = SSD.ssd_chunked_plain(*map(_t, (x, dt, a, bb, cc)), chunk)
+    for i, n in enumerate(lens):
+        one = [_t(v[i:i + 1, :n]) for v in (x, dt)] + [_t(a)] + \
+            [_t(v[i:i + 1, :n]) for v in (bb, cc)]
+        y1, s1 = SSD.ssd_chunked_plain(*one, chunk)
+        assert torch.equal(s[i:i + 1], s1), f"row {i}: state moved"
+        assert torch.equal(y[i:i + 1, :n], y1), f"row {i}: outputs differ"
+
+
+def test_ssd_decode_stepped_over_l_equals_the_oracle():
+    x, dt, a, bb, cc = _ssd_case(12, 2, 24, 3, 16, 8)
+    state = torch.zeros(2, 3, 8, 16)
+    ys = []
+    for t in range(24):
+        yt, state = SSD.ssd_decode_plain(_t(x[:, t]), _t(dt[:, t]), _t(a),
+                                         _t(bb[:, t]), _t(cc[:, t]), state)
+        ys.append(yt)
+    ry, rs = jax_ref.ssd_ref(*map(jnp.asarray, (x, dt, a, bb, cc)))
+    _close_at_scale(torch.stack(ys, 1).numpy(), ry)
+    _close_at_scale(state.numpy(), rs)
+    jy, js = jax_ref.ssd_decode_ref(*map(jnp.asarray, (
+        x[:, 0], dt[:, 0], a, bb[:, 0], cc[:, 0])), jnp.asarray(rs))
+    y1, s1 = ops.ssd_decode(*map(_t, (x[:, 0], dt[:, 0], a, bb[:, 0],
+                                      cc[:, 0])), _t(np.asarray(rs)))
+    _close_at_scale(y1.numpy(), jy)
+    _close_at_scale(s1.numpy(), js)
+
+
+def test_ops_ssd_routes_cpu_tensors_to_the_plain_version():
+    args = [_t(v) for v in _ssd_case(13, 1, 40, 2, 16, 8)]
+    before = SSD.launches
+    y, s = ops.ssd(*args, chunk=16)
+    wy, ws = SSD.ssd_chunked_plain(*args, 16)
+    assert torch.equal(y, wy) and torch.equal(s, ws)
+    assert SSD.launches == before
+    meta = [torch.zeros(a.shape, device="meta") for a in args]
+    with pytest.raises(ValueError, match="no attention kernel"):
+        ops.ssd(*meta, chunk=16)
+
+
 # ------------------------------------------------- CUDA wrapper contracts
 def test_cuda_wrappers_refuse_cpu_tensors():
     q, kp, vp, tables = _paged_case(1, 2, 4, 2, 64, 8, 2)
@@ -342,6 +477,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         DA.decode_attention_cuda(_t(q), _t(kp[:2]), _t(vp[:2]), lens)
     with pytest.raises(ValueError, match="CUDA device"):
         FA.flash_attention_cuda(x, x[:, :, :2], x[:, :, :2])
+    with pytest.raises(ValueError, match="CUDA device"):
+        SSD.ssd_scan_cuda(*[_t(v) for v in _ssd_case(0, 1, 8, 2, 64, 128)],
+                          chunk=128)
     with pytest.raises(ValueError, match="CUDA device"):
         CA.paged_chunk_attention_cuda(
             torch.zeros(1, 4, 4, 64), _t(kp), _t(vp),

@@ -6,8 +6,11 @@ the padded ``prefill``, ``prefill_packed``, ``prefill_chunk`` and
 reduced (float32). Logits and written K/V must
 agree within atol/rtol 1e-5 — not bit for bit: the two frameworks reduce
 float32 matmuls in different orders (even the JAX package misses
-bit-equality across its own shapes). Plus the layer primitives, the
-parameter plan and the device rules of the entry points.
+bit-equality across its own shapes). The Mamba2 family (mamba2-1.3b
+reduced, float32) is held the same way — logits, the per-layer SSM states
+and conv tails of ``prefill`` and ``prefill_packed``, and ``decode_step``
+— within the same 1e-5. Plus the layer primitives, the parameter plans
+and the device rules of the entry points.
 """
 import dataclasses
 
@@ -24,7 +27,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models.registry import build_model as jax_build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.weights import (init_params,  # noqa: E402
                                         params_from_numpy)
@@ -359,3 +362,115 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="sliding-window"):
         attend(q, cache["k"][0], cache["v"][0], window=4)
 
+
+
+# ------------------------------------------------------------ Mamba2 (ssm)
+SSM = "mamba2-1.3b"
+
+
+def _assert_cache_close(tc, jc, n_seg=None):
+    """Every leaf of a port cache against the JAX one (``n_seg``: only the
+    first segments of per-segment leaves)."""
+    assert sorted(tc) == sorted(jc)
+    for key in ("ssm", "conv"):
+        got, want = tc[key].numpy(), np.asarray(jc[key])
+        assert got.shape == want.shape, key
+        np.testing.assert_allclose(got[:, :n_seg], want[:, :n_seg], **TOL)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+@pytest.mark.parametrize("s", [19, 45, 2])       # 1 chunk, 2 (padded), tiny
+def test_ssm_forward_and_prefill_match_jax(pair, s):
+    cfg, japi, jparams, api, params = pair(SSM)
+    tokens = np.random.default_rng(s).integers(
+        1, cfg.vocab_size, (2, s)).astype(np.int32)
+    batch, jbatch = {"tokens": torch.from_numpy(tokens)}, {
+        "tokens": jnp.asarray(tokens)}
+    jl, _ = jax.jit(japi.forward)(jparams, jbatch)
+    tl, taux = api.forward(params, batch)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert all(float(v) == 0.0 for v in taux.values())
+    jl, jc = jax.jit(japi.prefill, static_argnums=2)(jparams, jbatch, 32)
+    tl, tc = api.prefill(params, batch, 32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_close(tc, jc)
+    cp = ssm.cache_plan(cfg, 2, 32)
+    assert {k: tuple(v.shape) for k, v in cp.items()} == \
+        {k: tuple(v.shape) for k, v in japi.cache_plan(2, 32).items()}
+
+
+def test_ssm_prefill_packed_matches_jax(pair):
+    """Per-segment logits, SSM states and conv tails (segments shorter
+    than the conv window included) and positions."""
+    cfg, japi, jparams, api, params = pair(SSM)
+    lens = [5, 40, 2]
+    packed = _packed(lens, 4, 64, cfg.vocab_size, 7)
+    jl, jc = jax.jit(japi.prefill_packed, static_argnums=2)(
+        jparams, _to_jax(packed), 64)
+    tl, tc = api.prefill_packed(params, _to_torch(packed), 64)
+    np.testing.assert_allclose(tl.numpy()[:3], np.asarray(jl)[:3], **TOL)
+    _assert_cache_close(tc, jc, n_seg=3)
+
+
+def test_ssm_decode_step_matches_jax(pair):
+    cfg, japi, jparams, api, params = pair(SSM)
+    rng = np.random.default_rng(8)
+    b = 3
+    cache = {"ssm": rng.standard_normal(
+        (cfg.num_layers, b, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+        np.float32),
+        "conv": rng.standard_normal(
+            (cfg.num_layers, b, cfg.ssm_conv_width - 1,
+             cfg.d_inner + 2 * cfg.ssm_state), np.float32),
+        "pos": np.asarray([4, 0, 17], np.int32)}
+    token = np.asarray([9, 1, 400], np.int32)
+    jl, jc = jax.jit(japi.decode_step)(jparams, jnp.asarray(token),
+                                       _to_jax(cache))
+    tl, tc = api.decode_step(params, torch.from_numpy(token),
+                             _to_torch(cache))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_close(tc, jc)
+
+
+def test_ssm_prefill_then_decode_continues_forward(pair):
+    """Prefill of a prefix then decode steps give the logits ``forward``
+    gives over the whole sequence (the recurrent and chunked forms
+    agree)."""
+    cfg, _, _, api, params = pair(SSM)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (2, 40)).astype(np.int32))
+    full, _ = api.forward(params, {"tokens": toks})
+    logits, cache = api.prefill(params, {"tokens": toks[:, :33]}, 64)
+    np.testing.assert_allclose(logits.numpy(), full[:, 32].numpy(),
+                               atol=1e-4)
+    for t in range(33, 40):
+        logits, cache = api.decode_step(params, toks[:, t], cache)
+        np.testing.assert_allclose(logits.numpy(), full[:, t].numpy(),
+                                   atol=1e-4)
+    assert cache["pos"].tolist() == [40, 40]
+
+
+def test_ssm_init_params_follow_the_plan():
+    cfg = get_config(SSM).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jshapes = jax.tree.map(lambda a: tuple(a.shape),
+                           jax_build(jax_config(SSM).reduced()).init(
+                               jax.random.PRNGKey(0)))
+    assert jax.tree.map(lambda t: tuple(t.shape), params) == jshapes
+    lp = params["layers"]
+    assert abs(float(lp["conv_x"].std()) - 0.2) < 0.02
+    assert abs(float(lp["wx"].std()) - 0.02) < 2e-3
+    assert not lp["A_log"].any() and not lp["dt_bias"].any()
+    assert bool((lp["D"] == 1).all())
+    assert bool((lp["gate_norm"]["scale"] == 1).all())
+
+
+def test_ssm_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config(SSM))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine(get_config(SSM).reduced())
+    api = build_model(get_config(SSM).reduced(), device="cpu")
+    assert api.paged_keys == () and api.init_paged_cache is None
+    assert api.prefill_chunk is None

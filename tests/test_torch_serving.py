@@ -8,7 +8,10 @@ dispatches — for whole-prompt admission, chunked prefill (incremental on
 pages, prefix recompute on rings), a lazy tight pool that preempts, a
 seeded fault schedule and tiered admission; plus the engines' page
 bookkeeping call by call, batch ``generate``, and ring ≡ paged within
-the port.
+the port. The Mamba2 family (mamba2-1.3b reduced) serves the same way on
+its per-slot state (paged slots fall back to it; continuations recompute
+the prefix), and the packed-segment scatter writes stacked per-segment
+leaves as the JAX scatter does.
 """
 import dataclasses
 
@@ -24,6 +27,7 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.serving import faults as jax_faults  # noqa: E402
 from repro.serving import plan as jax_plan  # noqa: E402
 from repro.serving import request as jax_request  # noqa: E402
+from repro.serving.engine import _make_write_segments  # noqa: E402
 from repro.serving.engine import make_engine as jax_make_engine  # noqa
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -32,6 +36,7 @@ from repro_torch.serving import faults as port_faults  # noqa: E402
 from repro_torch.serving import plan as port_plan  # noqa: E402
 from repro_torch.serving import request as port_request  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+from repro_torch.serving.engine import _write_segments  # noqa: E402
 from repro_torch.serving.engine import make_engine  # noqa: E402
 
 CACHE_LEN = 32
@@ -351,3 +356,114 @@ def test_unported_planner_features_raise():
         eng.init_slots(2, sampling=object())
     with pytest.raises(ValueError, match="multiple of page_size"):
         eng.init_slots(2, cache_len=20, page_size=8)
+
+
+# ------------------------------------------------------------ Mamba2 (ssm)
+SSM = "mamba2-1.3b"
+
+
+@pytest.mark.parametrize("chunk_tokens", [0, 3, 8])
+def test_ssm_serve_ticks_streams_match_jax(engines, chunk_tokens):
+    """Paged slots are asked for and both engines fall back to per-slot
+    state; admissions are packed prefills, continuations recompute their
+    prefix, decodes step the recurrent state under the step mask."""
+    cfg, jeng, peng = engines(SSM)
+    assert not jeng.paged and not peng.paged
+    assert not peng.chunk_capable() and not peng.prefix_cache_capable()
+    spec, prompts = _workload(cfg, seed=7, n=6)
+    a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=chunk_tokens)
+    b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=chunk_tokens)
+    assert all(len(t) for t in b[0].values())
+    _assert_same(a, b)
+    st = b[1].engine.stats
+    assert st.incr_chunks == 0 and st.packed_prefills > 0
+    if chunk_tokens:
+        assert st.chunk_prefills > 0
+
+
+def test_ssm_generate_matches_jax(engines):
+    cfg, jeng, peng = engines(SSM)
+    tokens = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (3, 37)).astype(np.int32)    # 2 chunks, padded
+    for fn in ("generate", "generate_eager"):
+        jeng.reset_stats()
+        peng.reset_stats()
+        want = getattr(jeng, fn)({"tokens": jnp.asarray(tokens)}, 9)
+        got = getattr(peng, fn)({"tokens": tokens}, 9)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert dataclasses.asdict(peng.stats) == \
+            dataclasses.asdict(jeng.stats), fn
+
+
+def test_ssm_insert_step_matches_jax(engines):
+    """Single-request ``insert`` (padded prefill, row write of every
+    stacked leaf), masked ``step`` and ``free`` with churn."""
+    cfg, jeng, peng = engines(SSM)
+    prompts = [np.random.default_rng(70 + i).integers(
+        1, cfg.vocab_size, (1, p)).astype(np.int32)
+        for i, p in enumerate((9, 3, 20, 14, 6))]
+    budgets = [4, 7, 3, 5, 6]
+    for eng in (jeng, peng):
+        eng.release_all_slots()
+        eng.reset_stats()
+    want = _insert_step_stream(jeng, [jnp.asarray(p) for p in prompts],
+                               budgets, 14)
+    got = _insert_step_stream(peng, prompts, budgets, 14)
+    assert got == want
+    assert dataclasses.asdict(peng.stats) == dataclasses.asdict(jeng.stats)
+    jeng.release_all_slots()
+    peng.release_all_slots()
+
+
+@pytest.mark.parametrize("layers,n_slots,s_bucket,slots", [
+    (3, 4, 4, [2, 0]),     # several segments, layers != S
+    (3, 4, 1, [2]),        # one segment in a bucket of 1
+])
+def test_write_segments_scatters_stacked_leaves_like_jax(layers, n_slots,
+                                                         s_bucket, slots):
+    """The packed-segment scatter of per-segment leaves: an (S,) leaf
+    (``pos``) and stacked (layers, S, ...) leaves (an SSM state, a conv
+    tail) land at their slots' rows in EVERY layer, as the JAX scatter
+    writes them (padding segments carry slot id n_slots and are
+    dropped)."""
+    rng = np.random.default_rng(layers * 10 + s_bucket)
+    cache = {"ssm": rng.standard_normal((layers, n_slots, 2, 3, 2),
+                                        np.float32),
+             "conv": rng.standard_normal((layers, n_slots, 3, 5),
+                                         np.float32),
+             "pos": np.arange(n_slots, dtype=np.int32) + 100}
+    pcache = {"ssm": rng.standard_normal((layers, s_bucket, 2, 3, 2),
+                                         np.float32),
+              "conv": rng.standard_normal((layers, s_bucket, 3, 5),
+                                          np.float32),
+              "pos": np.arange(s_bucket, dtype=np.int32) + 7}
+    logits = rng.standard_normal((s_bucket, 11), np.float32)
+    seg_slots = np.full((s_bucket,), n_slots, np.int32)
+    seg_slots[:len(slots)] = slots
+    t = 4
+    dest0, dest1 = np.zeros((t,), np.int32), np.full((t,), 99, np.int32)
+    last = np.zeros((n_slots,), np.int32)
+    want, want_last = _make_write_segments(())(
+        _to_jax_tree(cache), jnp.asarray(last), _to_jax_tree(pcache),
+        jnp.asarray(logits), jnp.asarray(dest0), jnp.asarray(dest1),
+        jnp.asarray(seg_slots), None)
+    got = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    got_last = torch.from_numpy(last.astype(np.int64))
+    dev = {"seg_slots": torch.from_numpy(seg_slots),
+           "dest0": torch.from_numpy(dest0),
+           "dest1": torch.from_numpy(dest1)}
+    _write_segments(got, got_last, {k: torch.from_numpy(v)
+                                    for k, v in pcache.items()},
+                    torch.from_numpy(logits), dev, len(slots), 0, ())
+    for key in cache:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    np.testing.assert_array_equal(got_last.numpy(), np.asarray(want_last))
+    for i, slot in enumerate(slots):          # every layer of the slot
+        for layer in range(layers):
+            np.testing.assert_array_equal(got["ssm"][layer, slot].numpy(),
+                                          pcache["ssm"][layer, i])
+
+
+def _to_jax_tree(d):
+    return {k: jnp.asarray(v) for k, v in d.items()}
