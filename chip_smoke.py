@@ -32,7 +32,8 @@ with ``nvcc`` and runs six phases, each printing one JSON line:
       tokens each), then qwen2-0.5b at full width on one;
   (e) ring serve: phase (b)'s requests on 8 ring slots, so admissions and
       prefix-recompute continuations run the packed prefill and decodes
-      the contiguous decode kernel (and never the chunk kernel);
+      the contiguous decode kernel (and never the chunk kernel), then the
+      same serve once more under ``torch.profiler``;
   (f) ssm: mamba2-1.3b at full width in bfloat16 (48 layers, d_model
       2048, 64 SSD heads of 64, N 128) serves phase (b)'s requests on 8
       slots of per-sequence state (packed admissions, prefix-recompute
@@ -58,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +84,17 @@ TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
 SSD_F32_TOL = 1e-4
 # mamba2-1.3b's SSD heads: H, P, N, chunk
 SSD_HEADS = (64, 64, 128, 128)
+# the device functions each of the port's kernels launches
+PORT_SYMBOLS = {
+    "paged_decode_attention": ("paged_decode_kernel",),
+    "segment_flash_attention": ("segment_flash_kernel",),
+    "paged_chunk_attention": ("paged_chunk_kernel",),
+    "decode_attention": ("decode_split_kernel", "combine_splits"),
+    "flash_attention": ("flash_kernel", "flash_tc_kernel"),
+    "ssd_scan": ("ssd_kernel",)}
+# device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
+# longer than the host takes to queue its runs
+QUEUE_SLEEP_CYCLES = 20_000_000
 
 
 def _log(*a):
@@ -92,19 +105,55 @@ def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _time_ms(fn, torch, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs, by CUDA events."""
+def _time_ms(fn, torch, iters: int = 20, sleep: bool = True,
+             flush=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` runs, by CUDA events.
+
+    ``sleep``: a device-side sleep ahead of the first event lets the host
+    queue every run before the device reaches them, so a call whose host
+    side is slower than its kernels is timed by its kernels. Without it
+    the runs go back to back as the host issues them, and a call whose
+    host side is the slower one is timed by its host side.
+    ``flush``: a tensor larger than the L2 cache, read before every run;
+    each run is then timed by its own pair of events and finds its inputs
+    in device memory, not in L2, as a layer of a model does after the
+    other layers' weights and caches have passed through."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if sleep:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(iters if flush is not None else 1)]
+    if flush is None:
+        pairs[0][0].record()
+        for _ in range(iters):
+            fn()
+        pairs[0][1].record()
+    else:
+        for start, end in pairs:
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def _timings(fn, torch, flush, key: str = "ms") -> dict:
+    """``fn``'s time three ways: ``key`` queued behind a sleep with a warm
+    L2 (the headline), ``key``_host_paced back to back without the sleep,
+    and ``key``_cold_l2 queued with the L2 flushed before each run."""
+    return {key: _time_ms(fn, torch),
+            f"{key}_host_paced": _time_ms(fn, torch, sleep=False),
+            f"{key}_cold_l2": _time_ms(fn, torch, flush=flush)}
+
+
+def _l2_flush(torch, dev):
+    """A float32 buffer of four times the card's L2 cache."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return torch.ones(l2, dtype=torch.float32, device=dev)
 
 
 def _bound_ms(nbytes: float, flops: float, dtype: str):
@@ -236,7 +285,14 @@ def _chunk_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64,
 def _ring_decode_case(torch, gen, dev, dtype, h, kv, d, c=4096,
                       lengths=(0, 1, 256, 512, 1024, 1500, 2048, 4096)):
     """bench_decode --quick's ragged shape: 8 rows of a 4096-row cache,
-    lengths from 0 to C."""
+    lengths from 0 to C. ``lengths="split edges"``: 8 rows whose lengths
+    sit one below, at and one above the ends of the wrapper's first two
+    splits, a row of C - 1 and an empty row."""
+    if lengths == "split edges":
+        from repro_torch.kernels import decode_attention
+        n = decode_attention.decode_splits(
+            8, kv, c, decode_attention.sm_count(0))[1]
+        lengths = (n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0)
     b = len(lengths)
     q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
     kc = torch.randn(b, c, kv, d, generator=gen, device=dev).to(dtype)
@@ -336,14 +392,21 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
         "paged_chunk_attention": [
             dict(r=8, hist=(13, 0), slen=(8, 3), ps=8, max_pages=4)],
         "paged_decode_attention": [dict(ps=8, max_pages=128)],
-        "decode_attention": [dict(c=200, lengths=(200, 0, 137, 1))],
+        "decode_attention": [
+            dict(c=200, lengths=(200, 0, 137, 1)),
+            dict(c=16384, lengths=(16384,)),               # B 1, long row
+            dict(lengths="split edges"),                   # splits +-1
+            dict(lengths=tuple(range(2000, 2065, 9)))],    # generate's
         "flash_attention": [
             dict(s=2048),                                  # causal, 2^11
             dict(s=1000, window=256),                      # window
-            dict(s=512, causal=False)],                    # non-causal
+            dict(s=512, causal=False),                     # non-causal
+            dict(s=1000, window=100),                      # mid-tile start
+            *[dict(s=n) for n in (1, 63, 64, 65, 127, 128, 129)]],
     }
     rows, summary = [], {}
     gen = torch.Generator(device=dev).manual_seed(0)
+    flush = _l2_flush(torch, dev)
     for name, (cuda_fn, plain_fn, make, source, replaces) in kernels.items():
         for model, (h, kv, d) in HEADS.items():
             for dname in ("float32", "bfloat16"):
@@ -374,13 +437,14 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                                             **case.get("kernel_kw", {}))
                     run_p = lambda: plain_fn(*case["args_plain"],  # noqa
                                              **case.get("plain_kw", {}))
-                    row["ms"] = _time_ms(run_k, torch)
+                    row.update(_timings(run_k, torch, flush))
                     row["plain_ms"] = _time_ms(run_p, torch, iters=5)
                     row["bound_ms"], row["bound_by"] = _bound_ms(
                         case["nbytes"], case["flops"], dname)
                     lib = case["library"]
-                    row["library_ms"] = (_time_ms(lib(), torch)
-                                         if lib is not None else None)
+                    row.update(_timings(lib(), torch, flush, "library_ms")
+                               if lib is not None else
+                               {"library_ms": None})
                     if si == 0 and model == timing_model \
                             and dname == "bfloat16":
                         summary[name] = {
@@ -392,7 +456,7 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                     rows.append(row)
                     _log(json.dumps(row))
                     del case, kout, pout
-    ssd_rows, summary["ssd_scan"] = _ssd_cases(torch, gen, dev)
+    ssd_rows, summary["ssd_scan"] = _ssd_cases(torch, gen, dev, flush)
     rows += ssd_rows
     bad = [r for r in rows if not r["ok"]]
     _emit({"phase": "a", "cases": len(rows), "failed": len(bad),
@@ -421,7 +485,7 @@ def _ssd_bound(b, lens, h, p, n, cl, dname):
     return _bound_ms(nbytes, flops, dname)
 
 
-def _ssd_cases(torch, gen, dev):
+def _ssd_cases(torch, gen, dev, flush):
     """The SSD scan against its plain version at mamba2-1.3b heads, in
     float32 and bfloat16: the main shape (B 8, L 2048), a ragged L, L <
     chunk, and packed rows whose tails carry dt = 0, whose final states
@@ -464,8 +528,8 @@ def _ssd_cases(torch, gen, dev):
                    "max_abs_err": max(errs),
                    "plain_max_abs": float(py.float().abs().max()), "ok": ok}
             if shape == "main":
-                row["ms"] = _time_ms(lambda: ssd_scan.ssd_scan_cuda(*args),
-                                     torch)
+                row.update(_timings(
+                    lambda: ssd_scan.ssd_scan_cuda(*args), torch, flush))
                 row["plain_ms"] = _time_ms(
                     lambda: ssd_scan.ssd_chunked_plain(*args), torch,
                     iters=5)
@@ -636,7 +700,7 @@ def phase_b(torch):
     return out, streams
 
 
-def _profile(torch, run, top: int = 8):
+def _profile(torch, run, top: int = 12):
     """Run ``run`` once more under ``torch.profiler``. Returns its result
     and the device time by kernel (the largest ``top``), the total, and
     the device's busy share of the wall time."""
@@ -647,18 +711,28 @@ def _profile(torch, run, top: int = 8):
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
+    kernels, port = [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        kernels.append((getattr(e, "device_time_total", 0.0) / 1e3,
-                        e.count, e.key[:90]))
+        ms = getattr(e, "device_time_total", 0.0) / 1e3
+        kernels.append((ms, e.count, e.key[:90]))
+        symbol = re.search(r"(\w+)[<(]", e.key)
+        for name, symbols in PORT_SYMBOLS.items():
+            if symbol and symbol.group(1) in symbols:
+                got = port.setdefault(name, {"ms": 0.0, "by_symbol": {}})
+                got["ms"] += ms
+                sym = got["by_symbol"].setdefault(
+                    symbol.group(1), {"ms": 0.0, "count": 0})
+                sym["ms"] += ms
+                sym["count"] += e.count
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
     return out, {"wall_ms": 1e3 * wall, "device_ms": device_ms,
                  "device_busy_share": device_ms / (1e3 * wall),
                  "top": [{"kernel": k, "ms": ms, "count": n}
-                         for ms, n, k in kernels[:top]]}
+                         for ms, n, k in kernels[:top]],
+                 "port_kernels": port}
 
 
 # --------------------------------------------------------------------------
@@ -750,6 +824,9 @@ def phase_e(torch, paged_streams=None):
     st = eng.stats
     assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
     p50, p99 = _walls(srv)
+    again, profile = _profile(
+        torch, lambda: _serve(eng, reqs, prompts, chunk_tokens=512)[0])
+    assert again == streams, "a repeated serve changed the streams"
     same = (None if paged_streams is None else
             sum(streams[r] == paged_streams[r] for r in streams))
     out = {"phase": "e", "model": cfg.name, "dtype": "bfloat16",
@@ -761,7 +838,7 @@ def phase_e(torch, paged_streams=None):
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "kv_cache_bytes": eng.kv_cache_bytes(),
            "streams_equal_to_paged": same, "stats": dataclasses.asdict(st),
-           "launches": launches}
+           "launches": launches, "profile": profile}
     _emit(out)
     del eng
     torch.cuda.empty_cache()
@@ -1061,7 +1138,12 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 _log(f"{n}: {line.strip()}")
     _log(f"kernels built in {build_s:.1f} s")
-    report = {"build_s": build_s}
+    # the bf16 flash kernel must run on the tensor cores (wgmma: HGMMA)
+    hgmma = build.sass_count("flash_attention", "HGMMA")
+    _log(f"HGMMA instructions per flash kernel: {hgmma}")
+    tc = {k: n for k, n in hgmma.items() if "flash_tc_kernel" in k}
+    assert len(tc) == 2 and all(tc.values()), hgmma
+    report = {"build_s": build_s, "flash_sass_hgmma": hgmma}
     summary, paged_streams = {}, None
     main_launches = {n: 0 for n in KERNEL_NAMES}
     if "a" in args.phases:

@@ -44,7 +44,7 @@ SIGNATURES = {
     "paged_chunk_attention":
         (_P,) * 9 + (_I,) * 9 + (_F, _P),
     "decode_attention":
-        (_P,) * 5 + (_I,) * 6 + (_F, _P),
+        (_P,) * 6 + (_I,) * 8 + (_F, _P),
     "flash_attention":
         (_P,) * 4 + (_I,) * 8 + (_F, _P),
     "ssd_scan":
@@ -73,15 +73,14 @@ def build_dir() -> Path:
     return BUILD_ROOT / source_hash()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
+    default = Path("/usr/local/cuda/bin") / name
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit to build")
+    raise RuntimeError(f"{name} not found: it comes with the CUDA toolkit")
 
 
 def build_all() -> Path:
@@ -93,7 +92,7 @@ def build_all() -> Path:
     if not missing:
         return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = _cuda_tool("nvcc")
     procs = {}
     for name in missing:
         tmp = out_dir / f"{name}.{os.getpid()}.tmp.so"
@@ -113,6 +112,25 @@ def build_all() -> Path:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out_dir
+
+
+def sass_count(source: str, opcode: str) -> Dict[str, int]:
+    """How many instructions of ``opcode`` (e.g. ``HMMA``) the built
+    library of ``source`` holds, by mangled kernel name, from
+    ``cuobjdump -sass``."""
+    text = subprocess.run(
+        [_cuda_tool("cuobjdump"), "-sass",
+         str(build_all() / f"{source}.so")],
+        capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    name = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and f" {opcode}" in line:
+            counts[name] += 1
+    return counts
 
 
 def build_logs() -> Dict[str, str]:
@@ -162,6 +180,17 @@ def check_operands(entry: str, head_dim: Optional[int], **tensors) -> None:
     if head_dim is not None and head_dim not in (64, 128):
         raise ValueError(f"{entry}: head_dim {head_dim} not built "
                          f"(64 or 128)")
+
+
+def check_aligned(entry: str, **tensors) -> None:
+    """Raise unless every operand starts on a 16-byte boundary: kernels
+    that read their operands as 16-byte vectors (``uint4`` loads,
+    ``cp.async``) need it, and a contiguous view at another offset has
+    not."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{entry}: {name} must start on a 16-byte "
+                             f"boundary")
 
 
 def stream_of(t) -> int:

@@ -1,11 +1,17 @@
-// Tile machinery shared by the attention kernels of the port.
+// Tile machinery shared by the attention kernels of the port that run on
+// the CUDA cores: the paged decode (paged_attention.cu), the chunk kernel
+// (chunk_attention.cu), the segment flash kernel and the float32 dense
+// flash kernel (flash_attention.cu). The bf16 dense flash kernel runs its
+// own tensor-core main loop (tc_attend in flash_attention.cu), and the
+// contiguous decode kernel the split-K body of decode_split.cuh, which
+// builds on the helpers here (to_f, from_f, kThreads).
 //
-// Every kernel here computes, for a tile of up to kBQ query rows, an online
-// (flash-style) softmax over a sequence of key tiles of kBK keys each. The
-// kernels differ only in where a query row and a key row live in device
-// memory (a padded or packed row, a contiguous or paged cache, a chunk)
-// and in which (query, key) pairs are visible (a causal or segment mask, a
-// length, a window); both are passed in as small device lambdas.
+// Every kernel that runs this machinery computes, for a tile of up to kBQ
+// query rows, an online (flash-style) softmax over a sequence of key tiles
+// of kBK keys each. The kernels differ only in where a query row and a key
+// row live in device memory (a padded or packed row, a paged cache, a
+// chunk) and in which (query, key) pairs are visible (a causal or segment
+// mask, a length, a window); both are passed in as small device lambdas.
 //
 // Layout of the work inside a block of kThreads = 128 threads:
 //   * the query tile and one key/value tile sit in shared memory as f32
@@ -20,7 +26,7 @@
 //     the whole key loop; the output is acc / max(l, 1e-30), so a row that
 //     saw no visible key is written as exact zeros.
 // Both products (QK^T and PV) are computed here in f32 FMAs on the CUDA
-// cores; tensor cores (wgmma) are left for a later version.
+// cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -197,9 +203,10 @@ __device__ __forceinline__ void store_rows(const RowState<D>& st,
 // query heads of the group are the rows of the tile (in tiles of kBQ when
 // rep > kBQ), and the key loop runs over the row's first len tokens only,
 // so nothing of the cache past a row's length is read. key_off(p) is the
-// element offset of token p of KV head g in k and v: a block-table lookup
-// for the paged kernel, a plain stride for the contiguous one. len == 0
-// writes exact zeros. q, out: (B, H, D).
+// element offset of token p of KV head g in k and v (the paged kernel's
+// block-table lookup; the contiguous decode kernel now runs the split-K
+// body of decode_split.cuh). len == 0 writes exact zeros. q, out:
+// (B, H, D).
 template <typename T, int D, class KeyOff>
 __device__ __forceinline__ void decode_group(T* __restrict__ out,
                                              const T* __restrict__ q,

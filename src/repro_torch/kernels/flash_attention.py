@@ -9,8 +9,10 @@ Replaces the TPU kernels of ``src/repro/kernels/flash_attention.py``:
   window`` when a window is given. Padded ``prefill`` and ``forward`` run
   it (``layers.big_attention``). ``flash_attention_cuda`` launches
   ``csrc/flash_attention.cu`` for any S (the kernel masks the ragged
-  edge); ``flash_attention_plain`` is ``attention_dense`` under the same
-  mask, as the JAX CPU path's ``big_attention`` runs it.
+  edge): bfloat16 on the tensor cores (``wgmma``), float32 on the CUDA
+  cores, chosen by dtype behind the one C entry;
+  ``flash_attention_plain`` is ``attention_dense`` under the same mask, as
+  the JAX CPU path's ``big_attention`` runs it.
 * ``segment_flash_attention``: a packed row concatenates the prompts of an
   admission batch; token ``i`` attends token ``j`` iff their segment ids
   are equal and ``j <= i`` (and ``i - j < window`` when a window is
@@ -118,6 +120,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     b, s, h, d = q.shape
     kvh = k.shape[2]
     build.check_operands("flash_attention", d, q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16 B
+        build.check_aligned("flash_attention", q=q, k=k, v=v)
     if (h % kvh or v.shape != k.shape or k.shape[:2] != q.shape[:2]
             or k.shape[3] != d):
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "

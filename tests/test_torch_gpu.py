@@ -97,9 +97,17 @@ def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype):
 @pytest.mark.parametrize("c,lengths", [
     (256, [0, 1, 31, 32, 33, 200, 256, 0]),     # empty, tile edges, full
     (200, [200, 0, 137, 1]),                    # C no multiple of 32
+    (16384, [16384]),                           # one long row, many splits
+    (4096, "split edges"),                      # split boundaries +-1
+    (4096, list(range(2000, 2065, 9))),         # generate's decode shape
 ])
 def test_decode_kernel_matches_plain(cuda, h, kv, d, dtype, c, lengths):
     gen = torch.Generator(device=cuda).manual_seed(4)
+    if lengths == "split edges":
+        # lengths one below, at and one above the ends of the first two
+        # splits that the wrapper cuts (8 rows), and a row of length C - 1
+        n = DA.decode_splits(8, kv, c, DA.sm_count(cuda.index or 0))[1]
+        lengths = [n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0]
     b = len(lengths)
     q = _randn(gen, (b, h, d), dtype, cuda)
     kc = _randn(gen, (b, c, kv, d), dtype, cuda)
@@ -122,6 +130,16 @@ def test_decode_kernel_matches_plain(cuda, h, kv, d, dtype, c, lengths):
     (256, True, 48),                # window
     (96, False, 0),                 # non-causal
     (80, False, 24),                # non-causal window
+    (1, True, 0),                   # one token
+    (63, True, 0),                  # the edges of 64-row tiles
+    (64, True, 0),
+    (65, True, 0),
+    (127, True, 0),
+    (128, True, 0),
+    (129, True, 0),
+    (129, False, 0),
+    (300, True, 100),               # windows that start mid-tile
+    (300, False, 70),
 ])
 def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
                                     window):
@@ -134,6 +152,18 @@ def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
     assert FA.flash_launches == before + 1
     want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
+    """The built bf16 flash kernels hold Hopper's warpgroup tensor-core
+    instructions (HGMMA, from wgmma, in the SASS of both head dims) and the
+    float32 one holds none."""
+    from repro_torch.kernels import build
+    counts = build.sass_count("flash_attention", "HGMMA")
+    tc = {k: n for k, n in counts.items() if "flash_tc_kernel" in k}
+    assert len(tc) == 2 and all(n > 0 for n in tc.values()), counts
+    assert all(n == 0 for k, n in counts.items()
+               if k.startswith("_Z12flash_kernel")), counts
 
 
 @pytest.mark.parametrize("h,kv,d", HEADS)
@@ -211,6 +241,38 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         FA.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="int32"):
         DA.decode_attention_cuda(q, pages[:2], pages[:2], lens.long())
+
+
+def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
+    """#4 and the bf16 #5 read 16-byte vectors: a contiguous view at an
+    odd offset raises instead of faulting."""
+    flat = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    kc = flat[1:].view(2, 64, 2, 64)
+    q = torch.zeros(2, 4, 64, device=cuda, dtype=torch.bfloat16)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        DA.decode_attention_cuda(q, kc, kc, lens)
+    x = flat[1:1 + 2 * 16 * 4 * 64].view(2, 16, 4, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        FA.flash_attention_cuda(x, x, x)
+
+
+@pytest.mark.parametrize("h,kv,d", [(8, 4, 64), (16, 4, 128), (18, 2, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_pads_groups_to_eight_heads(cuda, h, kv, d, dtype):
+    """Groups of 2 and 4 query heads run the 8-head body with padded
+    heads, and a group of 9 takes two passes of it."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lengths = [0, 1, 700, 2048]
+    b, c = len(lengths), 2048
+    q = _randn(gen, (b, h, d), dtype, cuda)
+    kc = _randn(gen, (b, c, kv, d), dtype, cuda)
+    vc = _randn(gen, (b, c, kv, d), dtype, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = DA.decode_attention_cuda(q, kc, vc, lens)
+    want = DA.decode_attention_plain(q, kc, vc, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (got[0] == 0).all()
 
 
 def _launch_counts():

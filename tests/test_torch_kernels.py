@@ -163,6 +163,76 @@ def test_decode_attention_plain_matches_jax(b, h, kv, d, c, lengths, blk):
             assert (got[i] == 0).all(), f"row {i} of length 0 not zero"
 
 
+SPLIT_SHAPES = [
+    # (b, kv, c, sm_count)
+    (8, 16, 4096, 132),     # olmo-1b heads, the main ragged shape
+    (8, 2, 4096, 132),      # qwen2-0.5b heads
+    (1, 16, 16384, 132),    # one long row
+    (1, 2, 16384, 132),
+    (8, 16, 200, 132),      # C no multiple of the tile
+    (4, 2, 300, 132),
+    (64, 16, 4096, 132),    # B * KV already fills the card
+    (3, 1, 64, 132),        # C of one tile
+]
+
+
+@pytest.mark.parametrize("b,kv,c,sm", SPLIT_SHAPES)
+def test_decode_splits_cover_c_in_whole_tiles_and_fill_the_card(b, kv, c,
+                                                                sm):
+    splits, n = DA.decode_splits(b, kv, c, sm)
+    assert splits >= 1
+    assert n >= DA.SPLIT_TILE and n % DA.SPLIT_TILE == 0  # whole tiles
+    assert splits * n >= c                      # every key has a split
+    assert (splits - 1) * n < c                 # no empty range below C
+    tiles = -(-c // DA.SPLIT_TILE)
+    # at least 2 blocks per SM (the aim, BLOCKS_PER_SM, less what rounding
+    # to whole tiles costs), or the splits are as many as tiles and the
+    # merge allow
+    assert splits <= DA.MAX_SPLITS
+    assert (b * kv * splits >= 2 * sm or splits == tiles
+            or splits == DA.MAX_SPLITS)
+    if b * kv >= DA.BLOCKS_PER_SM * sm:
+        assert splits == 1
+
+
+SPLIT_EMULATION_CASES = [
+    # (b, h, kv, d, c, sm_count, lengths): lengths 0, 1, a split
+    # boundary +-1 and C
+    (6, 8, 2, 64, 300, 132, [0, 1, 63, 64, 65, 300]),
+    (4, 14, 2, 64, 256, 132, [127, 128, 129, 256]),
+    (3, 4, 4, 128, 1000, 8, [0, 999, 1000]),
+    (2, 8, 1, 64, 192, 1, [191, 1]),            # one split
+]
+
+
+@pytest.mark.parametrize("b,h,kv,d,c,sm,lengths", SPLIT_EMULATION_CASES)
+def test_decode_split_plain_matches_plain_and_jax(b, h, kv, d, c, sm,
+                                                  lengths):
+    """The kernel's split-and-merge, emulated on the CPU with the splits
+    the wrapper would cut, equals the one-pass softmax: float32 within 1e-6
+    of the plain version, of the JAX package's CPU path and of its
+    interpret-mode kernel, and length-0 rows are exact zeros."""
+    rng = np.random.default_rng(c + h)
+    q = rng.standard_normal((b, h, d), np.float32)
+    kc = rng.standard_normal((b, c, kv, d), np.float32)
+    vc = rng.standard_normal((b, c, kv, d), np.float32)
+    lens = np.asarray(lengths, np.int32)
+    splits, n = DA.decode_splits(b, kv, c, sm)
+    got = DA.decode_attention_split_plain(_t(q), _t(kc), _t(vc), _t(lens),
+                                          splits, n).numpy()
+    plain = DA.decode_attention_plain(_t(q), _t(kc), _t(vc), _t(lens))
+    np.testing.assert_allclose(got, plain.numpy(), atol=1e-6, rtol=0)
+    jargs = [jnp.asarray(a) for a in (q, kc, vc, lens)]
+    np.testing.assert_allclose(got, np.asarray(jax_decode_path(*jargs)),
+                               atol=1e-6, rtol=0)
+    want = jax_decode_kernel(*jargs, block_k=64 if c % 64 == 0 else c,
+                             interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+    for i, m in enumerate(lens):
+        if m == 0:
+            assert (got[i] == 0).all(), f"row {i} of length 0 not zero"
+
+
 # --------------------------------------------------- dense (padded) flash
 FLASH_CASES = [
     # (b, s, h, kv, d, block, causal, window): tests/test_kernels.py's
@@ -485,6 +555,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 4, 4, 64), _t(kp), _t(vp),
             torch.zeros(1, 4, 2, 64), torch.zeros(1, 4, 2, 64),
             _t(tables[:1]), lens[:1], lens[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 4, 8])          # in elements
+def test_check_aligned_refuses_views_off_a_16_byte_boundary(dtype, offset):
+    """The split-K decode kernel and the bf16 flash kernel read their
+    operands as 16-byte vectors; a contiguous view that starts elsewhere
+    is refused before a launch, whatever its device."""
+    base = torch.zeros(8 + 2 * 4 * 64, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    view = base[offset:offset + 2 * 4 * 64].view(2, 4, 64)
+    assert view.is_contiguous()
+    if offset * base.element_size() % 16:
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            build.check_aligned("decode_attention", q=base[:8], k=view)
+    else:
+        build.check_aligned("decode_attention", q=base[:8], k=view)
 
 
 _C_KINDS = {"void*": build._P, "const void*": build._P, "int": build._I,
