@@ -87,11 +87,16 @@ SSD_HEADS = (64, 64, 128, 128)
 # the device functions each of the port's kernels launches
 PORT_SYMBOLS = {
     "paged_decode_attention": ("paged_decode_kernel",),
-    "segment_flash_attention": ("segment_flash_kernel",),
+    "segment_flash_attention": ("segment_flash_kernel", "segment_tc_kernel"),
     "paged_chunk_attention": ("paged_chunk_kernel",),
     "decode_attention": ("decode_split_kernel", "combine_splits"),
     "flash_attention": ("flash_kernel", "flash_tc_kernel"),
-    "ssd_scan": ("ssd_kernel",)}
+    "ssd_scan": ("ssd_kernel", "ssd_tc_kernel")}
+# the bf16 kernels that must run on the tensor cores (wgmma: HGMMA in their
+# SASS): library -> (name fragment, instantiations)
+TENSOR_CORE_KERNELS = {
+    "flash_attention": (("flash_tc_kernel", 2), ("segment_tc_kernel", 2)),
+    "ssd_scan": (("ssd_tc_kernel", 2),)}
 # device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
 # longer than the host takes to queue its runs
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -388,7 +393,8 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
         "segment_flash_attention": [
             dict(t=48, lens=(20, 13, 9)),                  # ragged T
             dict(t=96, lens=(40, 17, 30), window=16),      # window
-            dict(t=1536, lens=(1000, 5, 300))],            # 3·2^9 bucket
+            dict(t=1536, lens=(1000, 5, 300)),             # 3·2^9 bucket
+            dict(t=1536, lens=(1000, 5, 300), window=200)],  # full tiles
         "paged_chunk_attention": [
             dict(r=8, hist=(13, 0), slen=(8, 3), ps=8, max_pages=4)],
         "paged_decode_attention": [dict(ps=8, max_pages=128)],
@@ -1138,12 +1144,15 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 _log(f"{n}: {line.strip()}")
     _log(f"kernels built in {build_s:.1f} s")
-    # the bf16 flash kernel must run on the tensor cores (wgmma: HGMMA)
-    hgmma = build.sass_count("flash_attention", "HGMMA")
-    _log(f"HGMMA instructions per flash kernel: {hgmma}")
-    tc = {k: n for k, n in hgmma.items() if "flash_tc_kernel" in k}
-    assert len(tc) == 2 and all(tc.values()), hgmma
-    report = {"build_s": build_s, "flash_sass_hgmma": hgmma}
+    # the bf16 kernels must run on the tensor cores (wgmma: HGMMA)
+    hgmma = {lib: build.sass_count(lib, "HGMMA")
+             for lib in TENSOR_CORE_KERNELS}
+    _log(f"HGMMA instructions per kernel: {hgmma}")
+    for lib, wanted in TENSOR_CORE_KERNELS.items():
+        for name, count in wanted:
+            tc = {k: n for k, n in hgmma[lib].items() if name in k}
+            assert len(tc) == count and all(tc.values()), (name, hgmma)
+    report = {"build_s": build_s, "sass_hgmma": hgmma}
     summary, paged_streams = {}, None
     main_launches = {n: 0 for n in KERNEL_NAMES}
     if "a" in args.phases:

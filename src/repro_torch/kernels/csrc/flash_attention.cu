@@ -42,18 +42,22 @@
 // without a visible pair (it stops at the diagonal when causal and starts
 // at the window's first tile); a mask policy marks the tiles that need
 // per-element masking (diagonal, window start, ragged edge), so the
-// others pay nothing for it. The policy is a functor, so the segment
-// kernel can move onto the same main loop. float32 inputs (the parity
-// dtype) and the segment kernel stay on the f32 FMA tiles of
-// attn_common.cuh (fold_tile), whose error stays within 2e-5 where TF32
-// would not. Not yet done (later work): TMA loads with multicast, warp
-// specialisation (a producer warp, consumer warpgroups that overlap one's
-// softmax with another's products, setmaxnreg) and a persistent
-// schedule: within one warpgroup S, the softmax and P·V still run one
-// after another.
+// others pay nothing for it. The policy is a functor: bf16
+// segment_flash_attention runs the same main loop (segment_tc_kernel)
+// under a segment mask whose full() needs two id reads per tile (ids are
+// non-decreasing), starting at its segment's first key tile. float32
+// inputs (the parity dtype) stay on the f32 FMA tiles of attn_common.cuh
+// (fold_tile), whose error stays within 2e-5 where TF32 would not. The
+// building blocks (swizzle, cp.async, descriptors, wgmma) live in
+// wgmma.cuh, shared with the SSD scan. Not yet done (later work): TMA
+// loads with multicast, warp specialisation (a producer warp, consumer
+// warpgroups that overlap one's softmax with another's products,
+// setmaxnreg) and a persistent schedule: within one warpgroup S, the
+// softmax and P·V still run one after another.
 #include <cstdint>
 
 #include "attn_common.cuh"
+#include "wgmma.cuh"
 
 using namespace attn;
 
@@ -103,21 +107,11 @@ constexpr int kBK = 64;  // keys per tile
 static_assert(kThreads == 128, "tc_attend runs one warpgroup of 4 warps");
 static_assert(kBQ == kBK, "Q and K tiles share their slab offsets");
 
-typedef __nv_bfloat16 bf16;
-
-// A tile of ROWS rows of D bf16 lies in shared memory as D / 64 slabs of
-// ROWS rows x 64 elements (128-byte rows). Chunk c (16 bytes) of row r
-// sits in slab c / 8 at chunk position (c % 8) ^ (r % 8): the 128-byte
-// swizzle that wgmma's descriptors name, which also spreads the 8 rows of
-// an 8-row group over all banks. Slabs start on 1024-byte boundaries.
-template <int ROWS>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return (chunk >> 3) * (ROWS * 64) + row * 64 +
-         (((chunk & 7) ^ (row & 7)) << 3);
-}
+using namespace wg;
 
 // One block's shared memory: the query tile and one K and one V tile
-// (48 KB at D = 128, so three blocks share an SM).
+// (48 KB at D = 128, so three blocks share an SM), each in the swizzled
+// slabs of wgmma.cuh.
 template <int D>
 struct Smem {
   bf16 q[kBQ * D];
@@ -130,139 +124,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(Smem<D>) + 1024;  // slack to align the base to 1024 bytes
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;  // 0: nothing read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor of wgmma: start address, leading and
-// stride byte offsets, 128-byte swizzle.
-__device__ __forceinline__ uint64_t smem_desc(const bf16* p, int lbo,
-                                              int sbo) {
-  const uint64_t a = (unsigned)__cvta_generic_to_shared(p);
-  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
-}
-
-// S += A·B^T with A (64 x 16) and B (64 x 16) both K-major in shared
-// memory; s: the 64 x 64 f32 accumulator fragment.
-__device__ __forceinline__ void wgmma_ss_n64(float (&s)[8][4], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(s[0][0]), "+f"(s[0][1]), "+f"(s[0][2]), "+f"(s[0][3]),
-        "+f"(s[1][0]), "+f"(s[1][1]), "+f"(s[1][2]), "+f"(s[1][3]),
-        "+f"(s[2][0]), "+f"(s[2][1]), "+f"(s[2][2]), "+f"(s[2][3]),
-        "+f"(s[3][0]), "+f"(s[3][1]), "+f"(s[3][2]), "+f"(s[3][3]),
-        "+f"(s[4][0]), "+f"(s[4][1]), "+f"(s[4][2]), "+f"(s[4][3]),
-        "+f"(s[5][0]), "+f"(s[5][1]), "+f"(s[5][2]), "+f"(s[5][3]),
-        "+f"(s[6][0]), "+f"(s[6][1]), "+f"(s[6][2]), "+f"(s[6][3]),
-        "+f"(s[7][0]), "+f"(s[7][1]), "+f"(s[7][2]), "+f"(s[7][3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// O += P·V with P (64 x 16 bf16) in registers (the A fragment) and V
-// (16 x 64) MN-major in shared memory (transposed B); o: the 64 x 64 f32
-// accumulator fragment.
-__device__ __forceinline__ void wgmma_rs_n64(float (&o)[8][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
-        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
-        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
-        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
-        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
-        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
-        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
-        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-// O += P·V with P (64 x 16 bf16) in registers (the A fragment) and V
-// (16 x 128) MN-major in shared memory (transposed B); o: the 64 x 128 f32
-// accumulator fragment.
-__device__ __forceinline__ void wgmma_rs_n128(float (&o)[16][4],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
-        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
-        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
-        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
-        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
-        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
-        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
-        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
-        "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
-        "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
-        "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
-        "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3]),
-        "+f"(o[12][0]), "+f"(o[12][1]), "+f"(o[12][2]), "+f"(o[12][3]),
-        "+f"(o[13][0]), "+f"(o[13][1]), "+f"(o[13][2]), "+f"(o[13][3]),
-        "+f"(o[14][0]), "+f"(o[14][1]), "+f"(o[14][2]), "+f"(o[14][3]),
-        "+f"(o[15][0]), "+f"(o[15][1]), "+f"(o[15][2]), "+f"(o[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
+// O += P·V for head dim D: the m64nDk16 product of wgmma.cuh
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4],
                                          const uint32_t (&a)[4], uint64_t db);
@@ -277,19 +139,6 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[16][4],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
   wgmma_rs_n128(o, a, db);
-}
-
-// 2^x by the SFU's approximation (relative error ~2^-22, far below the
-// bf16 rounding of P); 2^-inf = 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // Start copying ROWS rows of D bf16 into a swizzled tile: tile row r is
@@ -378,7 +227,7 @@ __device__ __forceinline__ void tc_attend(bf16* __restrict__ out,
 #pragma unroll
     for (int ks = 0; ks < kKS; ++ks) {
       const int off = (ks >> 2) * kSlabK + (ks & 3) * 16;  // 32 B per step
-      wgmma_ss_n64(s, smem_desc(sm.q + off, 16, kSbo),
+      wgmma_ss_n64<0>(s, smem_desc(sm.q + off, 16, kSbo),
                    smem_desc(sm.k + off, 16, kSbo));
     }
     wgmma_commit_wait();
@@ -480,6 +329,26 @@ struct DenseMask {
   }
   __device__ __forceinline__ bool visible(int i, int j) const {
     return j < S && (!causal || j <= i) && (window <= 0 || i - j < window);
+  }
+};
+
+// The segment visibility of the packed kernel over a query tile of rows
+// [q0, q_last]: token i attends j iff both lie below T, their segment ids
+// are equal, j <= i, and i - j < window when a window is given. Segment
+// ids are non-decreasing, so a key tile lies wholly in the query tile's
+// segment iff its first key shares the id of the tile's last query; it
+// is then full when it also lies below the diagonal and inside the
+// window. Ids go through the read-only cache.
+struct SegMask {
+  const int* __restrict__ seg;  // this row's T segment ids
+  int q0, q_last, T, window;
+  __device__ __forceinline__ bool full(int k0) const {
+    return k0 + kBK - 1 <= q0 && __ldg(seg + k0) == __ldg(seg + q_last) &&
+           (window <= 0 || q_last - k0 < window);
+  }
+  __device__ __forceinline__ bool visible(int i, int j) const {
+    return i < T && j <= i && (window <= 0 || i - j < window) &&
+           __ldg(seg + i) == __ldg(seg + j);
   }
 };
 
@@ -608,6 +477,51 @@ segment_flash_kernel(T* __restrict__ out, const T* __restrict__ q,
   store_rows<T, D>(st, out, qoff);
 }
 
+// The bf16 segment kernel on tc_attend: one warpgroup per 64 query rows
+// of one (row, head); its key tiles run from the first key of the
+// segment of query q0 (binary search; clipped by the window) to the
+// diagonal tile. The name must not contain the dense kernel's, whose
+// SASS the checks select by name.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+segment_tc_kernel(__nv_bfloat16* __restrict__ out,
+                  const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ seg, int T_, int H, int KV,
+                  int window, float scale) {
+  const int q0 = blockIdx.x * tc::kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int g = h * KV / H;
+  const int* segb = seg + (long long)b * T_;
+  const int q_last = min(q0 + tc::kBQ, T_) - 1;
+  // first token of the segment that query q0 belongs to
+  const int sid = __ldg(segb + q0);
+  int lo = 0, hi = q0;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(segb + mid) < sid) lo = mid + 1; else hi = mid;
+  }
+  const int first = window > 0 ? max(lo, q0 - window + 1) : lo;
+  const long long q_stride = (long long)H * D, kv_stride = (long long)KV * D;
+  const long long qo = (((long long)b * T_ + q0) * H + h) * D;
+  const long long ko = ((long long)b * T_ * KV + g) * D;
+  tc::tc_attend<D>(out + qo, q + qo, q_stride, T_ - q0, k + ko, v + ko,
+                   kv_stride, T_, q0, first / tc::kBK, q_last / tc::kBK,
+                   scale, tc::SegMask{segb, q0, q_last, T_, window});
+}
+
+template <int D>
+static cudaError_t run_segment_tc(void* out, const void* q, const void* k,
+                                  const void* v, const void* seg, int B,
+                                  int T_, int H, int KV, int window,
+                                  float scale, cudaStream_t stream) {
+  const dim3 grid((T_ + tc::kBQ - 1) / tc::kBQ, H, B);
+  return launch(segment_tc_kernel<D>, grid, tc::smem_bytes<D>(), stream,
+                (__nv_bfloat16*)out, (const __nv_bfloat16*)q,
+                (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+                (const int*)seg, T_, H, KV, window, scale);
+}
+
 template <typename T, int D>
 static cudaError_t run(void* out, const void* q, const void* k, const void* v,
                        const void* seg, int B, int T_, int H, int KV,
@@ -630,12 +544,12 @@ extern "C" int segment_flash_attention(void* out, const void* q,
   if (D == 64 && dtype == 0)
     return run<float, 64>(out, q, k, v, seg, B, T_, H, KV, window, scale, s);
   if (D == 64 && dtype == 1)
-    return run<__nv_bfloat16, 64>(out, q, k, v, seg, B, T_, H, KV, window,
-                                  scale, s);
+    return run_segment_tc<64>(out, q, k, v, seg, B, T_, H, KV, window, scale,
+                              s);
   if (D == 128 && dtype == 0)
     return run<float, 128>(out, q, k, v, seg, B, T_, H, KV, window, scale, s);
   if (D == 128 && dtype == 1)
-    return run<__nv_bfloat16, 128>(out, q, k, v, seg, B, T_, H, KV, window,
-                                   scale, s);
+    return run_segment_tc<128>(out, q, k, v, seg, B, T_, H, KV, window,
+                               scale, s);
   return cudaErrorInvalidValue;
 }

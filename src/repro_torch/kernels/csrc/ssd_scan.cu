@@ -19,25 +19,53 @@
 // cl 128) it does ~10.5 MFLOP per chunk and head against ~2 bytes per
 // flop of input, so in bf16 the tensor-core bound and the byte bound are
 // both ~0.09 ms at B 8, L 2048; in float32 outside the tensor cores the
-// operations bound it (~1.3 ms at 67 TFLOP/s). This version does every
-// product in f32 FMAs on the CUDA cores, so it is bound by them and by
-// shared-memory traffic.
+// operations bound it (~1.3 ms at 67 TFLOP/s).
 //
-// What the design does about it: one block per (head, batch) walks its
-// chunks in order and keeps the (N, P) state in shared memory for the
-// whole sequence (a loop takes the place of the TPU's sequential grid
-// axis). It reads x, dt, b and c where they lie: the TPU wrapper's f32
-// xdt and its per-head copies of b and c (64x their bytes at these
-// shapes) are never built; x * dt and dt * a form on load. A float32
-// chunk does not fit in 227 KB together with its (cl, cl) product, so
-// that product is formed one slab of kSlab rows at a time. Above the
-// diagonal nothing is computed: exp(acs_i - acs_j) is evaluated only for
-// j <= i, so no inf is ever formed and multiplied by zero.
-// Not yet done (later work): wgmma on the (cl, cl) and (cl, N) products,
-// TMA double buffering of the next chunk, and a chunk-parallel two-pass
-// layout for small B * H.
+// float32 (the parity dtype) runs ssd_kernel: one block per (head, batch)
+// walks its chunks in order and keeps the (N, P) state in shared memory
+// for the whole sequence (a loop takes the place of the TPU's sequential
+// grid axis), every product in f32 FMAs on the CUDA cores. It reads x,
+// dt, b and c where they lie: the TPU wrapper's f32 xdt and its per-head
+// copies of b and c (64x their bytes at these shapes) are never built;
+// x * dt and dt * a form on load. A float32 chunk does not fit in 227 KB
+// together with its (cl, cl) product, so that product is formed one slab
+// of kSlab rows at a time.
+//
+// bfloat16 runs ssd_tc_kernel on the tensor cores (wgmma, f32
+// accumulators). A block owns one batch row and a group of kHG heads,
+// one warpgroup each, and walks the chunks in order; C·B^T, which every
+// head shares (b and c have no head axis), is formed once per chunk for
+// the group, and each head's (N, P) state stays in its warpgroup's
+// accumulator registers for the whole sequence. Per chunk and head:
+//   y    = exp(acs_i) (c · S) + (G ∘ L ∘ dt_j) · x,   G = C·B^T,
+//          L_ij = exp(acs_i - acs_j) for j <= i, else 0;
+//   S   <- S exp(acs_last) + (b_j dt_j w_j)^T · x,
+//          w_j = exp(acs_last - acs_j).
+// x, b and c are exact bf16 inputs, so x stays one side of both of its
+// products and c one side of c·S; the other side (G ∘ L ∘ dt, b·dt·w, S)
+// is formed in f32 and enters as a bf16 pair hi + lo, two wgmmas into one
+// accumulator (~2^-17 relative): a single bf16 rounding of any of them
+// misses the bf16 gates (tests/test_torch_kernels.py emulates each). G ∘
+// L ∘ dt and b·dt·w are built in registers as wgmma's A fragment; S is
+// written to shared memory as the B operand of c·S. Products run while
+// the next A fragment forms: c·S while the fragments of G ∘ L ∘ dt do
+// (y keeps the two in separate accumulators), and each 64 x 64 block of
+// the state carry while the next block's fragment does; the state carry
+// needs no C·B^T, so it runs before the barrier that waits for both
+// warpgroups' parts of it. The chunk's rows pad to whole 64-row tiles
+// (CP = 64 or 128, a template parameter) with zero rows (dt = 0);
+// neither the block layout nor any order of summation depends on B or L,
+// so a row whose tail carries dt = 0 ends, bit for bit, with the state
+// of its unpadded run.
+// Above the diagonal nothing is computed in either body: exp(acs_i -
+// acs_j) is evaluated only for j <= i, so no inf is ever formed.
+// Not yet done (later work): copying the next chunk while this one
+// computes (TMA or cp.async double buffers; the 217 KB of shared memory
+// leave no room), and a chunk-parallel two-pass layout for small B * H.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -47,20 +75,6 @@ constexpr int kMaxCL = 128;           // chunk rows held on chip
 constexpr int kSlab = 32;             // rows of the (cl, cl) product per pass
 constexpr int kBStride = kMaxCL + 1;  // row stride of b^T: no bank conflicts
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -87,12 +101,12 @@ struct Smem {
   float wout[kMaxCL];         // exp(acs_last - acs_j)
 };
 
-template <typename T, int N, int P>
+template <int N, int P>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_kernel(T* __restrict__ y, float* __restrict__ state_out,
-           const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a, const T* __restrict__ bm,
-           const T* __restrict__ cm, const float* __restrict__ init, int L,
+ssd_kernel(float* __restrict__ y, float* __restrict__ state_out,
+           const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ a, const float* __restrict__ bm,
+           const float* __restrict__ cm, const float* __restrict__ init, int L,
            int H, int cl) {
   static_assert(N % 16 == 0 && P % 4 == 0, "tile shapes");
   constexpr int kP4 = P / 4;                  // float4 columns of a P row
@@ -109,11 +123,11 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ state_out,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float ah = a[h];
   const long long xrow = (long long)H * P;    // x elements between rows
-  const T* xb = x + (long long)bi * L * xrow + (long long)h * P;
-  T* yb = y + (long long)bi * L * xrow + (long long)h * P;
+  const float* xb = x + (long long)bi * L * xrow + (long long)h * P;
+  float* yb = y + (long long)bi * L * xrow + (long long)h * P;
   const float* dtb = dt + (long long)bi * L * H + h;
-  const T* bb = bm + (long long)bi * L * N;
-  const T* cb = cm + (long long)bi * L * N;
+  const float* bb = bm + (long long)bi * L * N;
+  const float* cb = cm + (long long)bi * L * N;
   const long long sbase = ((long long)bi * H + h) * N * P;
 
   for (int e = tid; e < N * P; e += kThreads)
@@ -137,14 +151,14 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ state_out,
     for (int e = tid; e < clr * P; e += kThreads) {
       const int i = e / P, p = e % P;
       sm.xdt[i][p] =
-          i < rows ? to_f(xb[(long long)(t0 + i) * xrow + p]) * sm.dts[i]
+          i < rows ? xb[(long long)(t0 + i) * xrow + p] * sm.dts[i]
                    : 0.f;
     }
     for (int e = tid; e < clr * N; e += kThreads) {
       const int i = e / N, n = e % N;
       const long long off = (long long)(t0 + i) * N + n;
-      sm.c[i][n] = i < rows ? to_f(cb[off]) : 0.f;
-      sm.bt[n][i] = i < rows ? to_f(bb[off]) : 0.f;
+      sm.c[i][n] = i < rows ? cb[off] : 0.f;
+      sm.bt[n][i] = i < rows ? bb[off] : 0.f;
     }
     if (warp == 0) {
       // inclusive cumsum of acs[0, clr): 4 rows per lane in order, then
@@ -251,11 +265,11 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ state_out,
           fma4(off, cv.w, ld4(&sm.s[n + 3][p4]));
         }
         const float e = sm.ein[i];
-        T* out = yb + (long long)(t0 + i) * xrow + p4;
-        out[0] = from_f<T>(acc.x + off.x * e);
-        out[1] = from_f<T>(acc.y + off.y * e);
-        out[2] = from_f<T>(acc.z + off.z * e);
-        out[3] = from_f<T>(acc.w + off.w * e);
+        float* out = yb + (long long)(t0 + i) * xrow + p4;
+        out[0] = acc.x + off.x * e;
+        out[1] = acc.y + off.y * e;
+        out[2] = acc.z + off.z * e;
+        out[3] = acc.w + off.w * e;
       }
       __syncthreads();
     }
@@ -293,21 +307,395 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ state_out,
     state_out[sbase + e] = (&sm.s[0][0])[e];
 }
 
-template <typename T, int N, int P>
+template <int N, int P>
 cudaError_t run(void* y, void* state, const void* x, const void* dt,
                 const void* a, const void* b, const void* c,
                 const void* init, int B, int L, int H, int cl,
                 cudaStream_t stream) {
-  auto kernel = ssd_kernel<T, N, P>;
+  auto kernel = ssd_kernel<N, P>;
   const size_t smem = sizeof(Smem<N, P>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(H, B), kThreads, smem, stream>>>(
-      (T*)y, (float*)state, (const T*)x, (const float*)dt, (const float*)a,
-      (const T*)b, (const T*)c, (const float*)init, L, H, cl);
+      (float*)y, (float*)state, (const float*)x, (const float*)dt,
+      (const float*)a, (const float*)b, (const float*)c, (const float*)init,
+      L, H, cl);
   return cudaGetLastError();
 }
+
+// --------------------------------------------------------------------------
+// bf16 on the tensor cores
+// --------------------------------------------------------------------------
+namespace tc {
+
+using namespace wg;
+
+constexpr int kHG = 2;              // heads per block: one warpgroup each
+constexpr int kWG = 128;            // threads of a warpgroup
+constexpr int kThreadsTC = kHG * kWG;
+constexpr int kN = 128, kP = 64;    // the (N, P) the body is written for
+constexpr int kSlabTC = kMaxCL * 64;  // elements per slab of a 128-row tile
+constexpr int kSbo = 8 * 128;         // 8 rows of 128 bytes
+
+// One block's shared memory (217 KB with the alignment slack): every
+// bf16 tile has kMaxCL rows in the 128-byte-swizzled slabs of wgmma.cuh
+// (1024-byte aligned: each tile's size is a multiple of 1024 bytes).
+struct Smem {
+  bf16 c[kMaxCL * kN];         // c rows (A of C·B^T and of c·S)
+  bf16 b[kMaxCL * kN];         // b rows (B of C·B^T; read for b·dt·w)
+  bf16 x[kHG][kMaxCL * kP];    // x rows of each head (B of both x products)
+  bf16 s_hi[kHG][kN * kP];     // each head's state, rows n, as hi + lo
+  bf16 s_lo[kHG][kN * kP];
+  float4 cb0[8][kWG];          // C·B^T rows 0..63, columns 0..63 and
+  float4 cb1[16][kWG];         // rows 64..127, columns 0..127, in the
+                               // accumulator order of the thread reading
+  float acs[kHG][kMaxCL];      // inclusive cumsum of dt * a
+  float dt[kHG][kMaxCL];       // dt
+  float dtw[kHG][kMaxCL];      // dt_j exp(acs_last - acs_j)
+  float wsum[kHG][4];          // warp totals of the scan
+};
+
+// barrier of one warpgroup (ids 1 and up; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "r"(kWG) : "memory");
+}
+
+// The A fragment of (G ∘ L ∘ dt_j), rows i0 and i1 = i0 + 8 of this lane,
+// columns 64 kb .. 64 kb + 63, as bf16 hi + lo; g: C·B^T in this lane's
+// accumulator order. No exp above the diagonal.
+__device__ __forceinline__ void g_fragment(uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4],
+                                           const float4* g, int kb, int tw,
+                                           int col, int i0, const float* acs,
+                                           const float* dt) {
+  const int i1 = i0 + 8;
+  const float a0 = acs[i0], a1 = acs[i1];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int jt = 8 * kb + 2 * q + half;  // 8-column tile
+      const float4 gv = g[jt * kWG + tw];
+      const int j = 8 * jt + col;
+      const float aj0 = acs[j], aj1 = acs[j + 1];
+      const float dj0 = dt[j], dj1 = dt[j + 1];
+      const float v00 = j <= i0 ? gv.x * expf(a0 - aj0) * dj0 : 0.f;
+      const float v01 = j + 1 <= i0 ? gv.y * expf(a0 - aj1) * dj1 : 0.f;
+      const float v10 = j <= i1 ? gv.z * expf(a1 - aj0) * dj0 : 0.f;
+      const float v11 = j + 1 <= i1 ? gv.w * expf(a1 - aj1) * dj1 : 0.f;
+      split_bf16(v00, v01, hi[q][2 * half], lo[q][2 * half]);
+      split_bf16(v10, v11, hi[q][2 * half + 1], lo[q][2 * half + 1]);
+    }
+}
+
+// The A fragment of (b_j dt_j w_j)^T, rows n0 and n0 + 8 of this lane,
+// columns j = 64 kb .. 64 kb + 63, as bf16 hi + lo, read from the b tile.
+__device__ __forceinline__ void bw_fragment(uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4],
+                                            const bf16* b, int kb, int col,
+                                            int n0, const float* dtw) {
+  const int n1 = n0 + 8;
+  auto at = [&](int j, int n) {  // b[j][n] of the swizzled tile
+    return __bfloat162float(b[swz<kMaxCL>(j, n >> 3) + (n & 7)]);
+  };
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 64 * kb + 16 * q + 8 * half + col;
+      const float w0 = dtw[j], w1 = dtw[j + 1];
+      const float v00 = at(j, n0) * w0, v01 = at(j + 1, n0) * w1;
+      const float v10 = at(j, n1) * w0, v11 = at(j + 1, n1) * w1;
+      split_bf16(v00, v01, hi[q][2 * half], lo[q][2 * half]);
+      split_bf16(v10, v11, hi[q][2 * half + 1], lo[q][2 * half + 1]);
+    }
+}
+
+// acc += A·x over columns 64 kb .. 64 kb + 63 of A (rows of the x tile),
+// A as hi + lo
+__device__ __forceinline__ void times_x(float (&acc)[8][4],
+                                        const uint32_t (&hi)[4][4],
+                                        const uint32_t (&lo)[4][4],
+                                        const bf16* xs, int kb) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint64_t db =
+        smem_desc(xs + (4 * kb + q) * 16 * 64, 2 * kSlabTC, kSbo);
+    wgmma_rs_n64(acc, hi[q], db);
+    wgmma_rs_n64(acc, lo[q], db);
+  }
+}
+
+// CP: the chunk's rows padded to whole 64-row tiles (64 or 128)
+template <int CP>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
+              const bf16* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ a, const bf16* __restrict__ bm,
+              const bf16* __restrict__ cm, const float* __restrict__ init,
+              int L, int H, int cl) {
+  constexpr int kT = CP / 64;  // 64-row tiles of a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned base = (unsigned)__cvta_generic_to_shared(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw +
+                                      ((1024 - (base & 1023)) & 1023));
+  const int w = threadIdx.x / kWG, tw = threadIdx.x % kWG;
+  const int lane = tw & 31, warp = tw >> 5;
+  const int bi = blockIdx.y, h = blockIdx.x * kHG + w;
+  const bool live = h < H;  // a ragged last group leaves a warpgroup idle
+  const int hh = live ? h : 0;
+  const float ah = a[hh];
+  const long long xrow = (long long)H * kP;  // x elements between rows
+  const bf16* xb = x + (long long)bi * L * xrow + (long long)hh * kP;
+  bf16* yb = y + (long long)bi * L * xrow + (long long)hh * kP;
+  const float* dtb = dt + (long long)bi * L * H + hh;
+  const bf16* bb = bm + (long long)bi * L * kN;
+  const bf16* cb = cm + (long long)bi * L * kN;
+  const long long sbase = ((long long)bi * H + hh) * kN * kP;
+  // this lane's accumulator rows (and + 8) and first column of each tile
+  const int row_lo = warp * 16 + (lane >> 2), col = (lane & 3) * 2;
+
+  // the state, rows n = 64 mt + row_lo (+ 8), columns p = 8 j + col (+ 1)
+  float st[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 64 * mt + row_lo + (e >> 1) * 8;
+        const int q = 8 * j + col + (e & 1);
+        st[mt][j][e] = init != nullptr ? init[sbase + n * kP + q] : 0.f;
+      }
+
+  const int nc = (L + cl - 1) / cl;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = ci * cl;
+    const int rows = min(cl, L - t0);  // real rows of this chunk
+
+    // ---- copies: c and b by the block, x by each head's warpgroup; rows
+    // past the real ones are zeros
+    for (int idx = threadIdx.x; idx < CP * (kN / 8); idx += kThreadsTC) {
+      const int r = idx / (kN / 8), ch = idx % (kN / 8);
+      const bool ok = r < rows;
+      const long long off = (long long)(t0 + (ok ? r : 0)) * kN + ch * 8;
+      cp_async16(sm.c + swz<kMaxCL>(r, ch), cb + off, ok);
+      cp_async16(sm.b + swz<kMaxCL>(r, ch), bb + off, ok);
+    }
+    if (live) {
+      for (int idx = tw; idx < CP * (kP / 8); idx += kWG) {
+        const int r = idx / (kP / 8), ch = idx % (kP / 8);
+        const bool ok = r < rows;
+        cp_async16(sm.x[w] + swz<kMaxCL>(r, ch),
+                   xb + (long long)(t0 + (ok ? r : 0)) * xrow + ch * 8, ok);
+      }
+    }
+    cp_async_commit();
+
+    // ---- dt, and the inclusive cumsum of dt * a over the chunk's rows:
+    // thread tw holds row tw (a warp scan, then the warp totals); the
+    // order of the sums depends on the row index alone
+    const float d = live && tw < rows ? dtb[(long long)(t0 + tw) * H] : 0.f;
+    float v = d * ah;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(kFull, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) sm.wsum[w][warp] = v;
+    wg_sync(w);
+    float acs = v;
+    for (int k = 0; k < warp; ++k) acs = sm.wsum[w][k] + acs;
+    sm.acs[w][tw] = acs;
+    sm.dt[w][tw] = d;
+    wg_sync(w);
+    const float alast = sm.acs[w][CP - 1];
+    sm.dtw[w][tw] = d * expf(alast - acs);
+
+    // ---- the state entering the chunk, as bf16 hi + lo, rows n
+    if (live) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const int n = 64 * mt + row_lo + 8 * r2;
+            const int at = swz<kMaxCL>(n, j) + col;
+            uint32_t hi, lo;
+            split_bf16(st[mt][j][2 * r2], st[mt][j][2 * r2 + 1], hi, lo);
+            *reinterpret_cast<uint32_t*>(sm.s_hi[w] + at) = hi;
+            *reinterpret_cast<uint32_t*>(sm.s_lo[w] + at) = lo;
+          }
+    }
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();
+
+    // ---- C·B^T once for the group (exact products, f32 sums): warpgroup
+    // m forms rows 64m..64m+63 up to the diagonal tile
+    if (w == 0) {
+      float g[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kN / 16; ++ks) {
+        const int off = (ks >> 2) * kSlabTC + (ks & 3) * 16;
+        wgmma_ss_n64<0>(g, smem_desc(sm.c + off, 16, kSbo),
+                        smem_desc(sm.b + off, 16, kSbo));
+      }
+      wgmma_commit_wait();
+      fence_regs(g);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sm.cb0[j][tw] = make_float4(g[j][0], g[j][1], g[j][2], g[j][3]);
+    } else if (kT == 2) {
+      float g[16][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kN / 16; ++ks) {
+        const int off = (ks >> 2) * kSlabTC + (ks & 3) * 16;
+        wgmma_ss_n128(g, smem_desc(sm.c + 64 * 64 + off, 16, kSbo),
+                      smem_desc(sm.b + off, 16, kSbo));
+      }
+      wgmma_commit_wait();
+      fence_regs(g);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        sm.cb1[j][tw] = make_float4(g[j][0], g[j][1], g[j][2], g[j][3]);
+    }
+    // the state carry needs no C·B^T: it runs while the other warpgroup
+    // may still form its part
+    const float* acs_s = sm.acs[w];
+    const float* dtw_s = sm.dtw[w];
+    const bf16* xs = sm.x[w];
+    uint32_t hi[2][4][4], lo[2][4][4];  // two A fragments in flight
+    if (live) {
+      // ---- state carry: S <- S exp(acs_last) + (b_j dt_j w_j)^T · x over
+      // 2 x kT blocks (64 state rows, 64 chunk rows); each block's A
+      // fragment (rows n, columns j) forms from the b tile while the
+      // previous block's products run
+      const float dec = expf(alast);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[mt][j][e] *= dec;
+      bw_fragment(hi[0], lo[0], sm.b, 0, col, row_lo, dtw_s);
+#pragma unroll
+      for (int blk = 0; blk < 2 * kT; ++blk) {
+        const int mt = blk / kT, kb = blk % kT;
+        wgmma_fence();
+        times_x(st[mt], hi[blk & 1], lo[blk & 1], xs, kb);
+        wgmma_commit();
+        if (blk + 1 < 2 * kT) {
+          wgmma_wait<1>();  // the products that read the other fragment
+          bw_fragment(hi[(blk + 1) & 1], lo[(blk + 1) & 1], sm.b,
+                      (blk + 1) % kT, col, 64 * ((blk + 1) / kT) + row_lo,
+                      dtw_s);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(st[0]);
+      fence_regs(st[1]);
+    }
+    __syncthreads();  // C·B^T of both warpgroups is in shared memory
+
+    if (live) {
+      // ---- y, one 64-row tile at a time: c·S (S as hi + lo) into one
+      // accumulator while the A fragments of (G ∘ L ∘ dt_j) form, their
+      // products with x into another; tiles past the real rows store
+      // nothing and are skipped
+#pragma unroll
+      for (int m = 0; m < kT; ++m) {
+        if (64 * m >= rows) break;
+        float ao[8][4], ad[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          ao[j][0] = ao[j][1] = ao[j][2] = ao[j][3] = 0.f;
+          ad[j][0] = ad[j][1] = ad[j][2] = ad[j][3] = 0.f;
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kN / 16; ++ks) {
+          const uint64_t da = smem_desc(
+              sm.c + (ks >> 2) * kSlabTC + m * 64 * 64 + (ks & 3) * 16, 16,
+              kSbo);
+          wgmma_ss_n64<1>(ao, da, smem_desc(sm.s_hi[w] + ks * 16 * 64,
+                                            2 * kSlabTC, kSbo));
+          wgmma_ss_n64<1>(ao, da, smem_desc(sm.s_lo[w] + ks * 16 * 64,
+                                            2 * kSlabTC, kSbo));
+        }
+        wgmma_commit();
+        const float4* gm = m == 0 ? &sm.cb0[0][0] : &sm.cb1[0][0];
+        const int i0 = 64 * m + row_lo;
+#pragma unroll
+        for (int kb = 0; kb <= m; ++kb) {
+          g_fragment(hi[kb], lo[kb], gm, kb, tw, col, i0, acs_s, sm.dt[w]);
+          wgmma_fence();
+          times_x(ad, hi[kb], lo[kb], xs, kb);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_regs(ao);
+        fence_regs(ad);
+        const float e0 = expf(acs_s[i0]), e1 = expf(acs_s[i0 + 8]);
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int i = i0 + 8 * r2;
+          if (i >= rows) continue;
+          const float e = r2 ? e1 : e0;
+          bf16* dst = yb + (long long)(t0 + i) * xrow + col;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(fmaf(ao[j][2 * r2], e, ad[j][2 * r2]),
+                                      fmaf(ao[j][2 * r2 + 1], e,
+                                           ad[j][2 * r2 + 1]));
+        }
+      }
+    }
+    __syncthreads();  // c, b and x are read to the end before the next copy
+  }
+
+  if (live) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int n = 64 * mt + row_lo + 8 * r2;
+          *reinterpret_cast<float2*>(state_out + sbase + n * kP + 8 * j +
+                                     col) =
+              make_float2(st[mt][j][2 * r2], st[mt][j][2 * r2 + 1]);
+        }
+  }
+}
+
+template <int CP>
+cudaError_t run(void* y, void* state, const void* x, const void* dt,
+                const void* a, const void* b, const void* c, const void* init,
+                int B, int L, int H, int cl, cudaStream_t stream) {
+  const size_t smem = sizeof(Smem) + 1024;  // slack to align to 1024 bytes
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_tc_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_tc_kernel<CP><<<dim3((H + kHG - 1) / kHG, B), kThreadsTC, smem,
+                       stream>>>(
+      (bf16*)y, (float*)state, (const bf16*)x, (const float*)dt,
+      (const float*)a, (const bf16*)b, (const bf16*)c, (const float*)init, L,
+      H, cl);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -323,10 +711,10 @@ extern "C" int ssd_scan(void* y, void* state, const void* x, const void* dt,
   if (B == 0 || H == 0) return cudaSuccess;
   if (L < 1 || cl < 1 || cl > kMaxCL) return cudaErrorInvalidValue;
   if (N == 128 && P == 64 && dtype == 0)
-    return run<float, 128, 64>(y, state, x, dt, a, b, c, init, B, L, H, cl,
-                               s);
+    return run<128, 64>(y, state, x, dt, a, b, c, init, B, L, H, cl, s);
   if (N == 128 && P == 64 && dtype == 1)
-    return run<__nv_bfloat16, 128, 64>(y, state, x, dt, a, b, c, init, B, L,
-                                       H, cl, s);
+    return cl <= 64
+               ? tc::run<64>(y, state, x, dt, a, b, c, init, B, L, H, cl, s)
+               : tc::run<128>(y, state, x, dt, a, b, c, init, B, L, H, cl, s);
   return cudaErrorInvalidValue;
 }

@@ -17,8 +17,10 @@ Replaces the TPU kernels of ``src/repro/kernels/flash_attention.py``:
   admission batch; token ``i`` attends token ``j`` iff their segment ids
   are equal and ``j <= i`` (and ``i - j < window`` when a window is
   given). ``segment_flash_attention_cuda`` launches the same source for
-  any packed length T; ``segment_flash_attention_plain`` gathers each
-  segment into its own row and runs the dense causal plain version there,
+  any packed length T (bfloat16 on the dense kernel's tensor-core main
+  loop under a segment mask, float32 on the CUDA cores);
+  ``segment_flash_attention_plain`` gathers each segment into its own
+  row and runs the dense causal plain version there,
   as the JAX CPU path does (``layers.packed_prefill_attention``). Padding
   tokens' outputs are unspecified in both (callers discard them).
 """
@@ -162,6 +164,8 @@ def segment_flash_attention_cuda(q, k, v, seg_ids, *, window: int = 0):
     seg = seg_ids.reshape(-1, t).expand(b, t).contiguous()
     build.check_operands("segment_flash_attention", d, q=q, k=k, v=v,
                          seg_ids=seg)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16 B
+        build.check_aligned("segment_flash_attention", q=q, k=k, v=v)
     if h % kvh or v.shape != k.shape or k.shape[:2] != q.shape[:2]:
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")

@@ -21,9 +21,13 @@ which is exact — the state freezes at the last real row.
 * ``ssd_decode_plain`` is one recurrent step (``ref.ssd_decode_ref``); the
   JAX package has no kernel for it (elementwise work and a mat-vec), so
   this is the port's only version;
-* ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``: one block per
-  (batch, head) walks its chunks in order with the state on chip, reading
-  x, dt, b and c where they lie (no per-head copies of b and c).
+* ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``, reading x, dt, b and c
+  where they lie (no per-head copies of b and c). bfloat16 runs on the
+  tensor cores: a block walks the chunks of one batch row for a group of
+  heads, forms C·Bᵀ once per chunk for the group and keeps each head's
+  state in registers; the float32-formed operands enter the bf16 products
+  as hi + lo pairs. float32 runs on the CUDA cores, one block per
+  (batch, head).
 """
 from __future__ import annotations
 
@@ -143,6 +147,8 @@ def ssd_scan_cuda(x, dt, a, b, c, chunk: int, initial_state=None):
                          f"{BUILT_SHAPES}")
     if b.dtype != x.dtype or c.dtype != x.dtype:
         raise ValueError("x, b and c must share one dtype")
+    if x.dtype == torch.bfloat16:  # the tensor-core kernel copies 16 B
+        build.check_aligned("ssd_scan", x=x, b=b, c=c)
     floats = [dt, a] + ([initial_state] if initial_state is not None else [])
     if any(t.dtype != torch.float32 for t in floats):
         raise ValueError("dt, a and initial_state must be float32")

@@ -155,15 +155,22 @@ def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
 
 
 def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
-    """The built bf16 flash kernels hold Hopper's warpgroup tensor-core
-    instructions (HGMMA, from wgmma, in the SASS of both head dims) and the
-    float32 one holds none."""
+    """The built bf16 kernels hold Hopper's warpgroup tensor-core
+    instructions (HGMMA, from wgmma): the dense and the segment flash
+    kernels in the SASS of both head dims, and the SSD scan for both chunk
+    tiles (64 and 128 rows); their float32 bodies hold none."""
     from repro_torch.kernels import build
     counts = build.sass_count("flash_attention", "HGMMA")
-    tc = {k: n for k, n in counts.items() if "flash_tc_kernel" in k}
-    assert len(tc) == 2 and all(n > 0 for n in tc.values()), counts
+    for name in ("flash_tc_kernel", "segment_tc_kernel"):
+        tc = {k: n for k, n in counts.items() if name in k}
+        assert len(tc) == 2 and all(n > 0 for n in tc.values()), counts
     assert all(n == 0 for k, n in counts.items()
-               if k.startswith("_Z12flash_kernel")), counts
+               if k.startswith("_Z12flash_kernel")
+               or "segment_flash_kernel" in k), counts
+    ssd = build.sass_count("ssd_scan", "HGMMA")
+    tc = {k: n for k, n in ssd.items() if "ssd_tc_kernel" in k}
+    assert len(tc) == 2 and all(n > 0 for n in tc.values()), ssd
+    assert all(n == 0 for k, n in ssd.items() if "ssd_kernel" in k), ssd
 
 
 @pytest.mark.parametrize("h,kv,d", HEADS)
@@ -172,6 +179,11 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     (96, (40, 17, 30), 0),          # 3·2^5 bucket, ragged last tile
     (48, (1, 1, 40), 0),            # single-token segments
     (192, (100, 50, 20), 16),       # window
+    (160, (50, 60, 40), 0),         # a segment straddles a 64-row tile
+    (512, (300, 130, 70), 0),       # interior full tiles
+    (200, (90, 70), 0),             # T % 64 != 0, a padding segment
+    (136, (1, 1, 1, 100, 1, 1), 0),  # single tokens around a long one
+    (512, (420, 60), 100),          # window over a long segment
 ])
 def test_segment_flash_kernel_matches_plain(cuda, h, kv, d, dtype, t, lens,
                                             window):
@@ -244,8 +256,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
-    """#4 and the bf16 #5 read 16-byte vectors: a contiguous view at an
-    odd offset raises instead of faulting."""
+    """#4 and the bf16 #2, #5 and #6 read 16-byte vectors: a contiguous
+    view at an odd offset raises instead of faulting."""
     flat = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
     kc = flat[1:].view(2, 64, 2, 64)
     q = torch.zeros(2, 4, 64, device=cuda, dtype=torch.bfloat16)
@@ -255,6 +267,15 @@ def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
     x = flat[1:1 + 2 * 16 * 4 * 64].view(2, 16, 4, 64)
     with pytest.raises(ValueError, match="16-byte boundary"):
         FA.flash_attention_cuda(x, x, x)
+    seg = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        FA.segment_flash_attention_cuda(x[:1], x[:1], x[:1], seg)
+    xs = flat[1:1 + 2 * 16 * 64].view(1, 16, 2, 64)
+    bc = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
+    dt = torch.zeros(1, 16, 2, device=cuda)
+    a = -torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        SSD.ssd_scan_cuda(xs, dt, a, bc, bc, 16)
 
 
 @pytest.mark.parametrize("h,kv,d", [(8, 4, 64), (16, 4, 128), (18, 2, 64)])
@@ -363,6 +384,8 @@ def _ssd_close(got, want, dtype):
     (2, 1, 2, 128, False),          # one token
     (1, 257, 2, 64, True),          # chunk 64, a carried-in state
     (2, 45, 2, 18, False),          # chunk 18: rows not a multiple of 4
+    (2, 300, 5, 128, True),         # a ragged head group, a carried state
+    (1, 1000, 3, 100, False),       # chunk 100 < L, a ragged head group
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, b, l, h, chunk, with_state):
     gen = torch.Generator(device=cuda).manual_seed(l)
@@ -396,6 +419,22 @@ def test_ssd_kernel_dt_zero_tail_freezes_the_state(cuda, dtype):
         y1, s1 = SSD.ssd_scan_cuda(*one, 128)
         assert torch.equal(s[i:i + 1], s1), f"row {i}: state moved"
         assert torch.equal(y[i:i + 1, :n], y1), f"row {i}: outputs differ"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_does_not_depend_on_the_batch(cuda, dtype):
+    """A batch of 4 rows gives each row, bit for bit, the outputs and
+    final state of that row run alone (the block layout and every order
+    of summation are independent of B)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, 4, 384, 5)
+    y, s = SSD.ssd_scan_cuda(x, dt, a, bb, cc, 128)
+    for i in range(4):
+        one = [v[i:i + 1].contiguous() for v in (x, dt)] + [a] + \
+            [v[i:i + 1].contiguous() for v in (bb, cc)]
+        y1, s1 = SSD.ssd_scan_cuda(*one, 128)
+        assert torch.equal(s[i:i + 1], s1), f"row {i}: state differs"
+        assert torch.equal(y[i:i + 1], y1), f"row {i}: outputs differ"
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -6,7 +6,9 @@ the same numpy inputs; plus the CPU-side contracts of the CUDA wrappers
 the paged, packed and chunk kernels of paged serving and the contiguous
 decode and dense flash kernels of ring slots and ``generate``, and the
 SSD scan of the Mamba2 family (its chunked plain version against the JAX
-CPU path, the interpret-mode Pallas kernel and the sequential oracle).
+CPU path, the interpret-mode Pallas kernel and the sequential oracle; and
+the bf16 kernel's number scheme, emulated in plain PyTorch, against the
+gates the card applies to the kernel).
 
 Tolerance: 2e-5 absolute against the interpret-mode kernels (their online
 softmax sums in another order, as the JAX tests allow), 1e-5 against the
@@ -518,6 +520,108 @@ def test_ssd_decode_stepped_over_l_equals_the_oracle():
                                       cc[:, 0])), _t(np.asarray(rs)))
     _close_at_scale(y1.numpy(), jy)
     _close_at_scale(s1.numpy(), js)
+
+
+# The bf16 kernel's number scheme (csrc/ssd_scan.cu, ssd_tc_kernel): x, b
+# and c are exact bf16 inputs and stay one side of their products; the side
+# formed in float32 — G ∘ L ∘ dt, b·dt·w and the carried state S — enters
+# the bf16 tensor-core products as a pair hi + lo. Each variant below
+# replaces one pair by a single bf16 rounding, as measured when the scheme
+# was chosen; the gates are the card's (chip_smoke.py, test_torch_gpu.py).
+SSD_BF16_SCHEMES = {
+    "kernel": {},
+    "one rounding of x·dt·w in the state update": {"state": "xdtw"},
+    "one rounding each of G∘L and x·dt in y_diag": {"diag": "single"},
+    "a pair on G∘L only, one rounding of x·dt": {"diag": "gl pair"},
+    "S as one bf16 in c·S": {"cs": "single"},
+}
+
+
+def _bf16(v):
+    return v.bfloat16().float()
+
+
+def _pair(v):
+    """v as bf16 hi + lo (two operands, each exact in bf16)."""
+    hi = _bf16(v)
+    return hi, _bf16(v - hi)
+
+
+def _ssd_bf16_emulated(x, dt, a, b, c, chunk, scheme):
+    """The kernel's arithmetic in plain PyTorch on the CPU: products of
+    bf16 operands are exact in float32 and summed in float32, as the
+    tensor cores do; ``scheme`` (a value of ``SSD_BF16_SCHEMES``) swaps one
+    pair for a single rounding. x, b, c: bf16; dt, a: float32 -> (y bf16,
+    final state float32)."""
+    bs, l0, h, p = x.shape
+    n = b.shape[-1]
+    cl = min(chunk, l0)
+    pad = (-l0) % cl
+    xf, bf, cf = (torch.nn.functional.pad(
+        v.float(), (0, 0) * (v.dim() - 2) + (0, pad)) for v in (x, b, c))
+    dtp = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    s = torch.zeros(bs, h, n, p)
+    tri = torch.tril(torch.ones(cl, cl, dtype=torch.bool))[None, :, :, None]
+    ys = []
+    for t0 in range(0, l0 + pad, cl):
+        xc, bc, cc = (v[:, t0:t0 + cl] for v in (xf, bf, cf))
+        dtc = dtp[:, t0:t0 + cl]                               # (B, cl, H)
+        acs = torch.cumsum(dtc * a.float(), dim=1)
+        alast = acs[:, -1:]                                    # (B, 1, H)
+        cb = torch.einsum("bin,bjn->bij", cc, bc)[..., None]
+        lmask = torch.where(tri, torch.exp(torch.where(
+            tri, acs[:, :, None] - acs[:, None], 0.0)), 0.0)   # (B, i, j, H)
+        # the state entering the chunk, in c·S
+        s_ops = [_bf16(s)] if scheme.get("cs") == "single" else _pair(s)
+        y = sum(torch.einsum("bin,bhnp->bihp", cc, so) for so in s_ops)
+        y = y * torch.exp(acs)[..., None]
+        # y_diag
+        if scheme.get("diag") is None:
+            terms = [(g, xc) for g in _pair(cb * lmask * dtc[:, None])]
+        else:
+            gl = (_pair(cb * lmask) if scheme["diag"] == "gl pair"
+                  else [_bf16(cb * lmask)])
+            terms = [(g, _bf16(xc * dtc[..., None])) for g in gl]
+        for g, xo in terms:
+            y = y + torch.einsum("bijh,bjhp->bihp", g, xo)
+        ys.append(y)
+        # the state carry
+        w = torch.exp(alast - acs)                             # (B, cl, H)
+        s = s * torch.exp(alast[:, 0])[..., None, None]
+        if scheme.get("state") == "xdtw":
+            s = s + torch.einsum("bjn,bjhp->bhnp", bc,
+                                 _bf16(xc * (dtc * w)[..., None]))
+        else:
+            for bw in _pair(bc[:, :, None] * (dtc * w)[..., None]):
+                s = s + torch.einsum("bjhn,bjhp->bhnp", bw, xc)
+    return torch.cat(ys, dim=1)[:, :l0].bfloat16(), s
+
+
+@pytest.mark.parametrize("scheme", list(SSD_BF16_SCHEMES))
+def test_ssd_bf16_number_scheme_meets_the_card_gates(scheme):
+    """At mamba2-1.3b heads (H 64, P 64, N 128, chunk 128; B 2, L 300) the
+    kernel's scheme keeps y within the bf16 tolerance (2e-2 absolute and
+    relative) and the final state within 1e-4 of its scale of the plain
+    version, and every variant with one pair replaced by a single bf16
+    rounding misses one of the two gates."""
+    rng = np.random.default_rng(15)
+    b, l, h, p, n = 2, 300, 64, 64, 128
+    x, bb, cc = (_t(rng.standard_normal(s, np.float32)).bfloat16()
+                 for s in ((b, l, h, p), (b, l, n), (b, l, n)))
+    dt = _t(np.log1p(np.exp(rng.standard_normal((b, l, h)) - 1.0))
+            .astype(np.float32))
+    a = _t(-np.exp(0.5 * rng.standard_normal(h)).astype(np.float32))
+    want_y, want_s = SSD.ssd_chunked_plain(x, dt, a, bb, cc, 128)
+    got_y, got_s = _ssd_bf16_emulated(x, dt, a, bb, cc, 128,
+                                      SSD_BF16_SCHEMES[scheme])
+    y_ok = bool(torch.allclose(got_y.float(), want_y.float(), atol=2e-2,
+                               rtol=2e-2))
+    s_err = float((got_s - want_s).abs().max())
+    s_ok = s_err <= 1e-4 * max(1.0, float(want_s.abs().max()))
+    if scheme == "kernel":
+        assert y_ok and s_ok, (y_ok, s_err)
+    else:
+        assert not (y_ok and s_ok), f"{scheme} passes both gates"
 
 
 def test_ops_ssd_routes_cpu_tensors_to_the_plain_version():
