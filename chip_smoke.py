@@ -14,7 +14,9 @@ with ``nvcc`` and runs six phases, each printing one JSON line:
       (olmo-1b: 16 heads of 128; qwen2-0.5b: 14 query / 2 KV heads of 64;
       mamba2-1.3b's SSD: 64 heads, P 64, N 128, chunk 128), in float32
       (TF32 off) and bfloat16, with length-0 rows, fresh sequences
-      (history 0), padding segments, ragged packed lengths, ragged prompt
+      (history 0), padding segments, paged rows at split edges, a 1024-page
+      row, pages of 24 tokens, chunks of 5 rows over a history of 2000
+      (speculative verify), ragged packed lengths, ragged prompt
       lengths, windows, non-causal attention, L below the chunk and
       packed SSD rows whose dt = 0 tails must leave the state bit for bit
       as their unpadded runs do; times every main case's kernel, plain
@@ -86,9 +88,9 @@ SSD_F32_TOL = 1e-4
 SSD_HEADS = (64, 64, 128, 128)
 # the device functions each of the port's kernels launches
 PORT_SYMBOLS = {
-    "paged_decode_attention": ("paged_decode_kernel",),
+    "paged_decode_attention": ("paged_split_kernel", "paged_combine_splits"),
     "segment_flash_attention": ("segment_flash_kernel", "segment_tc_kernel"),
-    "paged_chunk_attention": ("paged_chunk_kernel",),
+    "paged_chunk_attention": ("paged_chunk_kernel", "chunk_tc_kernel"),
     "decode_attention": ("decode_split_kernel", "combine_splits"),
     "flash_attention": ("flash_kernel", "flash_tc_kernel"),
     "ssd_scan": ("ssd_kernel", "ssd_tc_kernel")}
@@ -96,6 +98,7 @@ PORT_SYMBOLS = {
 # SASS): library -> (name fragment, instantiations)
 TENSOR_CORE_KERNELS = {
     "flash_attention": (("flash_tc_kernel", 2), ("segment_tc_kernel", 2)),
+    "chunk_attention": (("chunk_tc_kernel", 2),),
     "ssd_scan": (("ssd_tc_kernel", 2),)}
 # device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
 # longer than the host takes to queue its runs
@@ -170,8 +173,24 @@ def _bound_ms(nbytes: float, flops: float, dtype: str):
 # --------------------------------------------------------------------------
 # phase (a): kernels against their plain versions
 # --------------------------------------------------------------------------
-def _decode_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64):
-    lengths = [0, 1, 17, 100, 500, 1000, 1024, 900]
+def _split_edges(kv, c):
+    """8 lengths one below, at and one above the ends of the first two
+    splits the decode wrappers cut of 8 rows of capacity c, then c - 1
+    and 0."""
+    from repro_torch.kernels import decode_attention
+    n = decode_attention.decode_splits(8, kv, c,
+                                       decode_attention.sm_count(0))[1]
+    return (n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0)
+
+
+def _decode_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64,
+                 lengths=(0, 1, 17, 100, 500, 1000, 1024, 900)):
+    """8 rows of 0 to 1024 tokens in pages of 16, the block tables
+    scrambled. ``lengths="split edges"``: ``_split_edges`` of the
+    capacity."""
+    if lengths == "split edges":
+        lengths = _split_edges(kv, ps * max_pages)
+    lengths = list(lengths)
     b = len(lengths)
     n_pages = b * max_pages + 1
     q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
@@ -194,8 +213,9 @@ def _decode_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64):
     flops = 4.0 * live_tok * h * d
     return dict(args_kernel=(q, kp, vp, poisoned, lens),
                 args_plain=(q, kp, vp, sane, lens),
-                real=lambda out: out, zero_rows=[0], nbytes=nbytes,
-                flops=flops, library=None)
+                real=lambda out: out,
+                zero_rows=[i for i, n in enumerate(lengths) if n == 0],
+                nbytes=nbytes, flops=flops, library=None)
 
 
 def _segments(t, lens):
@@ -254,7 +274,8 @@ def _flash_case(torch, gen, dev, dtype, h, kv, d, t=3072,
 
 
 def _chunk_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64,
-                r=512, hist=(0, 512, 388, 0), slen=(512, 300, 129, 0)):
+                r=512, hist=(0, 512, 388, 0), slen=(512, 300, 129, 0),
+                window=0):
     s = len(hist)
     n_pages = s * max_pages + 1
     q = torch.randn(s, r, h, d, generator=gen, device=dev).to(dtype)
@@ -272,10 +293,14 @@ def _chunk_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64,
     sl = torch.tensor(slen, dtype=torch.int32, device=dev)
     elt = q.element_size()
     rows = sum(slen)
+    # the history keys some real row sees, and the visible (row, key) pairs
+    seen = sum(n - (max(0, n - window + 1) if window else 0)
+               for n, m in zip(hist, slen) if m)
+    pairs = sum(min(n + i + 1, window or n + i + 1)
+                for n, m in zip(hist, slen) for i in range(m))
     nbytes = ((2 * rows * h + 2 * rows * kv) * d * elt
-              + 2 * sum(n for n, m in zip(hist, slen) if m) * kv * d * elt
+              + 2 * max(0, seen) * kv * d * elt
               + int(live.sum()) * 4 + 2 * s * 4)
-    pairs = sum(m * n + m * (m + 1) // 2 for n, m in zip(hist, slen))
     flops = 4.0 * pairs * h * d
 
     def real(out):
@@ -283,21 +308,19 @@ def _chunk_case(torch, gen, dev, dtype, h, kv, d, ps=16, max_pages=64,
 
     pad_rows = [(i, m) for i, m in enumerate(slen) if m < r]
     return dict(args_kernel=(q, kp, vp, kc, vc, poisoned, hl, sl),
-                args_plain=(q, kp, vp, kc, vc, sane, hl, sl), real=real,
+                args_plain=(q, kp, vp, kc, vc, sane, hl, sl),
+                kernel_kw={"window": window}, plain_kw={"window": window},
+                real=real,
                 pad_rows=pad_rows, nbytes=nbytes, flops=flops, library=None)
 
 
 def _ring_decode_case(torch, gen, dev, dtype, h, kv, d, c=4096,
                       lengths=(0, 1, 256, 512, 1024, 1500, 2048, 4096)):
     """bench_decode --quick's ragged shape: 8 rows of a 4096-row cache,
-    lengths from 0 to C. ``lengths="split edges"``: 8 rows whose lengths
-    sit one below, at and one above the ends of the wrapper's first two
-    splits, a row of C - 1 and an empty row."""
+    lengths from 0 to C. ``lengths="split edges"``: ``_split_edges`` of
+    C."""
     if lengths == "split edges":
-        from repro_torch.kernels import decode_attention
-        n = decode_attention.decode_splits(
-            8, kv, c, decode_attention.sm_count(0))[1]
-        lengths = (n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0)
+        lengths = _split_edges(kv, c)
     b = len(lengths)
     q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
     kc = torch.randn(b, c, kv, d, generator=gen, device=dev).to(dtype)
@@ -396,8 +419,20 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
             dict(t=1536, lens=(1000, 5, 300)),             # 3·2^9 bucket
             dict(t=1536, lens=(1000, 5, 300), window=200)],  # full tiles
         "paged_chunk_attention": [
-            dict(r=8, hist=(13, 0), slen=(8, 3), ps=8, max_pages=4)],
-        "paged_decode_attention": [dict(ps=8, max_pages=128)],
+            dict(r=8, hist=(13, 0), slen=(8, 3), ps=8, max_pages=4),
+            dict(r=129, hist=(388,), slen=(129,)),          # hist 388 alone
+            dict(hist=(0, 512, 388), slen=(512, 300, 129),  # window
+                 window=256),
+            dict(r=5, hist=(2000,) * 8, slen=(5,) * 8,      # spec verify
+                 max_pages=128),
+            dict(r=200, hist=(388, 0), slen=(200, 65), ps=24,  # page 24
+                 max_pages=32)],
+        "paged_decode_attention": [
+            dict(ps=8, max_pages=128),
+            dict(lengths="split edges"),                   # splits +-1
+            dict(max_pages=1024, lengths=(16384,)),        # 1024 pages
+            dict(ps=24, max_pages=48,                      # page 24
+                 lengths=(0, 1, 23, 24, 25, 500, 1151, 1152))],
         "decode_attention": [
             dict(c=200, lengths=(200, 0, 137, 1)),
             dict(c=16384, lengths=(16384,)),               # B 1, long row

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_decode_attention":
-        (_P,) * 6 + (_I,) * 7 + (_F, _P),
+        (_P,) * 7 + (_I,) * 9 + (_F, _P),
     "segment_flash_attention":
         (_P,) * 5 + (_I,) * 7 + (_F, _P),
     "paged_chunk_attention":

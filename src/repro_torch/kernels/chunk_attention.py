@@ -9,7 +9,11 @@ row) plus the chunk's rows ``c <= r`` with ``c < seg_lens[s]``. Rows
 ``r >= seg_lens[s]`` are padding: unspecified in the plain version, zeros
 from the kernel.
 
-``paged_chunk_attention_cuda`` launches ``csrc/chunk_attention.cu``;
+``paged_chunk_attention_cuda`` launches ``csrc/chunk_attention.cu``: in
+bfloat16 the tensor-core attend body of the flash kernels over absolute
+key positions (the paged history below ``hist_lens[s]``, the chunk above
+it), one warpgroup per 64 chunk rows of one (segment, query head); in
+float32 the FMA tiles of ``csrc/attn_common.cuh``.
 ``paged_chunk_attention_plain`` gathers the history pages, scatters the
 chunk in at its absolute positions, and runs the masked decode body once
 per chunk row, as the JAX CPU path does (``layers.paged_chunk_attention``).
@@ -84,6 +88,8 @@ def paged_chunk_attention_cuda(q, k_pages, v_pages, k_rows, v_rows,
                          v_pages=v_pages, k_rows=k_rows, v_rows=v_rows,
                          block_tables=block_tables, hist_lens=hist_lens,
                          seg_lens=seg_lens)
+    build.check_aligned("paged_chunk_attention", q=q, k_pages=k_pages,
+                        v_pages=v_pages, k_rows=k_rows, v_rows=v_rows)
     if page_size % 8:
         raise ValueError(f"page_size {page_size} is not a multiple of 8")
     if (h % kvh or v_pages.shape != k_pages.shape

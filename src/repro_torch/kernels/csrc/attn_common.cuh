@@ -1,10 +1,10 @@
-// Tile machinery shared by the attention kernels of the port that run on
-// the CUDA cores: the paged decode (paged_attention.cu), the chunk kernel
-// (chunk_attention.cu), the segment flash kernel and the float32 dense
-// flash kernel (flash_attention.cu). The bf16 dense flash kernel runs its
-// own tensor-core main loop (tc_attend in flash_attention.cu), and the
-// contiguous decode kernel the split-K body of decode_split.cuh, which
-// builds on the helpers here (to_f, from_f, kThreads).
+// Tile machinery shared by the float32 attention bodies of the port that
+// run on the CUDA cores: the float32 chunk kernel (chunk_attention.cu)
+// and the float32 segment and dense flash kernels (flash_attention.cu).
+// Their bf16 versions run the tensor-core body of tc_attend.cuh, and both
+// decode kernels (decode_attention.cu, paged_attention.cu) the split-K
+// body of decode_split.cuh; those build on the helpers here (to_f, from_f,
+// kThreads, launch, PageMap).
 //
 // Every kernel that runs this machinery computes, for a tile of up to kBQ
 // query rows, an online (flash-style) softmax over a sequence of key tiles
@@ -14,8 +14,7 @@
 // mask, a length, a window); both are passed in as small device lambdas.
 //
 // Layout of the work inside a block of kThreads = 128 threads:
-//   * the query tile and one key/value tile sit in shared memory as f32
-//     (bf16 inputs are widened with __bfloat162float on load);
+//   * the query tile and one key/value tile sit in shared memory as f32;
 //   * warp w owns query rows [w*kRowsPerWarp, (w+1)*kRowsPerWarp);
 //   * for one row, lane t scores key t of the tile (a dot product over D
 //     read from shared memory: the query row is a broadcast, key rows are
@@ -199,41 +198,30 @@ __device__ __forceinline__ void store_rows(const RowState<D>& st,
   }
 }
 
-// Single-token decode attention of one (row b, KV head g) block: the rep
-// query heads of the group are the rows of the tile (in tiles of kBQ when
-// rep > kBQ), and the key loop runs over the row's first len tokens only,
-// so nothing of the cache past a row's length is read. key_off(p) is the
-// element offset of token p of KV head g in k and v (the paged kernel's
-// block-table lookup; the contiguous decode kernel now runs the split-K
-// body of decode_split.cuh). len == 0 writes exact zeros. q, out:
-// (B, H, D).
-template <typename T, int D, class KeyOff>
-__device__ __forceinline__ void decode_group(T* __restrict__ out,
-                                             const T* __restrict__ q,
-                                             const T* __restrict__ k,
-                                             const T* __restrict__ v, int b,
-                                             int g, int H, int rep, int len,
-                                             float scale, KeyOff key_off) {
-  Smem<D>& sm = smem<D>();
-  for (int r0 = 0; r0 < rep; r0 += kBQ) {
-    const int nrows = min(kBQ, rep - r0);
-    auto qoff = [&](int r) -> long long {
-      return r < nrows ? ((long long)b * H + g * rep + r0 + r) * D : -1;
-    };
-    __syncthreads();  // the previous group's tiles are no longer read
-    load_q<T, D>(sm, q, qoff);
-    RowState<D> st;
-    st.init();
-    for (int k0 = 0; k0 < len; k0 += kBK) {
-      load_kv<T, D>(sm, k, v, [&](int t) -> long long {
-        const int p = k0 + t;
-        return p < len ? key_off(p) : -1;
-      });
-      fold_tile<D>(sm, st, scale,
-                   [&](int r, int t) { return r < nrows && k0 + t < len; });
-    }
-    store_rows<T, D>(st, out, qoff);
+// Where logical token p of one block-table row lives in a paged pool
+// (P, page_size, KV, D): the element offset of its key (and value) row of
+// KV head g is trow[p / page_size] * page_stride + (p % page_size) *
+// tok_stride + g * D, where the caller has folded g * D into the pool
+// pointer. Only table entry p / page_size is read, so a caller that asks
+// for p < n reads no entry at or past ceil(n / page_size). page_shift is
+// log2(page_size) when the page size is a power of two (a shift and a
+// mask then replace the integer division), else -1.
+struct PageMap {
+  const int* __restrict__ trow;  // this row's block-table entries
+  long long page_stride, tok_stride;
+  int page_size, page_shift;
+  __device__ __forceinline__ long long operator()(int p) const {
+    const int j = page_shift >= 0 ? p >> page_shift : p / page_size;
+    const int o = page_shift >= 0 ? p & (page_size - 1) : p - j * page_size;
+    return (long long)__ldg(trow + j) * page_stride + o * tok_stride;
   }
+};
+
+// log2(page_size) for a power of two, else -1 (PageMap::page_shift)
+inline int page_shift_of(int page_size) {
+  int shift = 0;
+  while ((1 << shift) < page_size) ++shift;
+  return (1 << shift) == page_size ? shift : -1;
 }
 
 // Raise the kernel's dynamic shared memory limit and launch it.

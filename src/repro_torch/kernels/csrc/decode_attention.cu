@@ -17,7 +17,9 @@
 // bf16 at rep = 1), far below the ~295 flops/byte at which an H100 turns
 // compute-bound, so the floor is the live K/V bytes over 3.35 TB/s.
 //
-// What the design does about it: split-K flash-decoding (decode_split.cuh).
+// What the design does about it: split-K flash-decoding, whose block body
+// and merge live in decode_split.cuh and also serve the paged decode
+// kernel (paged_attention.cu), which differs only in the address of a key.
 // The grid is (splits, KV, B): a row's keys are cut into splits of
 // split_len keys, so B * KV (128 blocks at olmo-1b's 16 KV heads and 8
 // rows) no longer bounds the blocks in flight, and a long row no longer
@@ -32,8 +34,7 @@
 // writes the output; it is launched as a programmatic dependent of the
 // first, which hides about 1.2 us of launch gap per call on the H100 (of
 // 16-45 us at the port's shapes). Not yet done (later work): cp.async/TMA
-// double buffering, and moving the paged kernel (paged_attention.cu) onto
-// the same body.
+// double buffering.
 #include "decode_split.cuh"
 
 template <typename T, int D, int R>
@@ -63,24 +64,10 @@ static cudaError_t run(void* out, const void* q, const void* k, const void* v,
                                  stream>>>(
       (float*)scratch, (const T*)q, (const T*)k, (const T*)v,
       (const int*)lengths, H, KV, C, split_len, scale);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // a programmatic dependent launch: the merge is set up while the split
-  // kernel runs, and its blocks wait (griddepcontrol.wait) for the partials
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * H);
-  cfg.blockDim = dim3(D);
-  cfg.stream = stream;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, split::combine_splits<T, D>, (T*)out,
-                           (const float*)scratch, (const int*)lengths, H, C,
-                           splits);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return split::launch_merge<T>(split::combine_splits<T, D>, out, scratch,
+                                lengths, B * H, D, H, C, splits, stream);
 }
 
 // R: query heads per pass, 1 for a group of one head (olmo-1b) and else

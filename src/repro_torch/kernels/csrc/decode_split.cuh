@@ -16,8 +16,8 @@
 // shuffles inside the group), and the block merges its groups through
 // shared memory. q sits in registers in f32. The body does not know where
 // a key lies: key_off(p) is the element offset of key p of head g in k and
-// v (a plain stride for contiguous caches; a block-table lookup would
-// serve a paged pool).
+// v: a plain stride for the contiguous caches of decode_attention.cu, a
+// block-table lookup for the page pool of paged_attention.cu.
 #pragma once
 
 #include "attn_common.cuh"
@@ -229,10 +229,14 @@ __device__ __forceinline__ void split_decode(float* __restrict__ part,
 // Rows of length 0 are written as exact zeros; an empty split (l = 0)
 // weighs 0 and its accumulator, never written, is selected away. No load
 // depends on another, so a row with many splits streams its partials.
+// Lengths are clamped to [0, C]. Each kernel that merges (combine_splits
+// here, paged_combine_splits of the paged decode) is a thin __global__
+// around this body, so that a profile tells their device time apart.
 template <typename T, int D>
-__global__ void __launch_bounds__(D)
-combine_splits(T* __restrict__ out, const float* __restrict__ part,
-               const int* __restrict__ lengths, int H, int C, int splits) {
+__device__ __forceinline__ void combine(T* __restrict__ out,
+                                        const float* __restrict__ part,
+                                        const int* __restrict__ lengths,
+                                        int H, int C, int splits) {
   // launched as a programmatic dependent of the split kernel: wait until
   // its partials are written and visible
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -259,6 +263,37 @@ combine_splits(T* __restrict__ out, const float* __restrict__ part,
     a += e.y > 0.f ? w * x : 0.f;
   }
   out[(long long)bh * D + d] = attn::from_f<T>(a / sum);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+combine_splits(T* __restrict__ out, const float* __restrict__ part,
+               const int* __restrict__ lengths, int H, int C, int splits) {
+  combine<T, D>(out, part, lengths, H, C, splits);
+}
+
+// Launch a merge kernel (B * H blocks of D threads) on `stream` as a
+// programmatic dependent of the split kernel launched just before it:
+// it is set up while the split kernel runs, and its blocks wait
+// (griddepcontrol.wait) for the partials. Returns the launch error.
+template <typename T, class Merge>
+cudaError_t launch_merge(Merge merge, void* out, const void* part,
+                         const void* lengths, int BH, int D, int H, int C,
+                         int splits, cudaStream_t stream) {
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH);
+  cfg.blockDim = dim3(D);
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, merge, (T*)out,
+                                       (const float*)part,
+                                       (const int*)lengths, H, C, splits);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace split

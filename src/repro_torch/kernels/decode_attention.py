@@ -14,7 +14,8 @@ the splits; ``decode_attention_plain`` runs the masked decode body the JAX
 package's CPU path runs (``layers._masked_decode_attention``), which the
 paged plain version (``paged_attention``) shares after its page gather.
 ``decode_attention_split_plain`` emulates the kernel's split and merge on
-the CPU for the tests; no path runs it.
+the CPU for the tests (as does the paged version's emulation, after its
+block-table fetch); no path runs it.
 """
 from __future__ import annotations
 

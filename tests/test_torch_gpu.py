@@ -71,12 +71,28 @@ def _tables(gen, rows, max_pages, live, dev):
             tables.masked_fill(past, 0).contiguous(), n_pages)
 
 
+def _split_edges(kv, c, dev):
+    """Lengths one below, at and one above the ends of the first two
+    splits that the decode wrappers cut of 8 rows of capacity c, a row of
+    c - 1 and an empty row."""
+    n = DA.decode_splits(8, kv, c, DA.sm_count(dev.index or 0))[1]
+    return [n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0]
+
+
 @pytest.mark.parametrize("h,kv,d", HEADS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype):
+@pytest.mark.parametrize("ps,max_pages,lengths", [
+    (16, 8, [0, 1, 16, 17, 100, 128, 0, 65]),   # empty, page edges, full
+    (16, 64, "split edges"),                    # split boundaries +-1
+    (16, 1024, [16384, 0]),                     # a 1024-page row
+    (24, 16, [0, 1, 23, 24, 25, 200, 383, 384]),  # a page of no power of 2
+    (8, 40, [319, 1, 64, 65]),                  # pages of 8
+])
+def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype, ps,
+                                           max_pages, lengths):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    ps, max_pages = 16, 8
-    lengths = [0, 1, 16, 17, 100, 128, 0, 65]
+    if lengths == "split edges":
+        lengths = _split_edges(kv, ps * max_pages, cuda)
     live = [-(-n // ps) for n in lengths]
     poisoned, sane, n_pages = _tables(gen, len(lengths), max_pages, live,
                                       cuda)
@@ -89,7 +105,9 @@ def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype):
     assert PA.launches == before + 1
     want = PA.paged_decode_attention_plain(q, kp, vp, sane, lens)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    assert (got[0] == 0).all() and (got[6] == 0).all()
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (got[i] == 0).all()
 
 
 @pytest.mark.parametrize("h,kv,d", HEADS)
@@ -104,10 +122,7 @@ def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype):
 def test_decode_kernel_matches_plain(cuda, h, kv, d, dtype, c, lengths):
     gen = torch.Generator(device=cuda).manual_seed(4)
     if lengths == "split edges":
-        # lengths one below, at and one above the ends of the first two
-        # splits that the wrapper cuts (8 rows), and a row of length C - 1
-        n = DA.decode_splits(8, kv, c, DA.sm_count(cuda.index or 0))[1]
-        lengths = [n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0]
+        lengths = _split_edges(kv, c, cuda)
     b = len(lengths)
     q = _randn(gen, (b, h, d), dtype, cuda)
     kc = _randn(gen, (b, c, kv, d), dtype, cuda)
@@ -156,9 +171,10 @@ def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
 
 def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     """The built bf16 kernels hold Hopper's warpgroup tensor-core
-    instructions (HGMMA, from wgmma): the dense and the segment flash
-    kernels in the SASS of both head dims, and the SSD scan for both chunk
-    tiles (64 and 128 rows); their float32 bodies hold none."""
+    instructions (HGMMA, from wgmma): the dense, the segment flash and the
+    paged chunk kernels in the SASS of both head dims, and the SSD scan
+    for both chunk tiles (64 and 128 rows); their float32 bodies hold
+    none."""
     from repro_torch.kernels import build
     counts = build.sass_count("flash_attention", "HGMMA")
     for name in ("flash_tc_kernel", "segment_tc_kernel"):
@@ -167,6 +183,11 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     assert all(n == 0 for k, n in counts.items()
                if k.startswith("_Z12flash_kernel")
                or "segment_flash_kernel" in k), counts
+    chunk = build.sass_count("chunk_attention", "HGMMA")
+    tc = {k: n for k, n in chunk.items() if "chunk_tc_kernel" in k}
+    assert len(tc) == 2 and all(n > 0 for n in tc.values()), chunk
+    assert all(n == 0 for k, n in chunk.items()
+               if "paged_chunk_kernel" in k), chunk
     ssd = build.sass_count("ssd_scan", "HGMMA")
     tc = {k: n for k, n in ssd.items() if "ssd_tc_kernel" in k}
     assert len(tc) == 2 and all(n > 0 for n in tc.values()), ssd
@@ -211,10 +232,19 @@ def test_segment_flash_kernel_matches_plain(cuda, h, kv, d, dtype, t, lens,
 
 @pytest.mark.parametrize("h,kv,d", HEADS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_chunk_kernel_matches_plain(cuda, h, kv, d, dtype):
+@pytest.mark.parametrize("ps,max_pages,r,hist,slen,window", [
+    # fresh, mid-page, padding segment (all inside one 64-key tile)
+    (8, 8, 16, [0, 13, 40, 0], [16, 5, 16, 0], 0),
+    # phase (b)'s continuations: histories 388 and 512, 512 chunk rows,
+    # partial row tiles of 300 and 129 real rows
+    (16, 64, 512, [0, 512, 388, 0], [512, 300, 129, 0], 0),
+    (16, 64, 512, [0, 512, 388], [512, 300, 129], 100),   # a window
+    (16, 128, 5, [2000, 0, 1999], [5, 3, 1], 0),   # R 5 over hist 2000
+    (24, 32, 200, [388, 0, 100], [200, 64, 65], 0),  # page of no power 2
+])
+def test_paged_chunk_kernel_matches_plain(cuda, h, kv, d, dtype, ps,
+                                          max_pages, r, hist, slen, window):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    ps, max_pages, r = 8, 8, 16
-    hist, slen = [0, 13, 40, 0], [16, 5, 16, 0]    # fresh, mid-page, pad
     live = [-(-n // ps) for n in hist]
     s = len(hist)
     poisoned, sane, n_pages = _tables(gen, s, max_pages, live, cuda)
@@ -225,8 +255,12 @@ def test_paged_chunk_kernel_matches_plain(cuda, h, kv, d, dtype):
     vp = _randn(gen, (n_pages, ps, kv, d), dtype, cuda)
     hl = torch.tensor(hist, dtype=torch.int32, device=cuda)
     sl = torch.tensor(slen, dtype=torch.int32, device=cuda)
-    got = CA.paged_chunk_attention_cuda(q, kp, vp, kc, vc, poisoned, hl, sl)
-    want = CA.paged_chunk_attention_plain(q, kp, vp, kc, vc, sane, hl, sl)
+    before = CA.launches
+    got = CA.paged_chunk_attention_cuda(q, kp, vp, kc, vc, poisoned, hl, sl,
+                                        window=window)
+    assert CA.launches == before + 1
+    want = CA.paged_chunk_attention_plain(q, kp, vp, kc, vc, sane, hl, sl,
+                                          window=window)
     for i, m in enumerate(slen):
         torch.testing.assert_close(got[i, :m].float(), want[i, :m].float(),
                                    **TOL[dtype])
@@ -256,8 +290,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
-    """#4 and the bf16 #2, #5 and #6 read 16-byte vectors: a contiguous
-    view at an odd offset raises instead of faulting."""
+    """#1, #3, #4 and the bf16 #2, #5 and #6 read 16-byte vectors: a
+    contiguous view at an odd offset raises instead of faulting."""
     flat = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
     kc = flat[1:].view(2, 64, 2, 64)
     q = torch.zeros(2, 4, 64, device=cuda, dtype=torch.bfloat16)
@@ -270,6 +304,14 @@ def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
     seg = torch.zeros(16, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte boundary"):
         FA.segment_flash_attention_cuda(x[:1], x[:1], x[:1], seg)
+    pages = flat[1:1 + 2 * 16 * 2 * 64].view(2, 16, 2, 64)
+    tables = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        PA.paged_decode_attention_cuda(q, pages, pages, tables, lens)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        rows = flat[1:1 + 16 * 2 * 64].view(1, 16, 2, 64)
+        CA.paged_chunk_attention_cuda(x[:1], pages, pages, rows, rows,
+                                      tables[:1], lens[:1], lens[:1])
     xs = flat[1:1 + 2 * 16 * 64].view(1, 16, 2, 64)
     bc = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
     dt = torch.zeros(1, 16, 2, device=cuda)

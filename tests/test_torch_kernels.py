@@ -22,6 +22,7 @@ so an absolute 1e-5 on small entries would test the rounding, not the
 port — and 2e-3 against the sequential oracle (the chunked form
 reassociates L-long sums), as ``tests/test_kernels.py`` allows.
 """
+import math
 import re
 
 import numpy as np
@@ -235,6 +236,53 @@ def test_decode_split_plain_matches_plain_and_jax(b, h, kv, d, c, sm,
             assert (got[i] == 0).all(), f"row {i} of length 0 not zero"
 
 
+PAGED_SPLIT_CASES = [
+    # (h, kv, page_size, max_pages): group of 1 and of 7 (qwen2-0.5b)
+    # heads; pages of 8, 16 and 32 over the same 192-key capacity
+    (2, 2, 8, 24),
+    (14, 2, 8, 24),
+    (2, 2, 16, 12),
+    (14, 2, 16, 12),
+    (2, 2, 32, 6),
+    (14, 2, 32, 6),
+]
+
+
+@pytest.mark.parametrize("h,kv,ps,maxp", PAGED_SPLIT_CASES)
+def test_paged_decode_split_plain_matches_plain_and_jax(h, kv, ps, maxp):
+    """The paged kernel's split-and-merge, emulated on the CPU with the
+    splits the wrapper cuts from the capacity (three of 64 keys here, so
+    on whole pages), equals the one-pass softmax: float32 within 1e-6 of
+    the plain version, of the JAX package's CPU path and of its
+    interpret-mode kernel, at lengths 0, 1, each split end -1, +0, +1 and
+    the full capacity. The emulation gets tables whose entries past each
+    row's live pages point far outside the pool (the kernel never reads
+    them); length-0 rows are exact zeros."""
+    d, cap = 64, ps * maxp
+    lengths = [0, 1, 63, 64, 65, 127, 128, 129, 191, cap]
+    b = len(lengths)
+    q, kp, vp, tables = _paged_case(ps + h, b, h, kv, d, ps, maxp)
+    lens = np.asarray(lengths, np.int32)
+    splits, n = DA.decode_splits(b, kv, cap, 132)
+    assert (splits, n) == (3, 64) and n % ps == 0
+    live = -(-lens // ps)
+    past = np.arange(maxp)[None, :] >= live[:, None]
+    poisoned = np.where(past, 1 << 30, tables).astype(np.int32)
+    got = PA.paged_decode_attention_split_plain(
+        _t(q), _t(kp), _t(vp), _t(poisoned), _t(lens), splits, n).numpy()
+    plain = PA.paged_decode_attention_plain(_t(q), _t(kp), _t(vp),
+                                            _t(tables), _t(lens))
+    np.testing.assert_allclose(got, plain.numpy(), atol=1e-6, rtol=0)
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, tables, lens)]
+    np.testing.assert_allclose(got, np.asarray(jax_paged_path(*jargs)),
+                               atol=1e-6, rtol=0)
+    want = jax_paged_kernel(*jargs, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+    for i, m in enumerate(lengths):
+        if m == 0:
+            assert (got[i] == 0).all(), f"row {i} of length 0 not zero"
+
+
 # --------------------------------------------------- dense (padded) flash
 FLASH_CASES = [
     # (b, s, h, kv, d, block, causal, window): tests/test_kernels.py's
@@ -409,6 +457,125 @@ def test_chunk_attention_plain_window_matches_jax_kernel(window):
                               (q, kp, vp, kc, vc, tables, hist, slen)],
                             window=window, interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), atol=KERNEL_ATOL)
+
+
+def _chunk_tc_emulated(q, kp, vp, kc, vc, tables, hist, slen, window=0,
+                      round_p=True):
+    """The bf16 chunk kernel's walk in plain PyTorch (float32 arithmetic on
+    the CPU): per (segment, query head, tile of 64 chunk rows at absolute
+    positions hist + r), 64-key tiles over absolute positions from the
+    window's first tile to the last real row's, each key fetched from the
+    paged history (j < hist, through the block table) or the chunk (hist
+    <= j < hist + seg_len), zeros past them; the mask applied only where
+    the kernel's ``ChunkMask.full`` is false; the online softmax in the
+    log2 domain with a reference of 0 for rows that saw no key yet; P
+    rounded to bf16 before P·V when ``round_p`` (the kernel's A
+    fragments; the row sums keep the unrounded P). Padding rows are
+    zeros."""
+    s_, r_len, h, d = q.shape
+    _, ps, kvh, _ = kp.shape
+    rep = h // kvh
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    out = torch.zeros(s_, r_len, h, d)
+    tile = torch.arange(64)
+    for s in range(s_):
+        hs, n = int(hist[s]), int(slen[s])
+
+        def keys(k0, pool, chunk, g):
+            rows = torch.zeros(64, d)
+            for t in range(64):
+                j = k0 + t
+                if j < hs:
+                    rows[t] = pool[int(tables[s, j // ps]), j % ps, g]
+                elif j < hs + n:
+                    rows[t] = chunk[s, j - hs, g]
+            return rows
+
+        for hh in range(h):
+            g = hh // rep
+            for r0 in range(0, r_len, 64):
+                nq = min(64, r_len - r0, max(0, n - r0))
+                if nq == 0:
+                    continue
+                q0 = hs + r0
+                qt = torch.zeros(64, d)
+                qt[:nq] = q[s, r0:r0 + nq, hh]
+                first = max(0, q0 - window + 1) if window else 0
+                m = torch.full((64,), -math.inf)
+                l_sum = torch.zeros(64)
+                o = torch.zeros(64, d)
+                i = q0 + tile[:, None]
+                for kt in range(first // 64, (q0 + nq - 1) // 64 + 1):
+                    k0 = kt * 64
+                    sc = qt @ keys(k0, kp, kc, g).T
+                    full = (k0 + 63 <= q0 and nq == 64
+                            and (not window or q0 + 63 - k0 < window))
+                    if not full:
+                        j = k0 + tile[None, :]
+                        vis = (i < q0 + nq) & (j <= i)
+                        if window:
+                            vis &= i - j < window
+                        sc = torch.where(vis, sc, -math.inf)
+                    m_new = torch.maximum(m, sc.amax(1) * sl2)
+                    m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+                    corr = torch.exp2(m - m_use)
+                    p = torch.exp2(sc * sl2 - m_use[:, None])
+                    l_sum = l_sum * corr + p.sum(1)
+                    if round_p:
+                        p = p.bfloat16().float()
+                    o = o * corr[:, None] + p @ keys(k0, vp, vc, g)
+                    m = m_new
+                out[s, r0:r0 + nq, hh] = o[:nq] / l_sum[:nq, None]
+    return out
+
+
+CHUNK_TC_CASES = [
+    # (h, kv, page_size, max_pages, hists, slens): history 100 ends inside
+    # the second key tile (keys 64-99 paged, 100-127 the chunk), 37 inside
+    # the first; a fresh sequence; a partial second row tile (65 real rows
+    # of 70); a padding segment; whole row tiles at 120 and 130, whose
+    # key tiles just below the diagonal (and, with a window of 100, just
+    # inside it) decide between full and masked
+    (4, 2, 8, 32, (100, 0, 120, 0, 130, 37), (70, 65, 70, 0, 70, 70)),
+    (14, 2, 16, 16, (100, 0, 120, 0, 130, 37),           # qwen2-0.5b heads
+     (70, 65, 70, 0, 70, 70)),
+]
+
+
+@pytest.mark.parametrize("window", [0, 40, 100])
+@pytest.mark.parametrize("h,kv,ps,maxp,hists,slens", CHUNK_TC_CASES)
+def test_chunk_tc_walk_matches_jax_kernel(h, kv, ps, maxp, hists, slens,
+                                          window):
+    """The bf16 chunk kernel's tile walk over absolute positions, emulated
+    on the CPU on bf16-valued inputs, against the JAX package's
+    interpret-mode kernel: with P unrounded within 2e-5 (the walk's tile
+    bounds, full-tile decisions, masks and key addresses are exact), with
+    P rounded to bf16 and the output to bf16 within the card's bf16
+    tolerance of 2e-2 absolute and relative; padding rows are zeros.
+    The emulation gets tables whose entries past each segment's history
+    pages point far outside the pool (the kernel never reads them)."""
+    s, r, d = len(hists), 70, 64
+    q, kp, vp, kc, vc, tables = (
+        _t(a).bfloat16().float().numpy() if a.dtype == np.float32 else a
+        for a in _chunk_case(ps + h, s, r, h, kv, d, ps, maxp, hists))
+    hist = np.asarray(hists, np.int32)
+    slen = np.asarray(slens, np.int32)
+    live = -(-hist // ps)
+    poisoned = np.where(np.arange(maxp)[None, :] >= live[:, None], 1 << 30,
+                        tables)
+    want = np.asarray(jax_chunk_kernel(
+        *[jnp.asarray(a) for a in (q, kp, vp, kc, vc, tables, hist, slen)],
+        window=window, interpret=True))
+    args = [_t(a) for a in (q, kp, vp, kc, vc, poisoned, hist, slen)]
+    exact = _chunk_tc_emulated(*args, window=window, round_p=False).numpy()
+    bf16 = _chunk_tc_emulated(*args, window=window).bfloat16().float()
+    for i, n in enumerate(slens):
+        np.testing.assert_allclose(exact[i, :n], want[i, :n],
+                                   atol=KERNEL_ATOL, err_msg=f"segment {i}")
+        np.testing.assert_allclose(bf16[i, :n].numpy(), want[i, :n],
+                                   atol=2e-2, rtol=2e-2,
+                                   err_msg=f"segment {i}")
+        assert (exact[i, n:] == 0).all() and (bf16[i, n:] == 0).all()
 
 
 # ------------------------------------------------------------ SSD scan
@@ -685,20 +852,29 @@ _C_KINDS = {"void*": build._P, "const void*": build._P, "int": build._I,
 @pytest.mark.parametrize("entry", sorted(build.SIGNATURES))
 def test_ctypes_signatures_match_c_entry_points(entry):
     """Every C argument is declared to ctypes with its own kind (an
-    undeclared pointer would be cut to 32 bits)."""
+    undeclared pointer would be cut to 32 bits). The two split-K decodes
+    (contiguous and paged) take their f32 scratch after the lengths and
+    the split count and length after the shapes."""
     src = (build.CSRC / f"{build.ENTRY_LIBRARY[entry]}.cu").read_text()
     m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
     assert m, entry
-    kinds = []
+    kinds, names = [], []
     for param in m.group(1).split(","):
         ctype = " ".join(param.split()[:-1]).replace(" *", "*")
         kinds.append(_C_KINDS[ctype])
+        names.append(param.split()[-1])
     assert tuple(kinds) == build.SIGNATURES[entry]
+    if entry in ("decode_attention", "paged_decode_attention"):
+        i = names.index("lengths")
+        assert names[i + 1] == "scratch" and kinds[i + 1] == build._P
+        j = names.index("splits")
+        assert names[j:j + 3] == ["splits", "split_len", "dtype"]
 
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in build.CSRC.iterdir()}
     assert {f"{n}.cu" for n in build.SOURCES} <= names
-    assert "attn_common.cuh" in names
+    assert {"attn_common.cuh", "decode_split.cuh", "tc_attend.cuh",
+            "wgmma.cuh"} <= names
     assert len(build.source_hash()) == 16
     assert build.build_dir().parent == build.BUILD_ROOT
