@@ -34,8 +34,7 @@ with ``nvcc`` and runs six phases, each printing one JSON line:
       tokens each), then qwen2-0.5b at full width on one;
   (e) ring serve: phase (b)'s requests on 8 ring slots, so admissions and
       prefix-recompute continuations run the packed prefill and decodes
-      the contiguous decode kernel (and never the chunk kernel), then the
-      same serve once more under ``torch.profiler``;
+      the contiguous decode kernel (and never the chunk kernel);
   (f) ssm: mamba2-1.3b at full width in bfloat16 (48 layers, d_model
       2048, 64 SSD heads of 64, N 128) serves phase (b)'s requests on 8
       slots of per-sequence state (packed admissions, prefix-recompute
@@ -43,15 +42,26 @@ with ``nvcc`` and runs six phases, each printing one JSON line:
       prompts of 512 and of 2000 tokens; every prefill dispatch scans each
       layer through the SSD kernel;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
-      off, runs each path once on the GPU (the kernels) and once on the
-      CPU (the plain versions) — a paged serve, ``generate``, a ring serve
-      with continuations, and a sliding-window ring that wraps — and so
-      does mamba2-1.3b at full width cut to 2 layers (a serve and
-      ``generate``); the greedy streams must be identical.
+      off, runs each path once on the GPU (the kernels, under CUDA
+      graphs) and once on the CPU (the plain versions) — a paged serve,
+      ``generate``, a ring serve with continuations, and a sliding-window
+      ring that wraps — and so does mamba2-1.3b at full width cut to 2
+      layers (a serve and ``generate``); the greedy streams must be
+      identical.
+
+Every path of (b), (d), (e) and (f) runs on one engine that replays CUDA
+graphs per bucket (``repro_torch.serving.graphs``): a first graphed run
+meets the path's buckets and captures them, untimed; then the path runs
+timed in turns — eager (``graphs`` off), graphed, graphed, eager — each
+with the launch counts at 0 just before it, and must give the first
+run's tokens, launch exactly the path's kernels (replays count) and
+capture nothing; one more run of each mode goes under
+``torch.profiler`` for its device time, whose share of the mode's mean
+timed wall is the device's busy share.
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
-its count over the main paths (b), (d), (e) and (f)), the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
+its count over the first graphed turn of each main path of (b), (d), (e)
+and (f)), the card's name and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
 ``chiprun_out/chip_smoke.json``.
@@ -653,26 +663,14 @@ def _walls(srv):
             1e3 * walls[min(len(walls) - 1, int(0.99 * len(walls)))])
 
 
-def _counters():
-    """(module, attribute) of each kernel's launch count."""
-    from repro_torch.kernels import chunk_attention, decode_attention
-    from repro_torch.kernels import flash_attention, paged_attention
-    from repro_torch.kernels import ssd_scan
-    return {"paged_decode_attention": (paged_attention, "launches"),
-            "segment_flash_attention": (flash_attention, "segment_launches"),
-            "paged_chunk_attention": (chunk_attention, "launches"),
-            "decode_attention": (decode_attention, "launches"),
-            "flash_attention": (flash_attention, "flash_launches"),
-            "ssd_scan": (ssd_scan, "launches")}
-
-
 def _launch_counts():
-    return {n: getattr(m, a) for n, (m, a) in _counters().items()}
+    from repro_torch.kernels import ops
+    return ops.launch_counts()
 
 
 def _reset_launch_counts():
-    for m, a in _counters().values():
-        setattr(m, a, 0)
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
 
 
 def _check_launches(launches, ran, phase):
@@ -688,6 +686,125 @@ PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
 RING_PATH = ("segment_flash_attention", "decode_attention")
 GENERATE_PATH = ("flash_attention", "decode_attention")
 SSM_PATH = ("ssd_scan",)
+# the timed turns of a path on one engine: graphs off, on, on, off
+MODES = ("eager", "graphed", "graphed", "eager")
+
+
+def _captures(eng):
+    return sum(eng.jit_cache_sizes().values())
+
+
+def _turns(torch, eng, run, n_tokens, ran, phase):
+    """``run()`` drives one path on ``eng`` and returns (its tokens, its
+    ``TickServer`` or None). One graphed run first meets the path's
+    buckets — it captures them and is not timed; then the path runs in
+    the turns of ``MODES`` on the same engine, each timed, with the
+    launch counts at 0 just before it and the captures counted over it.
+    Every turn must give the first run's tokens, launch exactly the
+    path's kernels (replays count) and capture nothing. Returns (tokens,
+    the first run's captures, the turns)."""
+    eng.graphs = True
+    c0 = _captures(eng)
+    t0 = time.perf_counter()
+    want, _ = run()
+    torch.cuda.synchronize()
+    warm_captures = _captures(eng) - c0
+    _log(json.dumps({f"{phase}/first run": {
+        "captures": warm_captures, "s": time.perf_counter() - t0}}))
+    turns = []
+    for mode in MODES:
+        eng.graphs = mode == "graphed"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = _captures(eng)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        got, srv = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        turn = {"mode": mode, "wall_s": wall,
+                "tokens_per_s": n_tokens / wall,
+                "captures": _captures(eng) - c0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches": _launch_counts()}
+        if srv is not None:
+            turn["tick_ms_p50"], turn["tick_ms_p99"] = _walls(srv)
+            turn["ticks"], turn["dispatches"] = srv.ticks, srv.dispatches
+        _log(json.dumps({f"{phase}/turn": turn}))
+        assert got == want, f"phase {phase}: the {mode} run changed tokens"
+        assert turn["captures"] == 0, f"phase {phase}: a timed run captured"
+        _check_launches(turn["launches"], ran, f"{phase}/{mode}")
+        turns.append(turn)
+    eng.graphs = True
+    return want, warm_captures, turns
+
+
+def _by_mode(turns, key):
+    """``key`` of the turns, graphed and eager, in turn order."""
+    return {m: [t[key] for t in turns if t["mode"] == m]
+            for m in ("graphed", "eager")}
+
+
+def _profiles(torch, eng, run, want):
+    """One more run of the path under ``torch.profiler`` graphed and one
+    eager; each must give ``want`` and capture nothing."""
+    out = {}
+    for mode in ("graphed", "eager"):
+        eng.graphs = mode == "graphed"
+        c0 = _captures(eng)
+        got, out[mode] = _profile(torch, run)
+        assert got == want and _captures(eng) == c0, mode
+    eng.graphs = True
+    return out
+
+
+def _busy(profile, turns):
+    """The device's busy share of each mode: the profiled run's device
+    time over the mean wall of that mode's timed (unprofiled) turns."""
+    walls = _by_mode(turns, "wall_s")
+    return {m: p["device_ms"] / (1e3 * sum(walls[m]) / len(walls[m]))
+            for m, p in profile.items()}
+
+
+def _graph_report(eng, warm_captures, turns):
+    return {"warm_captures": warm_captures,
+            "timed_captures": [t["captures"] for t in turns],
+            "jit_cache_sizes": eng.jit_cache_sizes(),
+            "pool_bytes": eng.graph_pool_bytes()}
+
+
+def _serve_phase(torch, phase, eng, reqs, prompts, ran):
+    """Phase (b)/(e)/(f)'s serve of ``reqs`` on ``eng`` in turns, then
+    profiled in both modes. Returns the phase's report and the streams."""
+    cfg = eng.cfg
+    n_tok = sum(r.n_tokens for r in reqs)
+
+    def run():
+        return _serve(eng, reqs, prompts, chunk_tokens=512)
+
+    streams, warm, turns = _turns(torch, eng, run, n_tok, ran, phase)
+    for r in reqs:
+        s = streams[r.rid]
+        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
+        assert all(0 <= t < cfg.vocab_size for t in s), r.rid
+    profile = _profiles(torch, eng, lambda: run()[0], streams)
+    graphed = next(t for t in turns if t["mode"] == "graphed")
+    out = {"phase": phase, "model": cfg.name, "dtype": "bfloat16",
+           "layers": cfg.num_layers, "params": cfg.param_count(),
+           "requests": len(reqs),
+           "prompt_tokens": sum(r.prompt_len for r in reqs),
+           "tokens_served": n_tok, "ticks": graphed["ticks"],
+           "dispatches": graphed["dispatches"],
+           **{k: _by_mode(turns, k) for k in (
+               "tokens_per_s", "tick_ms_p50", "tick_ms_p99",
+               "peak_mem_bytes")},
+           "busy_share": _busy(profile, turns),
+           "graphs": _graph_report(eng, warm, turns),
+           "kv_cache_bytes": eng.kv_cache_bytes(),
+           "stats": dataclasses.asdict(eng.stats),
+           "launches": graphed["launches"], "turns": turns,
+           "profile": profile}
+    return out, streams
 
 
 def phase_b(torch):
@@ -699,42 +816,11 @@ def phase_b(torch):
                       device="cuda").init_slots(8, page_size=16)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    # warm-up serve (cuBLAS handles, allocator pools), not measured
-    wreqs, wprompts = _requests(3, (40, 200), (4, 8), cfg.vocab_size, 99)
-    _serve(eng, wreqs, wprompts, chunk_tokens=128)
     reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    t0 = time.perf_counter()
-    streams, srv = _serve(eng, reqs, prompts, chunk_tokens=512)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _launch_counts()
-    n_tok = sum(len(s) for s in streams.values())
-    for r in reqs:
-        s = streams[r.rid]
-        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
-        assert all(0 <= t < cfg.vocab_size for t in s), r.rid
+    out, streams = _serve_phase(torch, "b", eng, reqs, prompts, PAGED_PATH)
     st = eng.stats
     assert st.incr_chunks > 0 and st.packed_prefills > st.incr_chunks
-    _check_launches(launches, PAGED_PATH, "b")
-    p50, p99 = _walls(srv)
-    again, profile = _profile(
-        torch, lambda: _serve(eng, reqs, prompts, chunk_tokens=512)[0])
-    assert again == streams, "a repeated serve changed the streams"
-    out = {"phase": "b", "model": cfg.name, "dtype": "bfloat16",
-           "layers": cfg.num_layers, "params": cfg.param_count(),
-           "requests": len(reqs), "prompt_tokens": sum(
-               r.prompt_len for r in reqs),
-           "tokens_served": n_tok, "ticks": srv.ticks,
-           "dispatches": srv.dispatches, "wall_s": wall,
-           "tokens_per_s": n_tok / wall,
-           "tick_ms_p50": p50, "tick_ms_p99": p99,
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "kv_cache_bytes": eng.kv_cache_bytes(), "setup_s": setup_s,
-           "stats": dataclasses.asdict(st), "launches": launches,
-           "profile": profile}
+    out["setup_s"] = setup_s
     _emit(out)
     del eng
     torch.cuda.empty_cache()
@@ -742,12 +828,14 @@ def phase_b(torch):
 
 
 def _profile(torch, run, top: int = 12):
-    """Run ``run`` once more under ``torch.profiler``. Returns its result
-    and the device time by kernel (the largest ``top``), the total, and
-    the device's busy share of the wall time."""
+    """Run ``run`` once more under ``torch.profiler`` (device activity
+    only: the host's is not read, and recording it doubles the time the
+    trace takes to read back). Returns its result and the device time by
+    kernel (the largest ``top``), the total, and the device's busy share
+    of the profiled run's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
@@ -769,6 +857,7 @@ def _profile(torch, run, top: int = 12):
                 sym["count"] += e.count
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
+    _log(f"profiled in {time.perf_counter() - t1:.1f} s")
     return out, {"wall_ms": 1e3 * wall, "device_ms": device_ms,
                  "device_busy_share": device_ms / (1e3 * wall),
                  "top": [{"kernel": k, "ms": ms, "count": n}
@@ -779,6 +868,37 @@ def _profile(torch, run, top: int = 12):
 # --------------------------------------------------------------------------
 # phase (d): batch generate; phase (e): ring serve
 # --------------------------------------------------------------------------
+def _generate_turns(torch, eng, tokens, ran, phase, profile=False):
+    """Batch ``generate`` of ``tokens`` with 64 new tokens each, in turns
+    (``_turns``), and the padded prefill alone once more for the split of
+    the wall time. Returns the run's report."""
+    def run():
+        return eng.generate({"tokens": tokens}, 64).cpu().tolist(), None
+
+    b, s = tokens.shape
+    out, warm, turns = _turns(torch, eng, run, b * 64, ran, phase)
+    assert np.shape(out) == (b, 64), np.shape(out)
+    assert all(0 <= t < eng.cfg.vocab_size for row in out for t in row)
+    t1 = time.perf_counter()
+    eng.prefill({"tokens": tokens}, eng.bucket_len(s + 64))
+    torch.cuda.synchronize()
+    row = {"model": eng.cfg.name, "batch": b, "prompt_len": s,
+           "new_tokens": 64, "prefill_s": time.perf_counter() - t1,
+           "cache_len": eng.bucket_len(s + 64),
+           **{k: _by_mode(turns, k) for k in (
+               "wall_s", "tokens_per_s", "peak_mem_bytes")},
+           "graphs": _graph_report(eng, warm, turns),
+           "launches": next(t for t in turns
+                            if t["mode"] == "graphed")["launches"],
+           "turns": turns}
+    if profile:
+        row["profile"] = _profiles(torch, eng, lambda: run()[0], out)
+        row["busy_share"] = _busy(row["profile"], turns)
+    _log(json.dumps({f"{phase}/generate": {
+        k: v for k, v in row.items() if k not in ("turns", "profile")}}))
+    return row
+
+
 def phase_d(torch):
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import make_engine
@@ -789,48 +909,20 @@ def phase_d(torch):
         cfg = get_config(name)
         eng = make_engine(cfg, seed=0, cache_len=256, dtype=torch.bfloat16,
                           device="cuda")
-        warm = rng.integers(1, cfg.vocab_size, (8, 64)).astype(np.int32)
-        eng.generate({"tokens": warm}, 8)            # not measured
         for s in prompt_lens:
             tokens = rng.integers(1, cfg.vocab_size, (8, s)).astype(np.int32)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            eng.reset_stats()
-            _reset_launch_counts()
-            t0 = time.perf_counter()
-            out = eng.generate({"tokens": tokens}, 64)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = _launch_counts()
-            peak = torch.cuda.max_memory_allocated()
-            _check_launches(launches, GENERATE_PATH, "d")
-            assert tuple(out.shape) == (8, 64), out.shape
-            assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+            row = _generate_turns(torch, eng, tokens, GENERATE_PATH, "d",
+                                  profile=(name, s) == ("olmo-1b", 2000))
             for n in KERNEL_NAMES:
-                total[n] += launches[n]
-            # the prefill alone, once more, for the split of the wall time
-            t1 = time.perf_counter()
-            eng.prefill({"tokens": tokens}, eng.bucket_len(s + 64))
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t1
-            row = {"model": name, "batch": 8, "prompt_len": s,
-                   "new_tokens": 64, "wall_s": wall,
-                   "tokens_per_s": 8 * 64 / wall, "prefill_s": prefill_s,
-                   "cache_len": eng.bucket_len(s + 64),
-                   "peak_mem_bytes": peak, "launches": launches,
-                   "stats": dataclasses.asdict(eng.stats)}
-            if (name, s) == ("olmo-1b", 2000):
-                again, row["profile"] = _profile(
-                    torch, lambda: eng.generate({"tokens": tokens}, 64))
-                row["profile"]["repeat_identical"] = bool(
-                    torch.equal(again, out))
+                total[n] += row["launches"][n]
             rows.append(row)
-            _log(json.dumps(row))
         del eng
         torch.cuda.empty_cache()
     out = {"phase": "d", "runs": [
         {k: r[k] for k in ("model", "prompt_len", "wall_s", "tokens_per_s",
-                           "prefill_s", "peak_mem_bytes")} for r in rows],
+                           "prefill_s", "peak_mem_bytes", "graphs")}
+        for r in rows],
+        "busy_share": next(r["busy_share"] for r in rows if "profile" in r),
         "profile": next(r["profile"] for r in rows if "profile" in r),
         "launches": total}
     _emit(out)
@@ -845,41 +937,14 @@ def phase_e(torch, paged_streams=None):
                       device="cuda").init_slots(8, cache_len=1024,
                                                 paged=False)
     assert not eng.paged
-    wreqs, wprompts = _requests(3, (40, 200), (4, 8), cfg.vocab_size, 99)
-    _serve(eng, wreqs, wprompts, chunk_tokens=128)   # warm-up
     reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    t0 = time.perf_counter()
-    streams, srv = _serve(eng, reqs, prompts, chunk_tokens=512)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _launch_counts()
-    _check_launches(launches, RING_PATH, "e")
-    n_tok = sum(len(s) for s in streams.values())
-    for r in reqs:
-        s = streams[r.rid]
-        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
-        assert all(0 <= t < cfg.vocab_size for t in s), r.rid
+    out, streams = _serve_phase(torch, "e", eng, reqs, prompts, RING_PATH)
     st = eng.stats
     assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
-    p50, p99 = _walls(srv)
-    again, profile = _profile(
-        torch, lambda: _serve(eng, reqs, prompts, chunk_tokens=512)[0])
-    assert again == streams, "a repeated serve changed the streams"
-    same = (None if paged_streams is None else
-            sum(streams[r] == paged_streams[r] for r in streams))
-    out = {"phase": "e", "model": cfg.name, "dtype": "bfloat16",
-           "slots": "8 ring x 1024", "requests": len(reqs),
-           "tokens_served": n_tok, "ticks": srv.ticks,
-           "dispatches": srv.dispatches, "wall_s": wall,
-           "tokens_per_s": n_tok / wall,
-           "tick_ms_p50": p50, "tick_ms_p99": p99,
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "kv_cache_bytes": eng.kv_cache_bytes(),
-           "streams_equal_to_paged": same, "stats": dataclasses.asdict(st),
-           "launches": launches, "profile": profile}
+    out["slots"] = "8 ring x 1024"
+    out["streams_equal_to_paged"] = (
+        None if paged_streams is None else
+        sum(streams[r] == paged_streams[r] for r in streams))
     _emit(out)
     del eng
     torch.cuda.empty_cache()
@@ -896,7 +961,8 @@ def phase_f(torch):
     packed admissions and prefix-recompute continuations both run; (ii)
     batch ``generate`` of 8 prompts of 512 and of 2000 tokens, 64 new
     tokens each. Every prefill dispatch scans each of the 48 layers
-    through the kernel: launches = 48 x prefill dispatches."""
+    through the kernel: launches = 48 x prefill dispatches. Each runs in
+    turns, graphed and eager."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import make_engine
     cfg = get_config("mamba2-1.3b")
@@ -906,82 +972,38 @@ def phase_f(torch):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     assert not eng.paged
-    wreqs, wprompts = _requests(3, (40, 200), (4, 8), cfg.vocab_size, 99,
-                                cfg.name)
-    _serve(eng, wreqs, wprompts, chunk_tokens=128)   # warm-up
     reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0,
                               cfg.name)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    t0 = time.perf_counter()
-    streams, srv = _serve(eng, reqs, prompts, chunk_tokens=512)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _launch_counts()
-    _check_launches(launches, SSM_PATH, "f/serve")
+    serve, _ = _serve_phase(torch, "f", eng, reqs, prompts, SSM_PATH)
     st = eng.stats
-    assert launches["ssd_scan"] == cfg.num_layers * st.prefills, \
-        (launches, st)
+    assert serve["launches"]["ssd_scan"] == cfg.num_layers * st.prefills, \
+        (serve["launches"], st)
     assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
-    n_tok = sum(len(s) for s in streams.values())
-    for r in reqs:
-        s = streams[r.rid]
-        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
-        assert all(0 <= t < cfg.vocab_size for t in s), r.rid
-    p50, p99 = _walls(srv)
-    serve = {"requests": len(reqs), "prompt_tokens": sum(
-        r.prompt_len for r in reqs), "tokens_served": n_tok,
-        "ticks": srv.ticks, "dispatches": srv.dispatches, "wall_s": wall,
-        "tokens_per_s": n_tok / wall, "tick_ms_p50": p50,
-        "tick_ms_p99": p99,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "state_bytes": eng.kv_cache_bytes(), "setup_s": setup_s,
-        "stats": dataclasses.asdict(st), "launches": launches}
-    _log(json.dumps({"f/serve": serve}))
-    total = dict(launches)
+    serve["setup_s"] = setup_s
+    serve["state_bytes"] = serve.pop("kv_cache_bytes")
+    _log(json.dumps({"f/serve": {k: v for k, v in serve.items()
+                                 if k not in ("turns", "profile")}}))
+    total = dict(serve["launches"])
     runs = []
     rng = np.random.default_rng(5)
     for s in (512, 2000):
         tokens = rng.integers(1, cfg.vocab_size, (8, s)).astype(np.int32)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        eng.reset_stats()
-        _reset_launch_counts()
-        t0 = time.perf_counter()
-        out = eng.generate({"tokens": tokens}, 64)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _launch_counts()
-        _check_launches(launches, SSM_PATH, "f/generate")
-        assert launches["ssd_scan"] == cfg.num_layers, launches
-        assert tuple(out.shape) == (8, 64), out.shape
-        assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+        row = _generate_turns(torch, eng, tokens, SSM_PATH, "f",
+                              profile=s == 2000)
+        assert all(t["launches"]["ssd_scan"] == cfg.num_layers
+                   for t in row["turns"]), row["turns"]
         for name in KERNEL_NAMES:
-            total[name] += launches[name]
-        t1 = time.perf_counter()
-        eng.prefill({"tokens": tokens})
-        torch.cuda.synchronize()
-        row = {"batch": 8, "prompt_len": s, "new_tokens": 64,
-               "wall_s": wall, "tokens_per_s": 8 * 64 / wall,
-               "prefill_s": time.perf_counter() - t1,
-               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-               "launches": launches}
-        if s == 2000:
-            again, row["profile"] = _profile(
-                torch, lambda: eng.generate({"tokens": tokens}, 64))
-            row["profile"]["repeat_identical"] = bool(torch.equal(again,
-                                                                  out))
+            total[name] += row["launches"][name]
         runs.append(row)
-        _log(json.dumps(row))
     out = {"phase": "f", "model": cfg.name, "dtype": "bfloat16",
            "layers": cfg.num_layers, "params": cfg.param_count(),
            "serve": {k: serve[k] for k in (
-               "tokens_served", "ticks", "wall_s", "tokens_per_s",
-               "tick_ms_p50", "tick_ms_p99", "peak_mem_bytes")},
+               "tokens_served", "ticks", "tokens_per_s", "tick_ms_p50",
+               "tick_ms_p99", "peak_mem_bytes", "busy_share", "graphs")},
            "generate": [{k: r[k] for k in (
                "prompt_len", "wall_s", "tokens_per_s", "prefill_s",
-               "peak_mem_bytes")} for r in runs],
+               "peak_mem_bytes", "graphs")} for r in runs],
+           "busy_share": runs[-1]["busy_share"],
            "profile": runs[-1]["profile"], "launches": total}
     _emit(out)
     del eng
@@ -1190,21 +1212,30 @@ def main(argv=None) -> int:
     report = {"build_s": build_s, "sass_hgmma": hgmma}
     summary, paged_streams = {}, None
     main_launches = {n: 0 for n in KERNEL_NAMES}
+    report["phase_s"] = seconds = {}
+
+    def timed(phase, fn, *a):
+        t = time.perf_counter()
+        out = fn(torch, *a)
+        seconds[phase] = time.perf_counter() - t
+        _log(f"phase {phase} took {seconds[phase]:.1f} s")
+        return out
+
     if "a" in args.phases:
-        report["a"], summary = phase_a(torch)
+        report["a"], summary = timed("a", phase_a)
     if "b" in args.phases:
-        report["b"], paged_streams = phase_b(torch)
+        report["b"], paged_streams = timed("b", phase_b)
     if "d" in args.phases:
-        report["d"] = phase_d(torch)
+        report["d"] = timed("d", phase_d)
     if "e" in args.phases:
-        report["e"] = phase_e(torch, paged_streams)
+        report["e"] = timed("e", phase_e, paged_streams)
     if "f" in args.phases:
-        report["f"] = phase_f(torch)
+        report["f"] = timed("f", phase_f)
     for phase in "bdef":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
-        report["c"] = phase_c(torch)
+        report["c"] = timed("c", phase_c)
     if summary:
         if all(p in args.phases for p in "bdef"):
             assert all(main_launches.values()), main_launches

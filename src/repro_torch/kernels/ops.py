@@ -4,14 +4,50 @@ A tensor on a CUDA device goes to the hand-written kernel (which raises on
 what it does not take); a tensor on the CPU goes to the kernel's plain
 PyTorch version. There is no fallback from one to the other: a CUDA tensor
 never reaches a plain version here.
+
+Each wrapper counts its kernel's launches in a module global;
+``launch_counts`` reads them all, by kernel name, and ``add_launches``
+moves them (a captured CUDA graph takes back what its capture counted and
+adds it again at each replay: ``repro_torch.serving.graphs``).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 from repro_torch.kernels import chunk_attention as _chunk
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+# kernel name -> (module, attribute) of its launch count
+_COUNTERS = {
+    "paged_decode_attention": (_paged, "launches"),
+    "segment_flash_attention": (_flash, "segment_launches"),
+    "paged_chunk_attention": (_chunk, "launches"),
+    "decode_attention": (_decode, "launches"),
+    "flash_attention": (_flash, "flash_launches"),
+    "ssd_scan": (_ssd, "launches"),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launches so far, by kernel name."""
+    return {n: getattr(m, a) for n, (m, a) in _COUNTERS.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by kernel name; negative takes back) to the
+    kernels' launch counts."""
+    for n, k in counts.items():
+        m, a = _COUNTERS[n]
+        setattr(m, a, getattr(m, a) + k)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    add_launches({n: -k for n, k in launch_counts().items()})
 
 
 def _route(t) -> str:

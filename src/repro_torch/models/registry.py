@@ -7,6 +7,9 @@ on architecture:
   prefill_packed(params, packed, row_len)        -> (seg_logits, packed cache)
   prefill_chunk(params, packed, cache, row_len)  -> (seg_logits, argmax, cache)
   decode_step(params, token (B,), cache)         -> (logits (B, V), cache)
+  prepare(params)                                -> params (what an engine
+                                                    keeps: derived weights
+                                                    made once)
 
 ``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device. Two
 families are ported so far: the dense family (no experts), over ring
@@ -46,6 +49,9 @@ class ModelAPI:
     # incremental chunk attention over K/V resident in the page pool
     # (chunked-prefill continuations)
     prefill_chunk: Optional[Callable] = None
+    # the parameters an engine keeps: the family's derived weights made
+    # once per parameter set (Mamba2), or the parameters as given
+    prepare: Callable = lambda params: params
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
@@ -66,6 +72,10 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         return mod.init_cache(cfg, batch, cache_len, dtype, device=dev)
 
     init_paged = prefill_chunk = None
+    prepare = ModelAPI.prepare
+    if hasattr(mod, "prepare_params"):
+        def prepare(params):
+            return mod.prepare_params(params, cfg)
     if mod.PAGED_KEYS:
         def init_paged(batch, num_pages, page_size, max_pages, dtype=None):
             return mod.init_paged_cache(cfg, batch, num_pages, page_size,
@@ -91,4 +101,5 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         paged_keys=tuple(mod.PAGED_KEYS),
         init_paged_cache=init_paged,
         prefill_chunk=prefill_chunk,
+        prepare=prepare,
     )

@@ -12,7 +12,11 @@ for tensors on the CPU. A decode step is the recurrent update
 
 Parameters are the JAX package's dictionary layout (every ``layers`` leaf
 stacked on a leading layer axis); layers run as a Python loop over that
-axis. The cache is per sequence and O(1) in its length: ``ssm`` (layers,
+axis. ``prepare_params`` adds ``layers["prep"]``: the weights a block
+derives from its parameters (float32 copies, ``A = -exp(A_log)``, the
+concatenated conv weight), made once per parameter set instead of at every
+step; a block without it derives them itself, by the same function, so
+the values are the same bit for bit. The cache is per sequence and O(1) in its length: ``ssm`` (layers,
 B, H, N, P) float32, ``conv`` (layers, B, W-1, d_inner + 2N) raw
 (pre-conv) inputs, ``pos`` (B,) int32 — nothing to page. Every entry
 point returns fresh cache tensors.
@@ -82,33 +86,53 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _proj_in(lp, xin):
+def _derive(lp, dtype) -> dict:
+    """The weights a block derives from its layer's parameters ``lp``:
+    float32 ``wdt``, ``dt_bias`` and gate-norm scale, ``a`` =
+    -exp(A_log), and the conv weight (W, di + 2N) in ``dtype``."""
+    return {"wdt": lp["wdt"].float(), "dt_bias": lp["dt_bias"].float(),
+            "a": -torch.exp(lp["A_log"].float()),
+            "gate_scale": lp["gate_norm"]["scale"].float(),
+            "conv_w": torch.cat([lp["conv_x"], lp["conv_B"], lp["conv_C"]],
+                                dim=-1).to(dtype)}
+
+
+def prepare_params(params, cfg):
+    """``params`` with ``layers["prep"]`` (re)derived from its leaves on
+    their device, in the config's activation type: what the blocks would
+    otherwise derive at every call. Derived layer by layer, at the shapes
+    a block derives them (a CPU ``exp`` may round a vector's tail apart
+    from its body), then stacked."""
+    layers = {k: v for k, v in params["layers"].items() if k != "prep"}
+    per = [_derive(L.layer_params(layers, i), dtype_of(cfg.dtype))
+           for i in range(cfg.num_layers)]
+    layers["prep"] = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    return dict(params, layers=layers)
+
+
+def _prep(lp, dtype) -> dict:
+    """The layer's derived weights: prepared, or derived now."""
+    return lp["prep"] if "prep" in lp else _derive(lp, dtype)
+
+
+def _proj_in(lp, prep, xin):
     z = xin @ lp["wz"].to(xin.dtype)
     xr = xin @ lp["wx"].to(xin.dtype)
     bc = xin @ lp["wB"].to(xin.dtype)
     cc = xin @ lp["wC"].to(xin.dtype)
-    dt = _softplus(xin.float() @ lp["wdt"].float() + lp["dt_bias"].float())
+    dt = _softplus(xin.float() @ prep["wdt"] + prep["dt_bias"])
     return z, xr, bc, cc, dt
 
 
-def _gate_out(lp, y, z, dtype):
+def _gate_out(lp, prep, y, z, dtype):
     g = y.float() * F.silu(z.float())
     g = g * torch.rsqrt((g * g).mean(-1, keepdim=True) + 1e-5)
-    g = (g * lp["gate_norm"]["scale"].float()).to(dtype)
+    g = (g * prep["gate_scale"]).to(dtype)
     return g @ lp["wo"].to(dtype)
-
-
-def _conv_weight(lp, dtype):
-    return torch.cat([lp["conv_x"], lp["conv_B"], lp["conv_C"]],
-                     dim=-1).to(dtype)
 
 
 def _silu_as(x, dtype):
     return F.silu(x.float()).to(dtype)
-
-
-def _a(lp):
-    return -torch.exp(lp["A_log"].float())
 
 
 def mamba_block(lp, cfg, h) -> Tuple[torch.Tensor, Tuple]:
@@ -117,8 +141,9 @@ def mamba_block(lp, cfg, h) -> Tuple[torch.Tensor, Tuple]:
     b, s, _ = h.shape
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     w = cfg.ssm_conv_width
+    prep = _prep(lp, h.dtype)
     xin = L.apply_norm(lp["norm"], h, cfg.norm)
-    z, xr, bc, cc, dt = _proj_in(lp, xin)
+    z, xr, bc, cc, dt = _proj_in(lp, prep, xin)
 
     xbc = torch.cat([xr, bc, cc], dim=-1)                  # (B, S, di+2N)
     if s < w - 1:                                          # tiny sequence
@@ -127,14 +152,14 @@ def mamba_block(lp, cfg, h) -> Tuple[torch.Tensor, Tuple]:
         # a copy: a view would keep the whole (B, S, di+2N) input alive
         # until every layer's tail is stacked
         conv_tail = xbc[:, s - (w - 1):, :].clone()
-    xbc = _silu_as(_causal_conv(xbc, _conv_weight(lp, h.dtype)), h.dtype)
+    xbc = _silu_as(_causal_conv(xbc, prep["conv_w"]), h.dtype)
     xr, bc, cc = torch.split(xbc, [di, n, n], dim=-1)
 
     x4 = xr.reshape(b, s, nh, p).contiguous()
-    y, state = ops.ssd(x4, dt, _a(lp), bc.contiguous(), cc.contiguous(),
+    y, state = ops.ssd(x4, dt, prep["a"], bc.contiguous(), cc.contiguous(),
                        chunk=cfg.ssm_chunk)
     y = y + x4 * lp["D"].to(y.dtype)[None, None, :, None]
-    out = _gate_out(lp, y.reshape(b, s, di), z, h.dtype)
+    out = _gate_out(lp, prep, y.reshape(b, s, di), z, h.dtype)
     return h + out, (state, conv_tail)
 
 
@@ -144,19 +169,20 @@ def mamba_block_decode(lp, cfg, h, ssm_state, conv_buf
     conv_buf (B, W-1, di + 2N) raw (pre-conv) inputs."""
     b, _ = h.shape
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    prep = _prep(lp, h.dtype)
     xin = L.apply_norm(lp["norm"], h, cfg.norm)
-    z, xr, bc, cc, dt = _proj_in(lp, xin)
+    z, xr, bc, cc, dt = _proj_in(lp, prep, xin)
 
     xbc_new = torch.cat([xr, bc, cc], dim=-1)              # (B, di+2N)
     window = torch.cat([conv_buf, xbc_new[:, None, :]], dim=1)
-    conv_out = (window * _conv_weight(lp, h.dtype)[None]).sum(dim=1)
+    conv_out = (window * prep["conv_w"][None]).sum(dim=1)
     xbc = _silu_as(conv_out, h.dtype)
     xr, bc, cc = torch.split(xbc, [di, n, n], dim=-1)
 
     x4 = xr.reshape(b, nh, p)
-    y, state = ops.ssd_decode(x4, dt, _a(lp), bc, cc, ssm_state)
+    y, state = ops.ssd_decode(x4, dt, prep["a"], bc, cc, ssm_state)
     y = y + x4 * lp["D"].to(y.dtype)[None, :, None]
-    out = _gate_out(lp, y.reshape(b, di), z, h.dtype)
+    out = _gate_out(lp, prep, y.reshape(b, di), z, h.dtype)
     return h + out, (state, window[:, 1:, :])
 
 
@@ -175,23 +201,23 @@ def mamba_block_packed(lp, cfg, h, seg_ids, pos, seg_starts, seg_lens,
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     w = cfg.ssm_conv_width
     s_max = seg_lens.shape[0]
+    prep = _prep(lp, h.dtype)
     xin = L.apply_norm(lp["norm"], h, cfg.norm)
-    z, xr, bc, cc, dt = _proj_in(lp, xin)                  # packed
+    z, xr, bc, cc, dt = _proj_in(lp, prep, xin)            # packed
 
     xbc = torch.cat([xr, bc, cc], dim=-1)                  # (1, T, di+2N)
     raw_rows = L.segments_to_rows(xbc[0], seg_starts, seg_lens, row_len)
-    mixed = _silu_as(_causal_conv(raw_rows, _conv_weight(lp, h.dtype)),
-                     h.dtype)
+    mixed = _silu_as(_causal_conv(raw_rows, prep["conv_w"]), h.dtype)
     xr_r, bc_r, cc_r = torch.split(mixed, [di, n, n], dim=-1)
     dt_rows = L.segments_to_rows(dt[0], seg_starts, seg_lens, row_len)
 
     x4 = xr_r.reshape(s_max, row_len, nh, p).contiguous()
-    y_r, states = ops.ssd(x4, dt_rows, _a(lp), bc_r.contiguous(),
+    y_r, states = ops.ssd(x4, dt_rows, prep["a"], bc_r.contiguous(),
                           cc_r.contiguous(), chunk=cfg.ssm_chunk)
     y_r = y_r + x4 * lp["D"].to(y_r.dtype)[None, None, :, None]
     y = L.rows_to_segments(y_r.reshape(s_max, row_len, di), seg_ids,
                            pos)[None]
-    out = _gate_out(lp, y, z, h.dtype)
+    out = _gate_out(lp, prep, y, z, h.dtype)
 
     # conv tail: each segment's last W-1 raw inputs, left-padded with
     # zeros for segments shorter than the window

@@ -24,15 +24,27 @@ with the same method names, the same page bookkeeping
 * ``execute(plan)`` runs one ``StepPlan`` in at most these three
   dispatches per tick.
 
-What differs from the JAX engine: PyTorch runs eagerly, so there are no
-per-bucket executables to compile or count; the caches and the block
-table are updated IN PLACE on the device (the JAX engine donates and
-rebuilds them); and the packed metadata (segment ids, lengths,
-destinations, table rows) is built on the host in numpy and uploaded
-once per dispatch as one int32 buffer — nothing on the serving path reads
-a device value back except the one tick-end read of the decoded tokens.
-Sampled decoding, the prefix cache, speculative decoding and telemetry
-are not ported yet: those attributes stay ``None``.
+What differs from the JAX engine: the executables are CUDA graphs.
+``repro_torch.serving.graphs`` keeps one per bucket, keyed as the JAX
+engine keys its jitted functions, and ``jit_cache_sizes`` counts them: on
+a CUDA device ``packed_prefill`` (which folds in the packed-segment
+scatter the JAX engine jits apart as ``write_segments``),
+``chunk_prefill`` and ``slot_step`` are captured at a bucket's first
+dispatch and replayed at every later one, and so is ``generate``'s decode
+step, once per token. ``prefill``, ``insert``, ``generate``'s padded
+prefill and ``generate_eager`` stay eager (the reference paths, as in
+JAX); on the CPU, or with ``graphs=False``, every step runs eagerly
+through the same registry. A graph reads and writes fixed addresses, so
+every tensor that outlives a dispatch — each slot-cache leaf, the block
+table, ``_last_tok`` — is allocated once by ``init_slots`` and updated IN
+PLACE (the JAX engine donates and rebuilds them); ``init_slots`` drops
+the slot executables with the buffers they bind. The packed metadata
+(segment ids, lengths, destinations, table rows) is built on the host in
+numpy and reaches the device as one int32 copy per dispatch — nothing on
+the serving path reads a device value back except the one tick-end read
+of the decoded tokens. Sampled decoding, the prefix cache, speculative
+decoding and telemetry are not ported yet: those attributes stay
+``None``.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import torch
 
 from repro_torch.models.registry import ModelAPI, build_model
 from repro_torch.serving.faults import EngineFault, TransientFault
+from repro_torch.serving.graphs import SLOT_KINDS, StepGraphs
 from repro_torch.serving.kv_cache import NULL_PAGE, OutOfPages, PagedKVCache
 from repro_torch.serving.plan import StepResult
 
@@ -87,24 +100,17 @@ class EngineStats:
     rollbacks: int = 0
 
 
-def _upload(device, **arrays) -> Dict[str, torch.Tensor]:
-    """Upload host int32 arrays in ONE copy and return device views of
-    the same names and shapes."""
-    flat = [np.ascontiguousarray(a, np.int32).reshape(-1)
-            for a in arrays.values()]
-    buf = torch.from_numpy(np.concatenate(flat)).to(device)
-    out, off = {}, 0
-    for (name, a), f in zip(arrays.items(), flat):
-        out[name] = buf[off:off + f.size].view(np.shape(a))
-        off += f.size
-    return out
-
-
 class InferenceEngine:
-    def __init__(self, api: ModelAPI, params, *, cache_len: int = 256):
+    def __init__(self, api: ModelAPI, params, *, cache_len: int = 256,
+                 graphs: bool = True):
         self.api = api
         self.cfg = api.cfg
         self.device = api.device
+        # the step executables (CUDA graphs on a CUDA device with
+        # ``graphs`` on; eager entries under the same keys otherwise)
+        self._graphs = StepGraphs(api.device, graphs)
+        # generate's fixed buffers per (B, cache length) executable
+        self._gen_state: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self.params = params
         self.cache_len = cache_len
         self.stats = EngineStats()
@@ -136,6 +142,45 @@ class InferenceEngine:
         self._ring_keys: Tuple[str, ...] = ()
 
     # ------------------------------------------------------------------
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        """The weights, prepared once (``ModelAPI.prepare``: the derived
+        weights a step would otherwise make at every call) and bound by
+        every captured step — new weights drop the captures."""
+        self._params = self.api.prepare(params)
+        self._graphs.clear()
+
+    @property
+    def graphs(self) -> bool:
+        """Whether steps replay CUDA graphs (on a CUDA device; the CPU
+        always runs eagerly). Off, the same engine runs every step
+        eagerly through the same registry — the comparison the chip smoke
+        and the gpu tests make; the captures already made are kept."""
+        return self._graphs.graphs
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        self._graphs.graphs = bool(on)
+
+    def jit_cache_sizes(self) -> Dict[str, int]:
+        """Executables by the JAX engine's names, for the no-recompile
+        invariant (a serve, a fault and its ``recover`` add none):
+        captured CUDA graphs on a CUDA device, registry entries on the
+        CPU. ``packed_prefill`` and ``chunk_prefill`` fold in the
+        packed-segment scatter that the JAX engine counts apart as
+        ``write_segments``; ``prefill``, ``insert`` and ``generate_eager``
+        stay eager and have no executables."""
+        return self._graphs.sizes()
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by the one memory pool of the engine's
+        captures (0 on the CPU and before the first capture)."""
+        return self._graphs.pool_bytes()
+
     def _tokens(self, batch) -> torch.Tensor:
         """``batch["tokens"]`` (numpy or tensor) as an int32 tensor on the
         engine's device."""
@@ -171,9 +216,10 @@ class InferenceEngine:
 
     def generate(self, batch: Dict[str, Any], max_new_tokens: int,
                  sampling=None) -> torch.Tensor:
-        """Greedy generation for a padded batch: one prefill into a cache
-        of ``bucket_len(S + t_bucket)`` rows, then ``t_bucket`` decode
-        steps (the JAX engine's scan length: the next power of two of
+        """Greedy generation for a padded batch: one eager prefill into a
+        cache of ``bucket_len(S + t_bucket)`` rows, then ``t_bucket``
+        dispatches of the ``generate`` step executable of (B, cache
+        length) (the JAX engine's scan length: the next power of two of
         ``max_new_tokens``) whose surplus tokens are dropped. Returns
         (B, max_new_tokens) token ids on the device."""
         if sampling is not None:
@@ -181,17 +227,45 @@ class InferenceEngine:
         tokens = self._tokens(batch)
         b, s = tokens.shape
         t_bucket = max(1, _pow2_at_least(max_new_tokens))
-        logits, cache = self.prefill({"tokens": tokens},
-                                     self.bucket_len(s + t_bucket))
-        tok = torch.argmax(logits, -1)
-        out = torch.empty((b, t_bucket), dtype=tok.dtype, device=self.device)
-        for i in range(t_bucket):
-            out[:, i] = tok
-            logits, cache = self.api.decode_step(self.params, tok, cache)
-            tok = torch.argmax(logits, -1)
+        clen = self.bucket_len(s + t_bucket)
+        logits, cache = self.prefill({"tokens": tokens}, clen)
+        key = (int(b), clen)
+        state = self._gen_state.get(key)
+        if state is None:
+            state = self._gen_state[key] = {
+                "cache": self.api.init_cache(b, clen),
+                "tok": torch.zeros((b,), dtype=torch.int64,
+                                   device=self.device),
+                "out": torch.zeros((b, clen), dtype=torch.int64,
+                                   device=self.device),
+                "i": torch.zeros((1,), dtype=torch.int64,
+                                 device=self.device)}
+        step = self._graphs.entry(
+            "generate", key, lambda _: self._generate_body(state), {})
+        for name, leaf in state["cache"].items():
+            leaf.copy_(cache[name])
+        state["tok"].copy_(torch.argmax(logits, -1))
+        state["i"].zero_()
+        del logits, cache
+        for _ in range(t_bucket):
+            step.run({})
         self.stats.decode_steps += t_bucket
         self.stats.tokens_out += b * max_new_tokens
-        return out[:, :max_new_tokens]
+        return state["out"][:, :max_new_tokens].clone()
+
+    def _generate_body(self, state):
+        """One decode step of ``generate`` on its fixed buffers: record
+        the pending token at column ``i``, step the cache in place, and
+        leave the next token pending."""
+        tok, cache = state["tok"], state["cache"]
+        state["out"].index_copy_(1, state["i"], tok[:, None])
+        logits, new = self.api.decode_step(self.params, tok, cache)
+        for name, leaf in cache.items():
+            if new[name] is not leaf:
+                leaf.copy_(new[name])
+        tok.copy_(torch.argmax(logits, -1))
+        state["i"].add_(1)
+        return logits
 
     def generate_eager(self, batch: Dict[str, Any],
                        max_new_tokens: int) -> torch.Tensor:
@@ -282,6 +356,8 @@ class InferenceEngine:
         self._active_mask = np.zeros((n_slots,), bool)
         self._last_tok = torch.zeros((n_slots,), dtype=torch.int64,
                                      device=self.device)
+        # the slot executables bind the buffers just replaced
+        self._graphs.clear(SLOT_KINDS)
         return self
 
     # ------------------------------------------------ admission accounting
@@ -435,13 +511,8 @@ class InferenceEngine:
                 raise
         del self._slot_free[:n]
 
-        packed = self._pack_prompts(batches, lens)
-        dest = self._segment_dest(slots, lens)
-        dev = _upload(self.device, **packed, **dest)
-        row_len = min(self.slot_len, _pow2_at_least(max(lens)))
-        logits, pcache = self._prefill_packed(dev, row_len, sum(lens))
-        _write_segments(self._slot_cache, self._last_tok, pcache, logits,
-                        dev, n, sum(lens), self.api.paged_keys)
+        self._prefill_packed(self._pack_prompts(batches, lens),
+                             self._segment_dest(slots, lens), lens)
         for slot, s, budget in zip(slots, lens, budgets):
             self._slot_active[slot] = True
             self._slot_budget[slot] = budget
@@ -451,14 +522,43 @@ class InferenceEngine:
         self.stats.inserts += n
         return slots
 
-    def _prefill_packed(self, dev, row_len: int, n_tokens: int):
-        """One packed prefill dispatch over the uploaded ``dev`` leaves,
-        charged as the JAX engine's ``prefill_packed`` charges it."""
-        logits, pcache = self.api.prefill_packed(self.params, dev, row_len)
+    def _prefill_packed(self, packed, dest, lens: List[int]):
+        """One ``packed_prefill`` dispatch of whole prompts of ``lens``
+        tokens and their scatter into the slots, charged as the JAX
+        engine's ``prefill_packed`` charges it."""
+        self._segment_step("packed_prefill", packed, dest, lens)
         self.stats.prefills += 1
         self.stats.packed_prefills += 1
-        self.stats.prefill_tokens += n_tokens
-        return logits, pcache
+        self.stats.prefill_tokens += sum(lens)
+
+    def _segment_step(self, kind: str, packed, dest, lens: List[int]):
+        """Dispatch the ``kind`` executable (``packed_prefill`` or
+        ``chunk_prefill``) of the key ``(T, row_len, S)`` — the JAX
+        engine's — on the host arrays of one packed batch of segments of
+        ``lens`` new tokens; the segment and token counts ride along so
+        the fixed-shape scatter can tell padding from real lanes."""
+        row_len = min(self.slot_len, _pow2_at_least(max(lens)))
+        arrays = dict(packed, **dest, counts=np.asarray(
+            [len(lens), sum(lens)], np.int32))
+        key = (arrays["tokens"].shape[1], row_len,
+               arrays["seg_starts"].shape[0])
+        self._graphs.entry(
+            kind, key, lambda dev: self._segment_body(kind, dev, row_len),
+            arrays).run(arrays)
+
+    def _segment_body(self, kind: str, dev, row_len: int):
+        """The packed prefill, or the incremental chunk over the resident
+        pages, and its scatter, on the step's buffers."""
+        if kind == "packed_prefill":
+            logits, pcache = self.api.prefill_packed(self.params, dev,
+                                                     row_len)
+        else:
+            logits, _, pcache = self.api.prefill_chunk(
+                self.params, dev, self._slot_cache, row_len)
+        _write_segments(self._slot_cache, self._last_tok, pcache, logits,
+                        dev, dev["counts"][0], dev["counts"][1],
+                        self.api.paged_keys)
+        return logits
 
     def _segment_dest(self, slots: List[int], lens: List[int]):
         """Host destination indices of the packed-segment scatter of whole
@@ -634,15 +734,10 @@ class InferenceEngine:
         new_lens = [ln - off for ln, off in zip(lens, offs)]
         news = [{"tokens": np.asarray(b["tokens"])[:, off:ln]}
                 for (_, b, _), off, ln in zip(chunks, offs, lens)]
-        packed = self._pack_chunks(news, new_lens, offs)
-        dest = self._segment_dest_at(slots, new_lens, offs)
-        dev = _upload(self.device, **packed, **dest)
-        row_len = min(self.slot_len, _pow2_at_least(max(new_lens)))
-        seg_logits, _, pcache = self.api.prefill_chunk(
-            self.params, dev, self._slot_cache, row_len)
-        _write_segments(self._slot_cache, self._last_tok, pcache,
-                        seg_logits, dev, len(slots), sum(new_lens),
-                        self.api.paged_keys)
+        self._segment_step("chunk_prefill",
+                           self._pack_chunks(news, new_lens, offs),
+                           self._segment_dest_at(slots, new_lens, offs),
+                           new_lens)
         for slot, ln in zip(slots, lens):
             self._slot_pos[slot] = ln
         self.stats.prefills += 1
@@ -655,13 +750,9 @@ class InferenceEngine:
                          lens: List[int]) -> None:
         """Prefix-recompute continuation: the full prefixes run the packed
         prefill admissions use and scatter onto their slots."""
-        packed = self._pack_prompts([b for _, b, _ in chunks], lens)
-        dest = self._segment_dest(slots, lens)
-        dev = _upload(self.device, **packed, **dest)
-        row_len = min(self.slot_len, _pow2_at_least(max(lens)))
-        logits, pcache = self._prefill_packed(dev, row_len, sum(lens))
-        _write_segments(self._slot_cache, self._last_tok, pcache, logits,
-                        dev, len(slots), sum(lens), self.api.paged_keys)
+        self._prefill_packed(
+            self._pack_prompts([b for _, b, _ in chunks], lens),
+            self._segment_dest(slots, lens), lens)
         for slot, ln in zip(slots, lens):
             self._slot_pos[slot] = ln
         self.stats.chunk_prefills += 1
@@ -787,10 +878,9 @@ class InferenceEngine:
             for s in slots:
                 mask[s] = self._slot_active[s]
             stepped = [s for s in slots if self._slot_active[s]]
-        mask_d = torch.from_numpy(mask).to(self.device)
-        self._last_tok, self._slot_cache = _slot_decode_step(
-            self.api, self._step_skip, self._ring_keys, self.params,
-            self._last_tok, self._slot_cache, mask_d)
+        arrays = {"mask": mask.astype(np.int32)}
+        self._graphs.entry("slot_step", None, self._step_body,
+                           arrays).run(arrays)
         for slot in stepped:
             self._slot_pos[slot] += 1
             self._slot_generated[slot] += 1
@@ -803,6 +893,12 @@ class InferenceEngine:
         self.stats.decode_steps += 1
         self.stats.tokens_out += len(stepped)
         return self._last_tok, done
+
+    def _step_body(self, dev):
+        """The masked slot step, in place on the slot state."""
+        return _slot_decode_step(self.api, self._step_skip, self._ring_keys,
+                                 self.params, self._last_tok,
+                                 self._slot_cache, dev["mask"] != 0)
 
     def kv_cache_bytes(self) -> int:
         """Device bytes held by the slot cache (all leaves, the block
@@ -827,29 +923,31 @@ class InferenceEngine:
         self.stats = EngineStats()
 
 
-def _merge_rows(new, old, mask, skip):
-    """Keep ``new`` per-row leaves only for rows in ``mask``; rows outside
-    it keep ``old``. Leaves in ``skip`` (page pools, the block table) are
-    page-indexed and pass through: masked-off rows' dead writes there
-    land at a not-yet-valid position or on the null page."""
-    out = {}
-    for key, nl in new.items():
+def _merge_rows(new, cache, mask, skip) -> None:
+    """Write ``new``'s per-row leaves into ``cache`` IN PLACE, only for
+    rows in ``mask``; rows outside it keep theirs. Leaves in ``skip``
+    (page pools, the block table, ring K/V) are page-indexed or written in
+    place by the step itself and are not touched: masked-off rows' dead
+    writes there land at a not-yet-valid position or on the null page (a
+    ring step restores them)."""
+    for key, leaf in cache.items():
         if key in skip:
-            out[key] = nl
             continue
-        axis = 0 if nl.dim() == 1 else 1
-        shape = [1] * nl.dim()
+        axis = 0 if leaf.dim() == 1 else 1
+        shape = [1] * leaf.dim()
         shape[axis] = mask.shape[0]
-        out[key] = torch.where(mask.reshape(shape), nl, old[key].to(nl.dtype))
-    return out
+        leaf.copy_(torch.where(mask.reshape(shape),
+                               new[key].to(leaf.dtype), leaf))
 
 
 def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask):
-    """One greedy decode step over every slot row; rows outside ``mask``
-    (vacant and mid-prefill slots) keep their position and pending token
-    and, on a ring, the cache entry the step overwrote in place (ring row
-    ``pos % C`` of each ``ring_keys`` leaf), so their rows stay
-    bit-identical as the JAX engine's merge keeps them."""
+    """One greedy decode step over every slot row, IN PLACE on ``tok``
+    and ``cache`` (a captured step reads and writes fixed addresses);
+    rows outside ``mask`` (vacant and mid-prefill slots) keep their
+    position and pending token and, on a ring, the cache entry the step
+    overwrote in place (ring row ``pos % C`` of each ``ring_keys`` leaf),
+    so their rows stay bit-identical as the JAX engine's merge keeps
+    them. Returns the step's logits."""
     held = {}
     if ring_keys:
         c = cache[ring_keys[0]].shape[2]
@@ -861,33 +959,46 @@ def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask):
         leaf = new[key]
         leaf[:, bidx, at] = torch.where(mask[None, :, None, None],
                                         leaf[:, bidx, at], old)
-    cache = _merge_rows(new, cache, mask, skip)
-    nxt = torch.argmax(logits, -1)
-    return torch.where(mask, nxt, tok), cache
+    _merge_rows(new, cache, mask, skip)
+    tok.copy_(torch.where(mask, torch.argmax(logits, -1), tok))
+    return logits
 
 
-def _write_segments(cache, last_tok, pcache, logits, dev, n_seg: int,
-                    n_tok: int, paged_keys):
-    """The packed-segment scatter, in place. The first ``n_tok`` tokens'
-    per-token leaves (the family's paged keys, packed (layers, T, ...)
-    order) land at their (page, offset) from ``dev["dest0"/"dest1"]`` —
-    padding tokens, whose targets are the never-read null page, are not
-    written; every other leaf is per segment — (S,) like ``pos``, or
-    stacked (layers, S, ...) like an SSM state — and the first ``n_seg``
-    segments write it at their slot ids, with the block-table rows and
-    the pending tokens (the segments' argmax)."""
-    slots = dev["seg_slots"][:n_seg].long()
-    dest0, dest1 = dev["dest0"][:n_tok].long(), dev["dest1"][:n_tok].long()
+def _lanes(n: int, count, device):
+    """Lanes 0..n-1 of a fixed-shape scatter whose first ``count`` (an
+    int or a 0-d device tensor) are real: a padding lane repeats the last
+    real one — the same value to the same place — so no lane needs
+    dropping and the shape never depends on the count."""
+    return torch.clamp(torch.arange(n, device=device), max=count - 1)
+
+
+def _write_segments(cache, last_tok, pcache, logits, dev, n_seg, n_tok,
+                    paged_keys):
+    """The packed-segment scatter, in place, over every lane of the
+    bucket: the first ``n_tok`` tokens' per-token leaves (the family's
+    paged keys, packed (layers, T, ...) order) land at their (page,
+    offset) from ``dev["dest0"/"dest1"]``; every other leaf is per
+    segment — (S,) like ``pos``, or stacked (layers, S, ...) like an SSM
+    state — and the first ``n_seg`` segments write it at their slot ids,
+    with the block-table rows and the pending tokens (the segments'
+    argmax). Padding lanes (tokens past ``n_tok``, whose targets are the
+    null page or past the ring, and segments past ``n_seg``, whose slot
+    is ``n_slots``) repeat the last real lane (``_lanes``), so what lands
+    is what the JAX scatter writes, dropping them."""
+    seg = _lanes(dev["seg_slots"].shape[0], n_seg, logits.device)
+    tok = _lanes(dev["dest0"].shape[0], n_tok, logits.device)
+    slots = dev["seg_slots"].long()[seg]
+    dest0, dest1 = dev["dest0"].long()[tok], dev["dest1"].long()[tok]
     for key, leaf in cache.items():
         if key == "block_tables":
-            leaf[slots] = dev["table_rows"][:n_seg]
+            leaf[slots] = dev["table_rows"][seg]
         elif key in paged_keys:
-            leaf[:, dest0, dest1] = pcache[key][:, :n_tok].to(leaf.dtype)
+            leaf[:, dest0, dest1] = pcache[key][:, tok].to(leaf.dtype)
         elif leaf.dim() == 1:
-            leaf[slots] = pcache[key][:n_seg].to(leaf.dtype)
+            leaf[slots] = pcache[key][seg].to(leaf.dtype)
         else:
-            leaf[:, slots] = pcache[key][:, :n_seg].to(leaf.dtype)
-    last_tok[slots] = torch.argmax(logits[:n_seg], -1)
+            leaf[:, slots] = pcache[key][:, seg].to(leaf.dtype)
+    last_tok[slots] = torch.argmax(logits[seg], -1)
 
 
 def _write_row(leaf, o, slot: int) -> None:
@@ -946,12 +1057,16 @@ def _clear_ring(cache, slot: int) -> None:
 
 
 def make_engine(cfg, *, seed: int = 0, cache_len: int = 256,
-                dtype=torch.float32, device=None) -> InferenceEngine:
+                dtype=torch.float32, device=None,
+                graphs: bool = True) -> InferenceEngine:
     """Engine with random parameters from ``seed``, on ``device`` (default:
     the CUDA device; raises where there is none unless ``device="cpu"``
     is passed). ``dtype`` is the parameters' storage type (float32, as
-    the JAX package's ``make_engine``); activations run in ``cfg.dtype``."""
+    the JAX package's ``make_engine``); activations run in ``cfg.dtype``.
+    ``graphs``: replay CUDA graphs per bucket on a CUDA device (ignored
+    on the CPU, which runs eagerly); off, every step runs eagerly — the
+    comparison, as the JAX engine takes ``donate_cache``."""
     api = build_model(cfg, device)
     gen = torch.Generator(device=api.device).manual_seed(seed)
     params = api.init(gen, dtype)
-    return InferenceEngine(api, params, cache_len=cache_len)
+    return InferenceEngine(api, params, cache_len=cache_len, graphs=graphs)

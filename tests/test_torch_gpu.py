@@ -11,7 +11,9 @@ another order than the plain versions' matmuls) and 2e-2 absolute and
 relative in bfloat16 (the plain versions round the softmax weights to
 bfloat16 before the weighted sum, the kernels keep them in float32). The
 SSD scan in float32: 1e-4 of the output's scale (max |plain|, at least
-1), since its chunk sums reassociate terms as large as the output.
+1), since its chunk sums reassociate terms as large as the output. An
+engine that replays CUDA graphs and one that runs the same steps eagerly
+must agree bit for bit: same kernels, same inputs.
 """
 import dataclasses
 
@@ -25,6 +27,7 @@ from repro_torch.kernels import chunk_attention as CA  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.models.layers import packed_positions  # noqa: E402
 from repro_torch.serving.engine import make_engine  # noqa: E402
@@ -531,3 +534,119 @@ def test_gpu_ssm_serving_and_generate_match_cpu(cuda):
     tokens = rng.integers(1, cfg.vocab_size, (3, 150)).astype(np.int32)
     got = gpu.generate({"tokens": tokens}, 12).cpu()
     assert torch.equal(got, cpu.generate({"tokens": tokens}, 12))
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs: the graphed engine against the eager one
+# --------------------------------------------------------------------------
+GRAPH_PATHS = {
+    # path: (model, slots (None: generate), paged, chunk_tokens, kernels)
+    "paged": ("olmo-1b", 4, True, 0,
+              {"paged_decode_attention", "segment_flash_attention"}),
+    "chunked": ("olmo-1b", 4, True, 16,
+                {"paged_decode_attention", "segment_flash_attention",
+                 "paged_chunk_attention"}),
+    "ring": ("olmo-1b", 4, False, 16,
+             {"segment_flash_attention", "decode_attention"}),
+    "ssm": ("mamba2-1.3b", 4, True, 64, {"ssd_scan"}),
+    "generate": ("qwen2-0.5b", None, False, 0,
+                 {"flash_attention", "decode_attention"}),
+    "ssm_generate": ("mamba2-1.3b", None, False, 0, {"ssd_scan"}),
+}
+
+
+def _graph_cfg(model, dtype):
+    cfg = _ssm_cfg() if model == "mamba2-1.3b" else \
+        get_config(model).reduced()
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _graph_run(eng, path, rng_seed=0):
+    """Run ``path`` on ``eng``; returns its tokens."""
+    model, slots, paged, chunk_tokens, _ = GRAPH_PATHS[path]
+    rng = np.random.default_rng(rng_seed)
+    if slots is None:
+        tokens = rng.integers(1, eng.cfg.vocab_size, (3, 150)).astype(
+            np.int32)
+        return eng.generate({"tokens": tokens}, 12).cpu().tolist()
+    spec = [(i, int(rng.integers(3, 200 if model == "mamba2-1.3b" else 40)),
+             int(rng.integers(2, 10))) for i in range(6)]
+    prompts = {i: rng.integers(1, eng.cfg.vocab_size, (1, p)).astype(
+        np.int32) for i, p, _ in spec}
+    eng.release_all_slots()
+    reqs = [Request(arrival=0.0, rid=i, model=eng.cfg.name, slo=1e9,
+                    n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+    planner = StepPlanner(eng, RequestQueue(eng.cfg.name, slo=1e9),
+                          PlannerConfig(chunk_tokens=chunk_tokens))
+    srv = serve_ticks(planner, reqs, lambda r: {"tokens": prompts[r.rid]})
+    assert not srv.truncated
+    return planner.streams
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_graphed_engine_equals_eager_engine(cuda, path, dtype):
+    """The same weights and requests through an engine that replays CUDA
+    graphs and one that runs every step eagerly (``graphs=False``):
+    identical streams and bit-identical last-step logits of the rows it
+    stepped; a repeat on the
+    graphed engine captures nothing new; the launch counters count the
+    replays, as many launches as the eager run makes, of exactly the
+    path's kernels."""
+    model, slots, paged, _, kernels = GRAPH_PATHS[path]
+    cfg = _graph_cfg(model, dtype)
+    engines = []
+    for graphs in (True, False):
+        eng = make_engine(cfg, seed=3, cache_len=256, device=cuda,
+                          dtype=getattr(torch, dtype), graphs=graphs)
+        if slots is not None:
+            eng.init_slots(slots, paged=paged, page_size=16)
+        engines.append(eng)
+    graphed, eager = engines
+    # the graphed run captures its buckets; both engines then hold the
+    # same history, vacant slots included
+    first = _graph_run(graphed, path)
+    assert _graph_run(eager, path) == first
+    sizes = graphed.jit_cache_sizes()
+    assert sum(sizes.values()) > 0, sizes
+    assert sum(eager.jit_cache_sizes().values()) == 0
+    launches = []
+    for eng in (graphed, eager):
+        ops.reset_launch_counts()
+        streams = _graph_run(eng, path)
+        torch.cuda.synchronize()
+        launches.append(ops.launch_counts())
+        assert streams == first
+    assert graphed.jit_cache_sizes() == sizes, "a repeat captured again"
+    assert launches[0] == launches[1]
+    assert {n for n, k in launches[0].items() if k} == kernels, launches
+    kind = "generate" if slots is None else "slot_step"
+    steps = [next(iter(e._graphs.entries[kind].values())) for e in engines]
+    rows = slice(None)
+    if slots is not None:
+        # rows the last step stepped: a vacant row reads the null page,
+        # where every vacant row's dead write lands in an unordered race
+        rows = steps[0].views["mask"] != 0
+        assert torch.equal(rows, steps[1].views["mask"] != 0)
+        assert bool(rows.any())
+    assert torch.equal(steps[0].out[rows], steps[1].out[rows])
+
+
+def test_graphed_slot_state_keeps_its_addresses(cuda):
+    """A graphed serve reads and writes the slot buffers in place: every
+    leaf and the pending tokens keep their addresses, and switching the
+    same engine to eager and back keeps its captures."""
+    cfg = get_config("olmo-1b").reduced()
+    eng = make_engine(cfg, seed=3, cache_len=256, device=cuda).init_slots(
+        4, page_size=16)
+    addr = {k: v.data_ptr() for k, v in eng._slot_cache.items()}
+    tok = eng._last_tok.data_ptr()
+    first = _graph_run(eng, "chunked")
+    sizes = eng.jit_cache_sizes()
+    eng.graphs = False
+    assert _graph_run(eng, "chunked") == first
+    eng.graphs = True
+    assert _graph_run(eng, "chunked") == first
+    assert eng.jit_cache_sizes() == sizes
+    assert {k: v.data_ptr() for k, v in eng._slot_cache.items()} == addr
+    assert eng._last_tok.data_ptr() == tok

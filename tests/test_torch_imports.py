@@ -31,7 +31,8 @@ def _imported_modules(path: Path):
 
 def test_the_port_has_modules_to_check():
     names = {p.name for p in FILES}
-    assert {"ssd_scan.py", "ssm.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"ssd_scan.py", "ssm.py", "engine.py", "graphs.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
