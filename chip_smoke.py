@@ -5,9 +5,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py              # all phases, as the acceptance run
     python3 chip_smoke.py --phases a   # kernels only (a quick first check)
     python3 chip_smoke.py --phases af  # kernels and the Mamba2 family
+    python3 chip_smoke.py --phases g   # the D-STACK pool on the card
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs six phases, each printing one JSON line:
+with ``nvcc`` and runs seven phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -41,13 +42,30 @@ with ``nvcc`` and runs six phases, each printing one JSON line:
       continuations, recurrent decodes), then runs batch ``generate`` on 8
       prompts of 512 and of 2000 tokens; every prefill dispatch scans each
       layer through the SSD kernel;
+  (g) pool: the D-STACK control plane drives the quick trio (qwen2-0.5b,
+      olmo-1b, mamba2-1.3b) at full width in bfloat16 through
+      ``EnginePool``/``Controller``: profiles, knees and efficacy optima on
+      the card's ``Hardware`` (units: GPU percent), standby engines of 4
+      paged slots of 1024 tokens per allocation, warmed once (every graph
+      captured); then ``temporal``, ``fixed_batch_mps``, ``maxmin`` and
+      ``dstack`` each serve the same seeded arrivals (128-token prompts,
+      4 tokens each), with no capture, every model served, every grant a
+      level, the allocated fraction never above 1 but under
+      fixed-batch MPS, and exactly #1, #2 and #6 launched; then each
+      kind of dispatch the virtual clock charges (admission prefills and
+      slot steps at 1, 2 and 4 live slots, at 100%) is timed beside the
+      modelled f_L(100, b), with the per-layer overhead the model leaves
+      unexplained;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
       ``generate``, a ring serve with continuations, and a sliding-window
       ring that wraps — and so does mamba2-1.3b at full width cut to 2
       layers (a serve and ``generate``); the greedy streams must be
-      identical.
+      identical; and the quick trio cut to 2 layers, float32, serves
+      under ``dstack`` in one pool on each device: the same admissions
+      (model, granted units, batch, request ids) and the same served and
+      violated counts.
 
 Every path of (b), (d), (e) and (f) runs on one engine that replays CUDA
 graphs per bucket (``repro_torch.serving.graphs``): a first graphed run
@@ -61,7 +79,7 @@ timed wall is the device's busy share.
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
 its count over the first graphed turn of each main path of (b), (d), (e)
-and (f)), the card's name and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
+and (f), plus the four serves of (g)), the card's name and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
 ``chiprun_out/chip_smoke.json``.
@@ -686,6 +704,8 @@ PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
 RING_PATH = ("segment_flash_attention", "decode_attention")
 GENERATE_PATH = ("flash_attention", "decode_attention")
 SSM_PATH = ("ssd_scan",)
+POOL_PATH = ("paged_decode_attention", "segment_flash_attention",
+             "ssd_scan")
 # the timed turns of a path on one engine: graphs off, on, on, off
 MODES = ("eager", "graphed", "graphed", "eager")
 
@@ -1011,6 +1031,197 @@ def phase_f(torch):
     return dict(out, serve=serve, runs=runs)
 
 
+# --------------------------------------------------------------------------
+# phase (g): the D-STACK pool
+# --------------------------------------------------------------------------
+POOL_MODELS = ("qwen2-0.5b", "olmo-1b", "mamba2-1.3b")
+POOL_POLICIES = ("temporal", "fixed_batch_mps", "maxmin", "dstack")
+POOL_RATE = 150.0          # requests/s per model
+POOL_DURATION = 0.4        # virtual seconds: ~60 requests per model
+POOL_GEN = 4               # tokens per request
+
+
+def _pool_serve(pool, policy):
+    """Serve ``policy`` over ``pool`` on seeded arrivals. Returns the
+    controller, the result and every admission: (model, asked units,
+    granted units, batch, request ids)."""
+    from repro_torch.core.scheduler import POLICIES
+    from repro_torch.serving.controller import (Controller, ControllerConfig,
+                                                make_generators)
+    pool.reset()
+    log = []
+    admit = pool.admit
+
+    def spy(rr, now, gen_len, drop_expired=True):
+        run = admit(rr, now, gen_len, drop_expired)
+        if run is not None:
+            log.append((rr.model, rr.chips, run.chips, run.batch,
+                        sorted(r.rid for r in run.slots.values())))
+        return run
+
+    pool.admit = spy
+    try:
+        ctl = Controller(pool, POLICIES[policy](pool.profiles),
+                         make_generators(pool, POOL_RATE),
+                         ControllerConfig(duration=POOL_DURATION,
+                                          gen_len=POOL_GEN))
+        res = ctl.run()
+    finally:
+        del pool.admit
+    return ctl, res, log
+
+
+def _pool_row(ctl, res, log):
+    return {"wall_s": res.wall_s, "steps": res.steps,
+            "admissions": len(log), "max_alloc": ctl.max_alloc,
+            "occupancy": res.occupancy, "jain_runtime": res.fairness(),
+            "served": res.total_completed, "violated": res.total_violated,
+            "throughput_per_s": res.throughput(),
+            "per_model": {n: {
+                "served": m.completed, "violated": m.violated,
+                "dropped": m.dropped, "runs": m.runs,
+                "throughput_per_s": m.throughput(res.duration),
+                "runtime_ms": 1e3 * m.runtime,
+                "latency_p50_ms": 1e3 * m.p50,
+                "latency_p99_ms": 1e3 * m.p99}
+                for n, m in res.per_model.items()}}
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _calibrate(torch, pool, reps: int = 5):
+    """Each kind of dispatch the pool's virtual clock charges, timed on
+    the 100% standby engine of each model (host clock around a
+    synchronised dispatch; median of ``reps``): the admission prefill of
+    b prompts and the slot step at b live slots, b = 1, 2, 4, beside the
+    modelled f_L(100, b) — the prefill f_L the clock charges per run, and
+    the decode f_L at the run's context — and a whole run (admission plus
+    ``POOL_GEN`` steps) beside what the clock charges for it. The per-layer
+    overhead is the 1-slot step's time beyond its modelled roofline (the
+    decode f_L without its serial term), per layer."""
+    from repro_torch.core.latency_model import LatencyModel
+    from repro_torch.serving.plan import PrefillChunk, StepPlan
+    rows, per_layer = [], {}
+    for name, host in pool.hosts.items():
+        eng = host.allocations[max(host.allocations)].engine
+        prof, cfg = host.profile, host.profile.cfg
+        dec = LatencyModel(cfg, mode="decode",
+                           seq=host.prompt_len + POOL_GEN, hw=prof.hw)
+        prompt = host.prompt_batch()
+        step_1 = None
+        for b in (1, 2, 4):
+            adm, step = [], []
+            for _ in range(reps):
+                eng.release_all_slots()
+                plan = StepPlan(admissions=[PrefillChunk(
+                    rid=i, batch=prompt, start=0, length=host.prompt_len,
+                    final=True, n_tokens=64) for i in range(b)])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slots = sorted(eng.execute(plan).admitted.values())
+                torch.cuda.synchronize()
+                adm.append(time.perf_counter() - t0)
+                for _ in range(POOL_GEN):
+                    t0 = time.perf_counter()
+                    eng.execute(StepPlan(decodes=slots))
+                    torch.cuda.synchronize()
+                    step.append(time.perf_counter() - t0)
+            eng.release_all_slots()
+            a_ms, s_ms = 1e3 * _median(adm), 1e3 * _median(step)
+            f_pre = 1e3 * prof.lm.latency(100, b)
+            f_dec = 1e3 * dec.latency(100, b)
+            charged = 1e3 * prof.latency(100, b)
+            run_ms = a_ms + POOL_GEN * s_ms
+            rows.append({
+                "model": name, "batch": b,
+                "admission_ms": a_ms, "f_L_prefill_ms": f_pre,
+                "admission_over_f_L": a_ms / f_pre,
+                "step_ms": s_ms, "f_L_decode_ms": f_dec,
+                "step_over_f_L": s_ms / f_dec,
+                "run_ms": run_ms, "charged_run_ms": charged,
+                "run_over_charged": run_ms / charged})
+            if b == 1:
+                step_1 = s_ms / 1e3
+        roof = dec.latency(100, 1) - prof.hw.dispatch_overhead \
+            * cfg.num_layers
+        per_layer[name] = (step_1 - roof) / cfg.num_layers
+    return rows, per_layer
+
+
+def phase_g(torch):
+    from repro_torch.serving.pool import build_pool
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pool = build_pool(POOL_MODELS, request_rate=POOL_RATE, base_slots=4,
+                      cache_len=1024, prompt_len=128, reduced=False,
+                      page_size=16, warm=False, device="cuda",
+                      dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hw = pool.profiles[POOL_MODELS[0]].hw       # the card's (local_gpu)
+    assert hw.name == torch.cuda.get_device_name(0), hw
+    t0 = time.perf_counter()
+    pool.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = pool.jit_cache_sizes()
+    engines = [e for h in pool.hosts.values() for e in h.engines()]
+    profiles = {n: {"knee_pct": p.knee_chips, "opt_pct": p.opt_chips,
+                    "opt_batch": p.opt_batch, "slo_ms": 1e3 * p.slo,
+                    "standby_pct": sorted(pool.hosts[n].allocations)}
+                for n, p in pool.profiles.items()}
+    _log(json.dumps({"g/profiles": profiles, "build_s": build_s,
+                     "warm_s": warm_s, "captures": sum(warm.values())}))
+    serves, launches = {}, {n: 0 for n in KERNEL_NAMES}
+    for policy in POOL_POLICIES:
+        _reset_launch_counts()
+        ctl, res, log = _pool_serve(pool, policy)
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        row = _pool_row(ctl, res, log)
+        row["launches"] = got
+        _log(json.dumps({f"g/{policy}": row}))
+        _check_launches(got, POOL_PATH, f"g/{policy}")
+        assert pool.jit_cache_sizes() == warm, f"g/{policy}: a capture"
+        assert not res.truncated and not ctl.oversubscribed, policy
+        assert {g for _, _, g, _, _ in log} <= set(hw.levels), log
+        if policy != "fixed_batch_mps":
+            assert ctl.max_alloc <= 1.0 + 1e-6, (policy, ctl.max_alloc)
+        for n, m in res.per_model.items():
+            assert m.completed > 0, f"g: {n} starved under {policy}"
+        for n in KERNEL_NAMES:
+            launches[n] += got[n]
+        serves[policy] = row
+    calib, per_layer = _calibrate(torch, pool)
+    assert pool.jit_cache_sizes() == warm, "g: calibration captured"
+    for row in calib:
+        _log(json.dumps({"g/f_L": row}))
+    out = {"phase": "g", "models": list(POOL_MODELS), "dtype": "bfloat16",
+           "hardware": dataclasses.asdict(hw), "rate_per_model": POOL_RATE,
+           "duration_virtual_s": POOL_DURATION, "gen_tokens": POOL_GEN,
+           "prompt_len": 128, "slots": 4, "profiles": profiles,
+           "build_s": build_s, "warm_s": warm_s,
+           "captures": sum(warm.values()),
+           "graph_pool_bytes": sum(e.graph_pool_bytes() for e in engines),
+           "kv_cache_bytes": sum(e.kv_cache_bytes() for e in engines),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "serves": {p: {k: v for k, v in r.items() if k != "per_model"}
+                      for p, r in serves.items()},
+           "per_model": {p: r["per_model"] for p, r in serves.items()},
+           "f_L": calib, "per_layer_overhead_s": per_layer,
+           "per_layer_overhead_mean_s": sum(per_layer.values())
+           / len(per_layer),
+           "dispatch_overhead_modelled_s": hw.dispatch_overhead,
+           "launches": launches}
+    _emit(out)
+    del pool, engines
+    torch.cuda.empty_cache()
+    return out
+
+
 def _insert_step_serve(eng, prompts, budgets):
     """Continuous batching through ``insert``/``step``/``free``: requests
     enter free slots in order, every active slot steps, done slots free.
@@ -1156,13 +1367,75 @@ def phase_c(torch):
           SSM_PATH, lambda e: e.prefill({"tokens": mtokens})[0],
           batch=4, prompt_len=300, new_tokens=24)
 
-    out = {"phase": "c", "model": "olmo-1b, mamba2-1.3b (2 layers)",
+    # 6. the pool: the quick trio at full width cut to 2 layers, under
+    # dstack on each device — the same admissions and counts
+    pools = _pool_pair(torch)
+    logs, results = [], []
+    _reset_launch_counts()
+    for i, pool in enumerate(pools):
+        t0 = time.perf_counter()
+        _, res, log = _pool_serve(pool, "dstack")
+        if i == 0:
+            launches = _launch_counts()
+        logs.append(log)
+        results.append({n: (m.completed, m.violated, m.dropped)
+                        for n, m in res.per_model.items()})
+    cpu_s = time.perf_counter() - t0
+    same = logs[0] == logs[1] and results[0] == results[1]
+    checks["pool_dstack"] = dict(
+        admissions_identical=logs[0] == logs[1],
+        counts_identical=results[0] == results[1],
+        admissions=len(logs[0]), counts=results[0], launches=launches,
+        cpu_s=cpu_s)
+    _log(json.dumps({"pool_dstack": checks["pool_dstack"]}))
+    assert same, f"pool: GPU and CPU differ: {results}"
+    assert all(c > 0 for c, _, _ in results[0].values()), results
+    _check_launches(launches, POOL_PATH, "c/pool_dstack")
+
+    out = {"phase": "c",
+           "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b (2 layers)",
            "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
-               "streams_identical", "first_token_logits_max_abs_diff")}
+               "streams_identical", "first_token_logits_max_abs_diff",
+               "admissions_identical", "counts_identical") if kk in v}
                for k, v in checks.items()}}
     _emit(out)
     return dict(out, checks=checks)
+
+
+def _pool_pair(torch):
+    """(GPU pool, CPU pool) of the quick trio at full width cut to 2
+    layers, float32, on the same weights: 4 paged slots of 256 tokens per
+    standby, 32-token prompts, profiles on the card's ``Hardware``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import local_gpu
+    from repro_torch.core.profiles import build_profile
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.pool import (EnginePool, ModelHost,
+                                          StandbyAllocation,
+                                          default_allocations)
+    hw = local_gpu()
+    hosts = {"cuda": {}, "cpu": {}}
+    for i, name in enumerate(POOL_MODELS):
+        cfg = dataclasses.replace(get_config(name), num_layers=2,
+                                  dtype="float32")
+        prof = build_profile(name, request_rate=POOL_RATE, hw=hw)
+        api = build_model(cfg, "cuda")
+        params = {"cuda": api.init(
+            torch.Generator(device="cuda").manual_seed(i))}
+        params["cpu"] = _to_cpu(params["cuda"])
+        for dev in ("cuda", "cpu"):
+            api = build_model(cfg, dev)
+            standby = {c: StandbyAllocation(c, 4, InferenceEngine(
+                api, params[dev], cache_len=256, alloc_chips=c).init_slots(
+                    4, page_size=16)) for c in default_allocations(prof)}
+            hosts[dev][name] = ModelHost(cfg, api, params[dev], prof,
+                                         standby, prompt_len=32)
+    pools = [EnginePool(hosts[d]) for d in ("cuda", "cpu")]
+    for pool in pools:
+        pool.warmup()
+    return pools
 
 
 def _to_cpu(tree):
@@ -1173,8 +1446,8 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefc",
-                    help="which phases to run, of a, b, d, e, f, c "
+    ap.add_argument("--phases", default="abdefgc",
+                    help="which phases to run, of a, b, d, e, f, g, c "
                          "(default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -1231,13 +1504,15 @@ def main(argv=None) -> int:
         report["e"] = timed("e", phase_e, paged_streams)
     if "f" in args.phases:
         report["f"] = timed("f", phase_f)
-    for phase in "bdef":
+    if "g" in args.phases:
+        report["g"] = timed("g", phase_g)
+    for phase in "bdefg":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c)
     if summary:
-        if all(p in args.phases for p in "bdef"):
+        if all(p in args.phases for p in "bdefg"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

@@ -1,7 +1,8 @@
 """Shared discrete-event loop skeleton for every serving control plane.
 
-The analytic simulator (atomic completions), the real-engine controller
-(per-token dispatch events) — both still JAX-package only — and
+The analytic simulator (``repro_torch.core.simulator``: atomic
+completions), the real-engine controller (``repro_torch.serving.
+controller``: per-token dispatch events) and
 ``repro_torch.serving.plan.TickServer`` (step-plan ticks: one
 StepPlan built and executed per due tick) used to each own — or would
 each have grown — a ~30-line event loop with identical arrival-pop /

@@ -102,10 +102,15 @@ class EngineStats:
 
 class InferenceEngine:
     def __init__(self, api: ModelAPI, params, *, cache_len: int = 256,
-                 graphs: bool = True):
+                 graphs: bool = True, alloc_chips: Optional[int] = None):
         self.api = api
         self.cfg = api.cfg
         self.device = api.device
+        # the allocation (GPU percent on the H100) this engine stands by
+        # for — a label: the EnginePool keys standby engines by it, so a
+        # policy's re-allocation switches to a pre-built engine and never
+        # captures anew (the paper's fast re-allocation, §6.1.2)
+        self.alloc_chips = alloc_chips
         # the step executables (CUDA graphs on a CUDA device with
         # ``graphs`` on; eager entries under the same keys otherwise)
         self._graphs = StepGraphs(api.device, graphs)

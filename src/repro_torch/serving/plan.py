@@ -20,11 +20,15 @@ re-prefills from scratch, so greedy streams are unchanged. Cancels,
 deadline aborts, load shedding and injected faults
 (``repro_torch.serving.faults``) follow the JAX package's rules.
 
-Not in the port yet: the radix prompt cache, speculative decoding, the
-telemetry plane and the pool plane's admission helpers
-(``select_admissible``/``admission_plan``) — the planner takes the JAX
-package's decisions everywhere else, so both packages build the same plan
-from the same state.
+``EnginePool.admit`` and ``EnginePool.topup`` (``repro_torch.serving.
+pool``) route their shared admission logic through
+``StepPlanner.select_admissible`` and execute the whole-prompt plan
+``admission_plan`` builds.
+
+Not in the port yet: the radix prompt cache, speculative decoding and the
+telemetry plane — the planner takes the JAX package's decisions
+everywhere else, so both packages build the same plan from the same
+state.
 """
 from __future__ import annotations
 
@@ -887,6 +891,84 @@ class StepPlanner:
             live.update(self.queue.rids())
         for rid in [k for k in prompts if k not in live]:
             del prompts[rid]
+
+    # ---------------------------------------------------- pool admission
+    def select_admissible(self, eng, q, prompt_len: int, max_batch: int,
+                          now: float, gen_len: int,
+                          drop_expired: bool = True
+                          ) -> List[Tuple[Request, int]]:
+        """The single admission gate ``EnginePool.admit`` AND ``topup``
+        share: pop up to ``max_batch`` requests the engine can back — a
+        free slot and pages for each request's reserved horizon (whole
+        prompt + n_tokens budget, or just the prompt under
+        ``PlannerConfig.lazy``). With ``PlannerConfig.tiers`` set, the
+        pop order is the tiered/tenant-fair pick (``TieredAdmission``)
+        instead of strict FIFO — every gate below is unchanged.
+        Requests the pool cannot back go
+        straight back to the queue, counted in ``blocked_on_memory``
+        once over their lifetime; a page-blocked FIFO head accrues an
+        aging page reservation that bypassing smaller requests cannot
+        spend (anti-starvation). Returns [(request, token budget)] in
+        queue order."""
+        lazy = self.config.lazy
+        gen_len = max(1, gen_len)
+        room = max(1, eng.slot_len - prompt_len)
+        cap = min(max_batch, eng.free_slots)
+        pages_left = eng.free_pages
+        kept: List[Tuple[Request, int]] = []
+        blocked: List[Request] = []
+        is_head = True
+        # scan deeper than the cap: page-blocked requests must not consume
+        # batch quota, or admissible requests behind them under-fill the
+        # run in exactly the page-constrained regime paging targets.
+        # Blocked requests are re-pushed only AFTER the scan, so the pop
+        # can never retrieve the same request twice.
+        while len(kept) < cap and len(q):
+            req = self._pop_next(q, now, drop_expired)
+            if req is None:
+                break                       # remainder all expired
+            budget = max(1, req.n_tokens if req.n_tokens > 0 else gen_len)
+            if eng.paged:
+                budget = min(budget, room)
+                full = eng.kv_pages_needed(
+                    min(prompt_len + budget, eng.slot_len))
+                if full > eng.total_pages:
+                    # full residency exceeds the whole pool: never
+                    # completable — under lazy reservation it would
+                    # admit and then preempt-requeue-thrash forever.
+                    # Drop loudly instead (same guard as the tick plane)
+                    q.violated += 1
+                    q.dropped += 1
+                    is_head = False
+                    continue
+                horizon = prompt_len + 1 if lazy else prompt_len + budget
+                need = eng.kv_pages_needed(min(horizon, eng.slot_len))
+                left = self._page_gate(req, is_head, need, pages_left)
+                if left is None:
+                    blocked.append(req)
+                    is_head = False
+                    continue
+                pages_left = left
+            kept.append((req, budget))
+            self._note_admitted(req, prompt_len + budget, q, blocked)
+            is_head = False
+        for req in blocked:
+            q.push(req)
+        return kept
+
+    def admission_plan(self, batches: Sequence[Any],
+                       kept: Sequence[Tuple[Request, int]]) -> StepPlan:
+        """Wrap a ``select_admissible`` result as a whole-prompt plan
+        (the unchunked admission the pool plane runs: one packed
+        prefill)."""
+        plan = StepPlan()
+        for batch, (req, budget) in zip(batches, kept):
+            p = _prompt_tokens(batch)
+            plan.admissions.append(PrefillChunk(
+                rid=req.rid, batch=batch, start=0, length=p, final=True,
+                n_tokens=budget,
+                reserve_tokens=(p + 1) if self.config.lazy else None))
+        return plan
 
 # --------------------------------------------------------------------------
 # tick serving loop (EventLoopHooks over the shared core event loop)

@@ -33,6 +33,15 @@ def test_the_port_has_modules_to_check():
     names = {p.name for p in FILES}
     assert {"ssd_scan.py", "ssm.py", "engine.py", "graphs.py",
             "chip_smoke.py"} <= names
+    port = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+            if p.name != "chip_smoke.py"}
+    assert {"core/eventloop.py", "core/hardware.py", "core/latency_model.py",
+            "core/efficacy.py", "core/knee.py", "core/profiles.py",
+            "core/simulator.py", "core/scheduler/__init__.py",
+            "core/scheduler/base.py", "core/scheduler/baselines.py",
+            "core/scheduler/dstack.py", "core/scheduler/ideal.py",
+            "serving/pool.py", "serving/controller.py",
+            "launch/serve.py"} <= port
 
 
 @pytest.mark.parametrize("path", FILES,
