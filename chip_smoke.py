@@ -6,9 +6,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases a   # kernels only (a quick first check)
     python3 chip_smoke.py --phases af  # kernels and the Mamba2 family
     python3 chip_smoke.py --phases g   # the D-STACK pool on the card
+    python3 chip_smoke.py --phases h   # prefix cache and speculation
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs seven phases, each printing one JSON line:
+with ``nvcc`` and runs eight phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -17,7 +18,8 @@ with ``nvcc`` and runs seven phases, each printing one JSON line:
       (TF32 off) and bfloat16, with length-0 rows, fresh sequences
       (history 0), padding segments, paged rows at split edges, a 1024-page
       row, pages of 24 tokens, chunks of 5 rows over a history of 2000
-      (speculative verify), ragged packed lengths, ragged prompt
+      and over histories of 128 to 256 (speculative verify, the second at
+      phase (h)'s shape), ragged packed lengths, ragged prompt
       lengths, windows, non-causal attention, L below the chunk and
       packed SSD rows whose dt = 0 tails must leave the state bit for bit
       as their unpadded runs do; times every main case's kernel, plain
@@ -36,12 +38,12 @@ with ``nvcc`` and runs seven phases, each printing one JSON line:
   (e) ring serve: phase (b)'s requests on 8 ring slots, so admissions and
       prefix-recompute continuations run the packed prefill and decodes
       the contiguous decode kernel (and never the chunk kernel);
-  (f) ssm: mamba2-1.3b at full width in bfloat16 (48 layers, d_model
-      2048, 64 SSD heads of 64, N 128) serves phase (b)'s requests on 8
-      slots of per-sequence state (packed admissions, prefix-recompute
-      continuations, recurrent decodes), then runs batch ``generate`` on 8
-      prompts of 512 and of 2000 tokens; every prefill dispatch scans each
-      layer through the SSD kernel;
+  (f) ssm: mamba2-1.3b at full width in bfloat16 (24 of its 48 layers,
+      d_model 2048, 64 SSD heads of 64, N 128) serves phase (b)'s requests
+      on 8 slots of per-sequence state (packed admissions,
+      prefix-recompute continuations, recurrent decodes), then runs batch
+      ``generate`` on 8 prompts of 512 and of 2000 tokens; every prefill
+      dispatch scans each layer through the SSD kernel;
   (g) pool: the D-STACK control plane drives the quick trio (qwen2-0.5b,
       olmo-1b, mamba2-1.3b) at full width in bfloat16 through
       ``EnginePool``/``Controller``: profiles, knees and efficacy optima on
@@ -56,11 +58,27 @@ with ``nvcc`` and runs seven phases, each printing one JSON line:
       slot steps at 1, 2 and 4 live slots, at 100%) is timed beside the
       modelled f_L(100, b), with the per-layer overhead the model leaves
       unexplained;
+  (h) prefix cache and speculation: olmo-1b at full width in bfloat16 on
+      one paged engine of 8 slots x 1024 tokens (pages of 16). (h1) 32
+      requests of three shared templates (600, 312 and 150 tokens) plus
+      short tails through ``serve_ticks`` (``chunk_tokens=512``), cache
+      off and on: the cache must save at least 40% of the admission
+      prefill tokens, graphed and eager cache-on turns must agree, and
+      #1, #2 and #3 launch; (h2) 8 requests of 128 + 128 tokens, plain
+      and speculative with an identical-weights ring draft (8 x 1024, the
+      target's weights) at spec_k 4, then a divergent draft (seed 1):
+      no capture and no new executable between warm serves, the page
+      audit and a canonical free list after the divergent serve, and
+      #1-#4 launched; the bf16 streams of different kernels (cache off vs
+      on, plain vs speculative) are counted equal, not asserted;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
-      ``generate``, a ring serve with continuations, and a sliding-window
-      ring that wraps — and so does mamba2-1.3b at full width cut to 2
+      a shared-prefix serve cache off then on (equal streams), plain then
+      speculative serves with an identical-weights draft (equal streams,
+      acceptance 1.0), ``generate``, a ring serve with continuations,
+      and a sliding-window ring that wraps — and so does mamba2-1.3b at
+      full width cut to 2
       layers (a serve and ``generate``); the greedy streams must be
       identical; and the quick trio cut to 2 layers, float32, serves
       under ``dstack`` in one pool on each device: the same admissions
@@ -79,7 +97,9 @@ timed wall is the device's busy share.
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
 its count over the first graphed turn of each main path of (b), (d), (e)
-and (f), plus the four serves of (g)), the card's name and power limit, and, last, ``{"ok": true, "device": {...}}``. Any failure raises
+and (f), plus the four serves of (g) and the first graphed cache-on and
+speculative turns of (h)), the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
 ``chiprun_out/chip_smoke.json``.
@@ -453,6 +473,8 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                  window=256),
             dict(r=5, hist=(2000,) * 8, slen=(5,) * 8,      # spec verify
                  max_pages=128),
+            dict(r=5, hist=(128, 146, 165, 183, 201, 219, 238, 256),
+                 slen=(5,) * 8, max_pages=32),              # (h2)'s verify
             dict(r=200, hist=(388, 0), slen=(200, 65), ps=24,  # page 24
                  max_pages=32)],
         "paged_decode_attention": [
@@ -659,7 +681,7 @@ def _requests(n, prompt_range, budget_range, vocab, seed, model="olmo-1b"):
     return reqs, prompts
 
 
-def _serve(eng, reqs, prompts, chunk_tokens):
+def _serve(eng, reqs, prompts, chunk_tokens, **planner_kw):
     import copy
     from repro_torch.serving.plan import (PlannerConfig, StepPlanner,
                                           serve_ticks)
@@ -667,7 +689,8 @@ def _serve(eng, reqs, prompts, chunk_tokens):
     eng.release_all_slots()
     eng.reset_stats()
     planner = StepPlanner(eng, RequestQueue(reqs[0].model, slo=1e9),
-                          PlannerConfig(chunk_tokens=chunk_tokens))
+                          PlannerConfig(chunk_tokens=chunk_tokens,
+                                        **planner_kw))
     srv = serve_ticks(planner, copy.deepcopy(reqs),
                       lambda r: {"tokens": prompts[r.rid]})
     assert not srv.truncated
@@ -974,18 +997,26 @@ def phase_e(torch, paged_streams=None):
 # --------------------------------------------------------------------------
 # phase (f): the Mamba2 family
 # --------------------------------------------------------------------------
+# phase (f) runs mamba2-1.3b at full width but half its depth: with the
+# prefix-cache and speculation phase added, the whole script kept to half
+# its time limit that way (every layer is the same shape)
+SSM_LAYERS = 24
+
+
 def phase_f(torch):
-    """mamba2-1.3b at full width, bfloat16, seeded random weights: (i)
+    """mamba2-1.3b at full width, bfloat16, seeded random weights, at
+    ``SSM_LAYERS`` of its 48 layers: (i)
     phase (b)'s 16 requests through ``serve_ticks`` on 8 slots (paged
     slots asked for, per-slot state given), ``chunk_tokens=512``, so
     packed admissions and prefix-recompute continuations both run; (ii)
     batch ``generate`` of 8 prompts of 512 and of 2000 tokens, 64 new
-    tokens each. Every prefill dispatch scans each of the 48 layers
-    through the kernel: launches = 48 x prefill dispatches. Each runs in
-    turns, graphed and eager."""
+    tokens each. Every prefill dispatch scans each layer through the
+    kernel: launches = layers x prefill dispatches. Each runs in turns,
+    graphed and eager."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import make_engine
-    cfg = get_config("mamba2-1.3b")
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"),
+                              num_layers=SSM_LAYERS)
     t0 = time.perf_counter()
     eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
                       device="cuda").init_slots(8)
@@ -1222,6 +1253,305 @@ def phase_g(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase (h): the radix prompt cache and speculative decoding
+# --------------------------------------------------------------------------
+SPEC_PATH = ("paged_decode_attention", "segment_flash_attention",
+             "paged_chunk_attention", "decode_attention")
+# (h1): the reference's bench_shared_prefix at full width — templates of
+# 600, 312 and 150 tokens picked 0.6 / 0.3 / 0.1, tails of 2-6. The tree
+# registers whole pages only, and each template leaves fewer than 10
+# tokens in its last page, so a prompt never fills that page: hits end on
+# a page boundary and copy no page (the (c) check's templates do)
+H1_TEMPLATES = ((600, 0.6), (312, 0.3), (150, 0.1))
+H1_REQUESTS, H1_NEW = 32, 32
+H2_REQUESTS, H2_PROMPT, H2_NEW, H2_SPEC_K = 8, 128, 128, 4
+
+
+def _shared_prefix_requests(vocab, n, new_tokens, templates, seed=0):
+    """``n`` requests, each one of ``templates`` [(length, probability)]
+    plus a random tail of 2-6 tokens, asking for ``new_tokens``."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(seed)
+    temps = [rng.integers(1, vocab, size=s).astype(np.int32)
+             for s, _ in templates]
+    probs = [p for _, p in templates]
+    reqs, prompts = [], {}
+    for i in range(n):
+        t = temps[int(rng.choice(len(temps), p=probs))]
+        tail = rng.integers(1, vocab, size=int(rng.integers(2, 7))).astype(
+            np.int32)
+        prompts[i] = np.concatenate([t, tail])[None, :]
+        reqs.append(Request(arrival=0.0, rid=i, model="olmo-1b", slo=1e9,
+                            n_tokens=new_tokens,
+                            prompt_len=prompts[i].shape[1]))
+    return reqs, prompts
+
+
+def _h_turn(torch, engines, mode, name, run):
+    """One timed run of ``run`` on ``engines[0]`` (and its draft) in
+    ``mode``, with the launch counts at 0 just before it; the page audit
+    after it. Returns (streams, its record, its server)."""
+    eng = engines[0]
+    eng.graphs = mode == "graphed"
+    torch.cuda.synchronize()
+    c0 = sum(_captures(e) for e in engines)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, srv = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert eng.check_page_invariants()
+    tokens = sum(map(len, streams.values()))
+    st = eng.stats
+    turn = {"turn": name, "mode": mode, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "captures": sum(_captures(e) for e in engines) - c0,
+            "launches": _launch_counts(), "ticks": srv.ticks,
+            "dispatches": srv.dispatches,
+            "dispatches_per_token": srv.dispatches / tokens,
+            "stats": dataclasses.asdict(st)}
+    turn["tick_ms_p50"], turn["tick_ms_p99"] = _walls(srv)
+    _log(json.dumps({f"h/{name}": turn}))
+    assert turn["captures"] == 0, f"h/{name}: a timed run captured"
+    eng.graphs = True
+    return streams, turn, srv
+
+
+def _equal_streams(a, b):
+    return sum(a[r] == b[r] for r in a)
+
+
+def _first_difference(a, b):
+    """The first token index at which any stream of ``a`` and ``b``
+    differs (None when all are equal)."""
+    idx = [next((i for i, (x, y) in enumerate(zip(a[r], b[r])) if x != y),
+                None) for r in a]
+    idx = [i for i in idx if i is not None]
+    return min(idx) if idx else None
+
+
+def _tie_report(torch, eng, prompts):
+    """Where the bf16 kernels part: for the (B, S) ``prompts`` admitted
+    in one packed prefill (#2) on ``eng``, the next token's logits from a
+    paged decode step (#1, plain decoding's) and from a one-row verify
+    chunk (#3, speculation's), both bf16, against the same weights in
+    float32 (a padded prefill and a decode step, TF32 off). Per request:
+    the float32 top-2 margin of the first token after the prompt and of
+    the one after it, whether each bf16 argmax is float32's, and the
+    largest logit differences."""
+    from repro_torch.models.registry import build_model
+    dev = eng.device
+    eng.release_all_slots()
+    slots = eng.insert_many([{"tokens": p[None]} for p in prompts],
+                            n_tokens=[4] * len(prompts))
+    idx = torch.tensor(slots, device=dev)
+    t0 = eng._last_tok[idx]
+    cache = {k: v.clone() for k, v in eng._slot_cache.items()}
+    logits1 = eng.api.decode_step(eng.params, eng._last_tok, cache)[0][idx]
+    n, s = prompts.shape
+    ar = torch.arange(n, dtype=torch.int32, device=dev)
+    packed = {"tokens": t0.to(torch.int32)[None], "seg_ids": ar,
+              "seg_starts": ar, "seg_lens": torch.ones_like(ar),
+              "seg_slots": idx.to(torch.int32),
+              "hist_lens": torch.full_like(ar, s)}
+    logits3 = eng.api.prefill_chunk(eng.params, packed, eng._slot_cache,
+                                    1)[0]
+    eng.release_all_slots()
+    cfg32 = dataclasses.replace(eng.cfg, dtype="float32")
+    api32 = build_model(cfg32, dev)
+    p32 = _tree_map(eng.params, lambda t: t.float())
+    tokens = torch.from_numpy(prompts).to(dev)
+    first32, cache32 = api32.prefill(p32, {"tokens": tokens}, s + 8)
+    logits32 = api32.decode_step(p32, t0, cache32)[0]
+
+    def margin(lg):
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).tolist()
+
+    def agree(lg):
+        return (lg.argmax(-1) == logits32.argmax(-1)).tolist()
+
+    out = {
+        "first_token_margin_f32": margin(first32),
+        "first_token_is_f32s": (first32.argmax(-1) == t0).tolist(),
+        "next_margin_f32": margin(logits32),
+        "next_decode_is_f32s": agree(logits1),
+        "next_verify_is_f32s": agree(logits3),
+        "decode_equals_verify": (logits1.argmax(-1)
+                                 == logits3.argmax(-1)).tolist(),
+        "decode_vs_verify_max_abs": float(
+            (logits1.float() - logits3.float()).abs().max()),
+        "decode_vs_f32_max_abs": float(
+            (logits1.float() - logits32).abs().max()),
+        "verify_vs_f32_max_abs": float(
+            (logits3.float() - logits32).abs().max()),
+        "logit_scale_f32": float(logits32.abs().max())}
+    del cache, cache32, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def phase_h(torch):
+    """olmo-1b at full width, bfloat16, seed 0, on one paged engine of 8
+    slots x 1024 tokens in pages of 16. (h1) shared prefixes: 32
+    requests of three templates through ``serve_ticks`` with
+    ``chunk_tokens=512``, cache off and on; (h2) speculative decoding:
+    8 requests of 128 + 128 tokens with an identical-weights ring draft
+    (8 x 1024, the target's weights) at spec_k 4, plain and speculative,
+    then a divergent draft (seed 1). One untimed graphed pass of each
+    serve captures its buckets; then the timed turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import InferenceEngine, make_engine
+    cfg = get_config("olmo-1b")
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda").init_slots(8, page_size=16)
+    eng.enable_prefix_cache()
+    eng.warm_prefix_ops()
+
+    # ---- (h1): the radix prompt cache
+    reqs, prompts = _shared_prefix_requests(
+        cfg.vocab_size, H1_REQUESTS, H1_NEW, H1_TEMPLATES)
+
+    def h1(cache):
+        return lambda: _serve(eng, reqs, prompts, chunk_tokens=512,
+                              prefix_cache=cache)
+
+    t0 = time.perf_counter()
+    c0 = _captures(eng)
+    warm = {c: h1(c)()[0] for c in (False, True)}
+    _log(json.dumps({"h1/first runs": {"captures": _captures(eng) - c0,
+                                       "s": time.perf_counter() - t0}}))
+    turns, streams = [], {}
+    for name, mode, cache in (("off", "graphed", False),
+                              ("on", "graphed", True),
+                              ("on", "graphed", True),
+                              ("off", "graphed", False),
+                              ("on", "eager", True)):
+        got, turn, _ = _h_turn(torch, [eng], mode, f"h1 cache {name}",
+                               h1(cache))
+        assert got == warm[cache], f"h1 cache {name} {mode}: tokens changed"
+        _check_launches(turn["launches"], PAGED_PATH, f"h1/{name}/{mode}")
+        streams[(name, mode)] = got
+        turns.append(turn)
+    on, off = turns[1]["stats"], turns[0]["stats"]
+    assert streams[("on", "eager")] == streams[("on", "graphed")], \
+        "h1: graphed and eager cache-on streams differ"
+    saved = 1 - on["prefill_tokens"] / off["prefill_tokens"]
+    assert saved >= 0.4, f"h1: the cache saved {saved:.1%} of prefill"
+    assert on["prefix_hits"], on
+    h1_out = {
+        "requests": len(reqs), "new_tokens": H1_NEW,
+        "templates": [s for s, _ in H1_TEMPLATES],
+        "prompt_tokens": sum(r.prompt_len for r in reqs),
+        "prefill_tokens_off": off["prefill_tokens"],
+        "prefill_tokens_on": on["prefill_tokens"],
+        "prefill_saved": saved,
+        **{k: on[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                              "cow_copies", "forced_catchup_tokens",
+                              "dedup_pages")},
+        "streams_equal_off_on": _equal_streams(warm[False], warm[True]),
+        "first_difference_off_on": _first_difference(warm[False],
+                                                     warm[True]),
+        "turns": [{k: t[k] for k in ("turn", "mode", "tokens_per_s",
+                                     "tick_ms_p50", "tick_ms_p99", "ticks",
+                                     "dispatches")} for t in turns]}
+    _log(json.dumps({"h1": h1_out}))
+    launches = dict(turns[1]["launches"])
+
+    # ---- (h2): speculative decoding
+    reqs, prompts = _requests(H2_REQUESTS, (H2_PROMPT, H2_PROMPT + 1),
+                              (H2_NEW, H2_NEW + 1), cfg.vocab_size, 2)
+    same = InferenceEngine(eng.api, eng.params, cache_len=1024).init_slots(
+        8, paged=False)
+    other = make_engine(cfg, seed=1, cache_len=1024, dtype=torch.bfloat16,
+                        device="cuda").init_slots(8, paged=False)
+    h2_out, spec_turns = {}, []
+    for draft_name, draft in (("identical", same), ("divergent", other)):
+        eng.attach_draft(draft, spec_k=H2_SPEC_K)
+
+        def h2(k):
+            return lambda: _serve(eng, reqs, prompts, chunk_tokens=0,
+                                  spec_k=k)
+
+        t0 = time.perf_counter()
+        c0 = _captures(eng) + _captures(draft)
+        warm = {k: h2(k)()[0] for k in (0, H2_SPEC_K)}
+        sizes = (eng.jit_cache_sizes(), draft.jit_cache_sizes())
+        _log(json.dumps({f"h2/{draft_name} first runs": {
+            "captures": _captures(eng) + _captures(draft) - c0,
+            "s": time.perf_counter() - t0}}))
+        order = ((0, H2_SPEC_K, H2_SPEC_K, 0) if draft_name == "identical"
+                 else (H2_SPEC_K,))
+        turns = []
+        for k in order:
+            name = f"h2 {draft_name} {'spec' if k else 'plain'}"
+            got, turn, srv = _h_turn(torch, [eng, draft], "graphed", name,
+                                     h2(k))
+            assert got == warm[k], f"{name}: tokens changed"
+            ran = {n for n, c in turn["launches"].items() if c}
+            if k:
+                assert turn["stats"]["spec_rounds"] > 0, name
+                assert {"segment_flash_attention", "paged_chunk_attention",
+                        "decode_attention"} <= ran <= set(SPEC_PATH), ran
+                spec_turns.append(turn)
+            else:
+                _check_launches(turn["launches"],
+                                ("paged_decode_attention",
+                                 "segment_flash_attention"), name)
+            turns.append(turn)
+        assert (eng.jit_cache_sizes(), draft.jit_cache_sizes()) == sizes, \
+            f"h2/{draft_name}: a warm serve added an executable"
+        st = next(t for t in turns if t["stats"]["spec_rounds"])["stats"]
+        h2_out[draft_name] = {
+            "acceptance": st["accepted_tokens"] / st["draft_tokens"],
+            "spec_rounds": st["spec_rounds"], "rollbacks": st["rollbacks"],
+            "streams_equal_to_plain": _equal_streams(warm[0],
+                                                     warm[H2_SPEC_K]),
+            "first_difference": _first_difference(warm[0], warm[H2_SPEC_K]),
+            "turns": [{k: t[k] for k in (
+                "turn", "tokens_per_s", "tick_ms_p50", "tick_ms_p99",
+                "ticks", "dispatches", "dispatches_per_token")}
+                for t in turns],
+            "paged_chunk_attention_launches": [
+                t["launches"]["paged_chunk_attention"] for t in turns]}
+        _log(json.dumps({f"h2/{draft_name}": h2_out[draft_name]}))
+    assert h2_out["divergent"]["rollbacks"] > 0, "h2: no draft rejected"
+    eng.release_all_slots()
+    free = eng._kv.allocator._free
+    assert free == sorted(free, reverse=True), "h2: free list not canonical"
+    assert eng.check_page_invariants()
+    # the identical draft's speculative serve once more, profiled (after
+    # a serve that captures its graphs again): #3's device time on the
+    # verify path
+    eng.attach_draft(same, spec_k=H2_SPEC_K)
+    _serve(eng, reqs, prompts, chunk_tokens=0, spec_k=H2_SPEC_K)
+    _, profile = _profile(torch, lambda: _serve(
+        eng, reqs, prompts, chunk_tokens=0, spec_k=H2_SPEC_K)[0])
+    h2_out["profile"] = profile
+    h2_out["verify_chunk_ms"] = profile["port_kernels"].get(
+        "paged_chunk_attention", {}).get("ms")
+    h2_out["ties"] = _tie_report(
+        torch, eng, np.concatenate([prompts[r.rid] for r in reqs]))
+    _log(json.dumps({"h2/ties": h2_out["ties"]}))
+    for n, c in spec_turns[0]["launches"].items():
+        launches[n] += c
+    out = {"phase": "h", "model": cfg.name, "dtype": "bfloat16",
+           "layers": cfg.num_layers, "slots": "8 paged x 1024, pages of 16",
+           "h1": h1_out, "h2": h2_out, "launches": launches}
+    _emit({k: v for k, v in out.items() if k != "h2"}
+          | {"h2": {k: v for k, v in h2_out.items() if k != "profile"}})
+    del eng, same, other
+    torch.cuda.empty_cache()
+    return out
+
+
 def _insert_step_serve(eng, prompts, budgets):
     """Continuous batching through ``insert``/``step``/``free``: requests
     enter free slots in order, every active slot steps, done slots free.
@@ -1310,7 +1640,48 @@ def phase_c(torch):
     assert engines[0].stats.incr_chunks > 0, "no continuation ran"
     checks["paged_serve"]["tokens"] = sum(map(len, got.values()))
 
-    # 2. batch generate: 4 prompts of 300 tokens, 24 new tokens each
+    # 2. the radix prompt cache: a shared-prefix serve cache off, then on
+    # — the streams must be the same, on each device. Templates of 203 and
+    # 76 tokens leave 11 and 12 in their last page of 16, which a tail of
+    # 5 or 6 fills: later hits end inside that page and copy it
+    preqs, pprompts = _shared_prefix_requests(
+        cfg.vocab_size, 10, 16, ((203, 0.5), (76, 0.5)), seed=1)
+    engines = [e.init_slots(4, page_size=16) for e in pair(cfg, 512)]
+    for e in engines:
+        e.enable_prefix_cache()
+        e.warm_prefix_ops()
+
+    def prefix_serves(eng):
+        off = _serve(eng, preqs, pprompts, chunk_tokens=128)[0]
+        on = _serve(eng, preqs, pprompts, chunk_tokens=128,
+                    prefix_cache=True)[0]
+        assert on == off, "prefix cache: cache-on streams differ"
+        st = eng.stats
+        assert st.prefix_hits and st.cow_copies, st
+        return on, dataclasses.asdict(st)
+
+    check("prefix_cache", engines, prefix_serves, PAGED_PATH, packed_logits,
+          requests=len(preqs))
+
+    # 3. speculative decoding with an identical-weights ring draft at
+    # spec_k 4: the streams of plain decoding, acceptance 1.0
+    engines = [e.init_slots(4, page_size=16) for e in pair(cfg, 512)]
+    for e in engines:
+        e.attach_draft(InferenceEngine(e.api, e.params, cache_len=512)
+                       .init_slots(4, paged=False), spec_k=4)
+
+    def spec_serves(eng):
+        plain = _serve(eng, reqs, prompts, chunk_tokens=128)[0]
+        spec = _serve(eng, reqs, prompts, chunk_tokens=128, spec_k=4)[0]
+        assert spec == plain, "speculative streams differ from plain"
+        st = eng.stats
+        assert st.spec_rounds and st.accepted_tokens == st.draft_tokens, st
+        return spec, dataclasses.asdict(st)
+
+    check("speculative", engines, spec_serves, SPEC_PATH, packed_logits,
+          spec_k=4, acceptance=1.0)
+
+    # 4. batch generate: 4 prompts of 300 tokens, 24 new tokens each
     tokens = np.random.default_rng(2).integers(
         1, cfg.vocab_size, (4, 300)).astype(np.int32)
     check("generate", pair(cfg, 256),
@@ -1319,12 +1690,12 @@ def phase_c(torch):
           lambda e: e.prefill({"tokens": tokens}, e.bucket_len(300 + 32))[0],
           batch=4, prompt_len=300, new_tokens=24)
 
-    # 3. ring serve: continuations recompute the prefix
+    # 5. ring serve: continuations recompute the prefix
     engines = [e.init_slots(4, paged=False) for e in pair(cfg, 512)]
     check("ring_serve", engines, serve, RING_PATH, packed_logits)
     assert engines[0].stats.chunk_prefills > 0, "no continuation ran"
 
-    # 4. sliding window 128 on 128-row rings. serve_ticks caps a ring
+    # 6. sliding window 128 on 128-row rings. serve_ticks caps a ring
     # slot's budget at slot_len - prompt, so to wrap the rings the
     # requests go through insert/step, whose ring budgets are uncapped:
     # prompt + budget > 128 for every request
@@ -1343,7 +1714,7 @@ def phase_c(torch):
                 window=128, requests=len(wprompts))
     checks["window_ring"]["tokens"] = sum(map(len, got.values()))
 
-    # 5. mamba2-1.3b at full width cut to 2 layers: a serve with
+    # 7. mamba2-1.3b at full width cut to 2 layers: a serve with
     # recomputed continuations, then batch generate
     mcfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2,
                                dtype="float32")
@@ -1367,7 +1738,7 @@ def phase_c(torch):
           SSM_PATH, lambda e: e.prefill({"tokens": mtokens})[0],
           batch=4, prompt_len=300, new_tokens=24)
 
-    # 6. the pool: the quick trio at full width cut to 2 layers, under
+    # 8. the pool: the quick trio at full width cut to 2 layers, under
     # dstack on each device — the same admissions and counts
     pools = _pool_pair(torch)
     logs, results = [], []
@@ -1446,8 +1817,8 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefgc",
-                    help="which phases to run, of a, b, d, e, f, g, c "
+    ap.add_argument("--phases", default="abdefghc",
+                    help="which phases to run, of a, b, d, e, f, g, h, c "
                          "(default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -1506,13 +1877,15 @@ def main(argv=None) -> int:
         report["f"] = timed("f", phase_f)
     if "g" in args.phases:
         report["g"] = timed("g", phase_g)
-    for phase in "bdefg":
+    if "h" in args.phases:
+        report["h"] = timed("h", phase_h)
+    for phase in "bdefgh":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c)
     if summary:
-        if all(p in args.phases for p in "bdefg"):
+        if all(p in args.phases for p in "bdefgh"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

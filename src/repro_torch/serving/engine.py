@@ -20,9 +20,19 @@ with the same method names, the same page bookkeeping
   dispatch: incrementally on paged slots (only the new tokens run,
   attending the K/V their slot holds in the page pool), by prefix
   recompute on ring slots (the whole prefix re-runs the packed prefill);
-* ``step`` decodes one token for the stepped slots in ONE masked dispatch;
+* ``step`` decodes one token for the stepped slots in ONE masked dispatch
+  (teacher-forced slots write a prompt token's K/V in the same dispatch);
 * ``execute(plan)`` runs one ``StepPlan`` in at most these three
-  dispatches per tick.
+  dispatches per tick, plus a speculative round's;
+* ``enable_prefix_cache`` attaches the radix prompt cache
+  (``repro_torch.serving.prefix_cache``): a hit admission aliases cached
+  pages into its block-table row (``alias_admit``: at most one
+  copy-on-write page copy and one row write) and replays its uncovered
+  prompt tail as teacher-forced decode steps;
+* ``attach_draft`` pairs a ring-slot draft engine for speculative
+  decoding: per round the draft proposes up to spec_k tokens in one
+  dispatch, the target verifies them in one incremental chunk dispatch
+  and one small dispatch commits the accepted horizon.
 
 What differs from the JAX engine: the executables are CUDA graphs.
 ``repro_torch.serving.graphs`` keeps one per bucket, keyed as the JAX
@@ -31,10 +41,12 @@ a CUDA device ``packed_prefill`` (which folds in the packed-segment
 scatter the JAX engine jits apart as ``write_segments``),
 ``chunk_prefill`` and ``slot_step`` are captured at a bucket's first
 dispatch and replayed at every later one, and so is ``generate``'s decode
-step, once per token. ``prefill``, ``insert``, ``generate``'s padded
-prefill and ``generate_eager`` stay eager (the reference paths, as in
-JAX); on the CPU, or with ``graphs=False``, every step runs eagerly
-through the same registry. A graph reads and writes fixed addresses, so
+step, once per token, and the prefix cache's ``copy_page`` and
+``alias_slot`` and speculation's ``draft_scan`` and ``spec_commit``.
+``prefill``, ``insert``, ``generate``'s padded prefill and
+``generate_eager`` stay eager (the reference paths, as in JAX); on the
+CPU, or with ``graphs=False``, every step runs eagerly through the same
+registry. A graph reads and writes fixed addresses, so
 every tensor that outlives a dispatch — each slot-cache leaf, the block
 table, ``_last_tok`` — is allocated once by ``init_slots`` and updated IN
 PLACE (the JAX engine donates and rebuilds them); ``init_slots`` drops
@@ -42,9 +54,9 @@ the slot executables with the buffers they bind. The packed metadata
 (segment ids, lengths, destinations, table rows) is built on the host in
 numpy and reaches the device as one int32 copy per dispatch — nothing on
 the serving path reads a device value back except the one tick-end read
-of the decoded tokens. Sampled decoding, the prefix cache, speculative
-decoding and telemetry are not ported yet: those attributes stay
-``None``.
+of the decoded tokens (and, in a speculative round, one read of the
+draft's proposals and the verify chunk's argmax). Sampled decoding and
+telemetry are not ported yet: ``telemetry`` stays ``None``.
 """
 from __future__ import annotations
 
@@ -57,9 +69,11 @@ import torch
 
 from repro_torch.models.registry import ModelAPI, build_model
 from repro_torch.serving.faults import EngineFault, TransientFault
-from repro_torch.serving.graphs import SLOT_KINDS, StepGraphs
+from repro_torch.serving.graphs import (PREFIX_KINDS, SLOT_KINDS,
+                                       SPEC_KINDS, StepGraphs)
 from repro_torch.serving.kv_cache import NULL_PAGE, OutOfPages, PagedKVCache
 from repro_torch.serving.plan import StepResult
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 def _pow2_at_least(n: int) -> int:
@@ -76,8 +90,7 @@ def _packed_bucket(n: int) -> int:
 
 @dataclasses.dataclass
 class EngineStats:
-    """The JAX engine's counters, same names and meanings; the prefix-
-    cache and speculative counters stay 0 until those features land."""
+    """The JAX engine's counters, same names and meanings."""
     prefills: int = 0          # prefill DISPATCHES (a packed one counts 1)
     packed_prefills: int = 0   # of which packed multi-segment dispatches
     chunk_prefills: int = 0    # chunk-continuation dispatches
@@ -126,11 +139,21 @@ class InferenceEngine:
         self.fault_injector = None
         self.retry_limit = 2
         self.retry_backoff_s = 0.0
-        # features of the JAX engine the port does not serve yet; the
-        # planner sees them absent
+        # the telemetry plane is not ported yet; the planner sees it absent
         self.telemetry = None
+        # radix prompt cache (enable_prefix_cache): a host-side radix tree
+        # over the page allocator; hit admissions dispatch the
+        # ``copy_page`` and ``alias_slot`` executables
         self.prefix_cache = None
-        self._draft = None
+        # speculative decoding (attach_draft): a paired ring engine drafts
+        # spec_k tokens per round in one ``draft_scan`` dispatch; the
+        # target verifies them in one ``chunk_prefill`` dispatch and
+        # commits in one ``spec_commit``. _draft_ready holds target slots
+        # whose draft twin is admitted (target slot i drafts in draft
+        # slot i)
+        self._draft: Optional["InferenceEngine"] = None
+        self._draft_ready: set = set()
+        self.spec_k = 0
 
         # slot state (populated by init_slots)
         self.paged = False
@@ -178,7 +201,10 @@ class InferenceEngine:
         CPU. ``packed_prefill`` and ``chunk_prefill`` fold in the
         packed-segment scatter that the JAX engine counts apart as
         ``write_segments``; ``prefill``, ``insert`` and ``generate_eager``
-        stay eager and have no executables."""
+        stay eager and have no executables. ``copy_page`` and
+        ``alias_slot`` appear once the prefix cache is enabled,
+        ``draft_scan`` and ``spec_commit`` once a draft is attached, as
+        in the JAX engine."""
         return self._graphs.sizes()
 
     def graph_pool_bytes(self) -> int:
@@ -553,17 +579,20 @@ class InferenceEngine:
 
     def _segment_body(self, kind: str, dev, row_len: int):
         """The packed prefill, or the incremental chunk over the resident
-        pages, and its scatter, on the step's buffers."""
+        pages, and its scatter, on the step's buffers. Returns the
+        segments' last logits and, for a chunk, the per-token argmax (what
+        a speculative round scores its drafts against)."""
+        amax = None
         if kind == "packed_prefill":
             logits, pcache = self.api.prefill_packed(self.params, dev,
                                                      row_len)
         else:
-            logits, _, pcache = self.api.prefill_chunk(
+            logits, amax, pcache = self.api.prefill_chunk(
                 self.params, dev, self._slot_cache, row_len)
         _write_segments(self._slot_cache, self._last_tok, pcache, logits,
                         dev, dev["counts"][0], dev["counts"][1],
                         self.api.paged_keys)
-        return logits
+        return logits, amax
 
     def _segment_dest(self, slots: List[int], lens: List[int]):
         """Host destination indices of the packed-segment scatter of whole
@@ -630,6 +659,10 @@ class InferenceEngine:
         its dead writes land in the null page and its reads are masked."""
         if not self._slot_active[slot]:
             return
+        if slot in self._draft_ready:
+            # the draft twin dies with its target
+            self._draft.free(slot)
+            self._draft_ready.discard(slot)
         self._slot_active[slot] = False
         self._slot_free.append(slot)
         self._slot_pos[slot] = 0
@@ -657,6 +690,189 @@ class InferenceEngine:
         if self.api.prefill_chunk is None:
             return False
         return not getattr(self.cfg, "num_experts", 0)
+
+    def spec_capable(self) -> bool:
+        """Speculative decoding needs greedy slot steps (draft/verify
+        equivalence is an arg-max identity) on a ``chunk_capable``
+        engine; the port's slots are always greedy."""
+        return self.chunk_capable()
+
+    def host_last_token(self, slot: int) -> int:
+        """Host read of the slot's pending token (the next decode input,
+        not yet emitted). The planner reads it once per request as the
+        speculation seed; a per-slot sync, so only with speculation on."""
+        return int(self._last_tok[slot])
+
+    def draft_synced(self, slot: int) -> bool:
+        """True when the slot's draft twin exists and sits at the same
+        written-token position — the next spec round needs no re-init."""
+        return (self._draft is not None and slot in self._draft_ready
+                and self._draft._slot_pos[slot] == self._slot_pos[slot])
+
+    # ------------------------------------------------ radix prompt cache
+    def enable_prefix_cache(self):
+        """Attach a radix prompt cache over this engine's page allocator
+        and register the two hit-admission executables (COW page copy,
+        table-row + position write). Raises for incapable families —
+        callers that want best effort check ``prefix_cache_capable``."""
+        if not self.prefix_cache_capable():
+            raise ValueError(
+                f"{self.cfg.name}: prefix cache needs a paged engine whose "
+                "per-row state is exactly pages + pos (families with SSM "
+                "state / conv tails / cross K/V cannot alias their prefix)")
+        self.prefix_cache = PrefixCache(self._kv.allocator, self.page_size)
+        # recovery keeps radix nodes touched within this many cache
+        # operations of the fault (``PrefixCache.retain_recent``)
+        self.prefix_hot_window = 64
+        self._graphs.add_kinds(PREFIX_KINDS)
+        return self.prefix_cache
+
+    def warm_prefix_ops(self) -> None:
+        """Build (capture, on the card) the hit-admission executables up
+        front, on dead state: the COW copy of the null page onto itself,
+        and a vacant slot's parked state (null table row, position 0)
+        written back unchanged."""
+        if self.prefix_cache is None:
+            return
+        self._copy_page(NULL_PAGE, NULL_PAGE)
+        if self._slot_free:
+            self._alias_slot(self._slot_free[0],
+                             np.full((self.max_pages,), NULL_PAGE, np.int32),
+                             0)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The ``copy_page`` dispatch: physical page ``src`` of every paged
+        leaf copied onto ``dst``."""
+        arrays = {"pages": np.asarray([src, dst], np.int32)}
+        self._graphs.entry("copy_page", None, self._copy_page_body,
+                           arrays).run(arrays)
+
+    def _copy_page_body(self, dev):
+        src, dst = dev["pages"][:1].long(), dev["pages"][1:].long()
+        for key in self.api.paged_keys:
+            leaf = self._slot_cache[key]        # (layers, pages, page, ...)
+            leaf.index_copy_(1, dst, leaf.index_select(1, src))
+
+    def _alias_slot(self, slot: int, table_row: np.ndarray, pos: int) -> None:
+        """The ``alias_slot`` dispatch: the slot's whole block-table row
+        (one static shape for every hit) and its position."""
+        arrays = {"slot": np.asarray([slot], np.int32),
+                  "row": np.asarray(table_row, np.int32)[None],
+                  "pos": np.asarray([pos], np.int32)}
+        self._graphs.entry("alias_slot", None, self._alias_slot_body,
+                           arrays).run(arrays)
+
+    def _alias_slot_body(self, dev):
+        slot = dev["slot"].long()
+        tables, pos = self._slot_cache["block_tables"], self._slot_cache["pos"]
+        tables.index_copy_(0, slot, dev["row"].to(tables.dtype))
+        pos.index_copy_(0, slot, dev["pos"].to(pos.dtype))
+
+    def slot_pages(self, slot: int) -> List[int]:
+        """Physical pages backing a slot, in logical order (the prefix
+        cache registers a finished prefill's leading pages)."""
+        return self._kv.pages(slot) if self.paged else []
+
+    def alias_admit(self, batch: Dict[str, Any], hit,
+                    n_tokens: Optional[int] = None,
+                    reserve_tokens: Optional[int] = None) -> int:
+        """Admit one request whose prompt prefix is a cache hit — no
+        prefill for the covered tokens.
+
+        ``hit`` is a pinned ``PrefixHit`` from ``prefix_cache.match``: its
+        fully covered pages alias read-only into the new slot's block
+        table (the row adopts the match-time pins), a partial-page match
+        is copied into the row's first fresh page (one ``copy_page``
+        dispatch; the pin on the source releases after the copy), and the
+        rest of the horizon allocates fresh pages all-or-nothing. The slot
+        starts at ``pos = covered`` with the first uncovered prompt token
+        pending, so teacher-forced catch-up steps (the planner's
+        ``StepPlan.forced``, or ``catchup_prefill``) replay the prompt
+        tail through the decode dispatch, each writing K/V where a
+        whole-prompt prefill would; the last leaves the argmax over the
+        full prompt pending, as ``insert`` does.
+
+        Raises ``OutOfPages`` with nothing changed (the caller keeps the
+        hit's pins and must ``release_hit`` it)."""
+        if not self._slot_free:
+            raise RuntimeError("no free slots")
+        assert self.prefix_cache is not None, "enable_prefix_cache first"
+        assert batch["tokens"].shape[0] == 1, "alias_admit admits one request"
+        s = int(batch["tokens"].shape[1])
+        covered = int(hit.covered)
+        assert 0 < covered < s, \
+            f"hit covers {covered} of a {s}-token prompt"
+        if s >= self.slot_len:
+            raise ValueError(
+                f"prompt of {s} tokens leaves no decode room in a "
+                f"{self.slot_len}-token paged slot (pages are never "
+                f"evicted; use a longer cache_len)")
+        room = self.slot_len - s
+        budget = room if n_tokens is None else max(1, min(int(n_tokens),
+                                                          room))
+        horizon = s + budget if reserve_tokens is None else max(
+            covered + 1, min(int(reserve_tokens), self.slot_len))
+        slot = self._slot_free[0]          # claim only after pages are ours
+        fresh = self._kv.alloc_alias(slot, hit.pages, horizon)
+        self._slot_free.pop(0)
+        if hit.cow_src is not None:
+            # the partially matched page copies into the row's first page
+            # past the aliased prefix; its divergent suffix is stale but
+            # never read (attention masks by pos) and is overwritten in
+            # order by the forced catch-up writes
+            self._copy_page(hit.cow_src, fresh[0])
+            self._kv.allocator.release([hit.cow_src])
+            self.stats.cow_copies += 1
+        self._alias_slot(slot, np.asarray(self._kv.table_row(slot), np.int32),
+                         covered)
+        self._last_tok[slot] = int(np.asarray(batch["tokens"])[0, covered])
+        self._slot_active[slot] = True
+        self._slot_budget[slot] = budget
+        self._slot_generated[slot] = 0
+        self._slot_pos[slot] = covered
+        self._active_mask[slot] = True
+        self.stats.inserts += 1
+        self.stats.prefix_hits += 1
+        self.stats.prefix_hit_tokens += covered
+        return slot
+
+    def catchup_prefill(self, slot: int, tokens, covered: int) -> None:
+        """Teacher-forced completion of an aliased prompt, one decode
+        dispatch per remaining token (the pool plane's eager form; the
+        tick plane spreads the same steps across ticks through
+        ``StepPlan.forced``). After it the slot sits where a whole-prompt
+        insert leaves it: ``pos = len(tokens)``, the argmax over the full
+        prompt pending."""
+        for i in range(int(covered), len(tokens)):
+            self.step([slot], forced={slot: int(tokens[i])})
+
+    def dedup_slot_prefix(self, slot: int, tokens, n_full: int) -> int:
+        """Cross-request prefix dedup at registration time: when two
+        same-prefix prompts prefill in the same tick, both miss and both
+        fill their own pages with the same K/V for the shared prefix. The
+        first to finish registers its pages as the canonical ones; this
+        call — made right after the second registers — repoints every
+        one of the slot's leading ``n_full`` pages that differs from the
+        tree's canonical walk and releases the row's duplicate. The
+        updated table row goes to the device; values never change, so
+        streams are untouched. Safe because every later write on a
+        registered row lands at ``pos >= prompt_len``. Returns duplicate
+        pages actually freed."""
+        if not self.paged or self.prefix_cache is None or n_full < 1:
+            return 0
+        ps = self.page_size
+        canonical = self.prefix_cache.canonical_pages(
+            list(tokens)[:n_full * ps])
+        own = self._kv.pages(slot)
+        swaps = [(i, c) for i, (o, c)
+                 in enumerate(zip(own[:n_full], canonical)) if o != c]
+        if not swaps:
+            return 0
+        freed = self._kv.repoint(slot, swaps)
+        _set_table_row(self._slot_cache, slot,
+                       np.asarray(self._kv.table_row(slot), np.int32))
+        self.stats.dedup_pages += freed
+        return freed
 
     # ------------------------------------------------ page-view accessors
     def slot_pos(self, slot: int) -> int:
@@ -762,6 +978,279 @@ class InferenceEngine:
             self._slot_pos[slot] = ln
         self.stats.chunk_prefills += 1
 
+    # --------------------------------------------- speculative decoding
+    def attach_draft(self, draft: "InferenceEngine", spec_k: int
+                     ) -> "InferenceEngine":
+        """Pair a ring-slot draft engine with this (paged, greedy) target
+        for speculative decoding: per round the draft proposes up to
+        ``spec_k`` tokens in ONE ``draft_scan`` dispatch and the target
+        verifies them all in ONE incremental chunk dispatch.
+
+        Identity pairing — target slot i drafts in draft slot i — so the
+        draft needs at least as many slots, each at least as long as a
+        target slot (a ring wrap would corrupt the mirrored history). The
+        ring never pages, so drafting can neither run out of pages nor
+        touch the target's pool. Vocabularies must agree: accepted draft
+        tokens feed the target's embedding directly. The draft's slots
+        and weights are bound here: attach again after changing them."""
+        if int(spec_k) < 1:
+            raise ValueError("spec_k must be >= 1")
+        if not self.spec_capable():
+            raise ValueError(
+                f"{self.cfg.name}: speculative decoding needs a paged "
+                "greedy engine whose per-row state is exactly pages + pos "
+                "and whose family ships prefill_chunk")
+        if draft.paged:
+            raise ValueError("draft must use ring slots (paged=False)")
+        if draft.n_slots < self.n_slots or draft.slot_len < self.slot_len:
+            raise ValueError(
+                f"draft needs >= {self.n_slots} slots of >= "
+                f"{self.slot_len} tokens (has {draft.n_slots} x "
+                f"{getattr(draft, 'slot_len', 0)})")
+        if draft.cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft/target vocabularies differ "
+                f"({draft.cfg.vocab_size} vs {self.cfg.vocab_size})")
+        self._draft = draft
+        self.spec_k = int(spec_k)
+        self._draft_ready = set()
+        self._spec_consts: Dict[Any, Dict[str, Any]] = {}
+        self._spec_tables: Dict[Any, Tuple[List[np.ndarray], np.ndarray]] = {}
+        # the draft's proposals, read on the host after the verify chunk
+        # has run: engine state, outside the graph pool, whose blocks a
+        # later capture may reuse for its temporaries
+        self._spec_props = torch.zeros((self.spec_k + 1, draft.n_slots),
+                                       dtype=draft._last_tok.dtype,
+                                       device=self.device)
+        self._graphs.add_kinds(SPEC_KINDS)
+        self._graphs.clear(SPEC_KINDS)
+        return draft
+
+    def _draft_scan_body(self, dev):
+        """The draft's whole round in one dispatch: each paired row's
+        pending token pinned to the target's (teacher forcing), then
+        spec_k + 1 masked greedy ring steps (``slot_step``'s body) — step
+        i writes the previous token's K/V and proposes the next; the last
+        step only writes the last proposal's K/V, so an all-accepted round
+        leaves the draft one bonus token behind the target — and the
+        verify token row: position 0 of each segment the target's pending
+        token, positions 1..k its draft's proposals. The proposals land in
+        ``_spec_props`` (spec_k + 1, draft slots); returns the verify row
+        (T,) int32, which the round copies on at once."""
+        draft = self._draft
+        tok = draft._last_tok
+        # padding lanes repeat the last real lane: the same value to the
+        # same row
+        tok.index_copy_(0, dev["idx_d"].long(),
+                        self._last_tok.index_select(0, dev["idx_t"].long()))
+        masks = dev["masks"] != 0
+        props = self._spec_props
+        for i in range(masks.shape[0]):
+            _slot_decode_step(draft.api, draft._step_skip, draft._ring_keys,
+                              draft.params, tok, draft._slot_cache, masks[i])
+            props[i].copy_(tok)
+        step_idx, slot_idx = dev["step_idx"].long(), dev["slot_idx"].long()
+        drafted = props[torch.clamp(step_idx - 1, min=0), slot_idx]
+        verify = torch.where(step_idx == 0, self._last_tok[slot_idx], drafted)
+        return verify.to(torch.int32)
+
+    def _spec_commit_body(self, dev):
+        """The end of a round, both engines at once: the target's
+        ``pos`` rewound to the accepted horizon (the verify chunk's
+        scatter wrote K/V, and ``pos``, for all k + 1 positions; rejected
+        positions sit past the horizon, never attended, and are rewritten
+        in order), both pending tokens pinned to the bonus token, and the
+        draft ring's ``pos`` rewound to the same horizon."""
+        draft = self._draft
+        slots = dev["slots"].long()
+        for cache in (self._slot_cache, draft._slot_cache):
+            cache["pos"].index_copy_(0, slots,
+                                     dev["pos"].to(cache["pos"].dtype))
+        for tok in (self._last_tok, draft._last_tok):
+            tok.index_copy_(0, slots, dev["tok"].to(tok.dtype))
+
+    def _round_consts(self, entries):
+        """The host arrays of a round that depend only on its (slots, ks)
+        — identical for every steady-state round, built once: the draft
+        scan's index vectors and step masks, and the verify chunk's
+        segment layout."""
+        key = (tuple(s for s, _, _ in entries),
+               tuple(k for _, k, _ in entries))
+        got = self._spec_consts.get(key)
+        if got is not None:
+            return got
+        slots = list(key[0])
+        draft = self._draft
+        n_steps = self.spec_k + 1
+        masks = np.zeros((n_steps, draft.n_slots), np.int32)
+        for slot, k, _ in entries:
+            masks[:k + 1, slot] = 1
+        vlens = [k + 1 for _, k, _ in entries]
+        t = max(1, _packed_bucket(sum(vlens)))
+        s_max = max(1, _pow2_at_least(len(slots)))
+        # padding lanes repeat the last real one
+        idx = np.asarray(slots + [slots[-1]] * (self.n_slots - len(slots)),
+                         np.int32)
+        seg_ids = np.full((t,), s_max, np.int32)
+        seg_starts = np.zeros((s_max,), np.int32)
+        seg_lens = np.zeros((s_max,), np.int32)
+        step_idx = np.zeros((t,), np.int32)
+        slot_idx = np.zeros((t,), np.int32)
+        off = 0
+        for j, (slot, ln) in enumerate(zip(slots, vlens)):
+            seg_ids[off:off + ln] = j
+            seg_starts[j] = off
+            seg_lens[j] = ln
+            step_idx[off:off + ln] = np.arange(ln)
+            slot_idx[off:off + ln] = slot
+            off += ln
+        got = self._spec_consts[key] = {
+            "scan": {"idx_t": idx, "idx_d": idx, "masks": masks,
+                     "step_idx": step_idx, "slot_idx": slot_idx},
+            "packed": {"tokens": np.zeros((1, t), np.int32),
+                       "seg_ids": seg_ids, "seg_starts": seg_starts,
+                       "seg_lens": seg_lens},
+            "slots": slots, "vlens": vlens, "t": t, "s_max": s_max,
+            "starts": [int(x) for x in seg_starts[:len(slots)]],
+            "row_len": min(self.slot_len, _pow2_at_least(max(vlens)))}
+        return got
+
+    def _spec_round(self, entries: List[Tuple[int, int, Optional[List[int]]]],
+                    res) -> None:
+        """One draft → verify → accept/rollback round for the plan's
+        ``spec`` entries [(slot, k, init_tokens-or-None)].
+
+        Protocol (greedy): the target's pending token t sits at position
+        P = ``_slot_pos[slot]`` with its K/V unwritten. The draft —
+        teacher-forced to the same history — proposes d_1..d_k; the
+        verify chunk runs [t, d_1..d_k] through the incremental prefill
+        (the ``chunk_prefill`` executable of continuations), whose
+        per-token argmax row is the sequence of tokens greedy decode would
+        have emitted one step at a time. The longest prefix a of agreeing
+        drafts is accepted, and position P+a's argmax is the bonus token —
+        a+1 tokens per round. The verify's scatter writes all k+1
+        positions' K/V into the slot's reserved pages; ``spec_commit``
+        sets ``pos`` to the accepted horizon P+a+1, so rejected K/V sits
+        past it, never attended — rollback costs no dispatch and
+        conserves pages. The draft ring rewinds the same way, and both
+        engines hold the bonus token as their pending input."""
+        draft = self._draft
+        slots = [s for s, _, _ in entries]
+        offs = [self._slot_pos[s] for s in slots]
+
+        # (re)admit draft twins that are missing or out of lockstep (the
+        # slot decoded plainly while speculation was gated off): one
+        # packed prefill on the DRAFT engine re-mirrors the history
+        admit = []
+        for (slot, _, init), off in zip(entries, offs):
+            if self.draft_synced(slot):
+                continue
+            if slot in self._draft_ready:
+                draft.free(slot)
+                self._draft_ready.discard(slot)
+            assert init is not None and len(init) == off, \
+                f"slot {slot}: draft init missing or mismatched"
+            admit.append((slot, init))
+        if admit:
+            order = [s for s, _ in admit]
+            chosen = set(order)
+            draft._slot_free = order + [s for s in draft._slot_free
+                                        if s not in chosen]
+            got = draft.insert_many(
+                [{"tokens": np.asarray(toks, np.int32)[None, :]}
+                 for _, toks in admit], n_tokens=[None] * len(admit))
+            assert got == order, "draft twin landed on the wrong slot"
+            self._draft_ready.update(order)
+            res.dispatches += 1
+
+        consts = self._round_consts(entries)
+        t, s_max, starts = consts["t"], consts["s_max"], consts["starts"]
+        vlens = consts["vlens"]
+
+        # ---- draft: k+1 masked steps, one dispatch, nothing read back
+        scan = consts["scan"]
+        verify = self._graphs.entry(
+            "draft_scan", t, self._draft_scan_body, scan).run(scan)
+        res.dispatches += 1
+
+        # ---- verify: [t, d_1..d_k] per slot, one incremental chunk whose
+        # token row is the draft scan's output, copied on the device into
+        # the chunk's upload (no host sync between the two)
+        hist = np.zeros((s_max,), np.int32)
+        hist[:len(offs)] = offs
+        tkey = (tuple(slots), self._kv.version)
+        tables = self._spec_tables.get(tkey)
+        if tables is None:
+            if len(self._spec_tables) > 64:
+                self._spec_tables.clear()
+            pages = [np.asarray(self._kv.pages(s), np.int32) for s in slots]
+            rows = np.full((s_max, self.max_pages), NULL_PAGE, np.int32)
+            for i, p in enumerate(pages):
+                rows[i, :len(p)] = p
+            tables = self._spec_tables[tkey] = (pages, rows)
+        pages, rows = tables
+        dest0 = np.zeros((t,), np.int32)             # null page
+        dest1 = np.zeros((t,), np.int32)
+        for p, st, ln, h in zip(pages, starts, vlens, offs):
+            span = np.arange(h, h + ln)
+            dest0[st:st + ln] = p[span // self.page_size]
+            dest1[st:st + ln] = span % self.page_size
+        seg_slots = np.full((s_max,), self.n_slots, np.int32)
+        seg_slots[:len(slots)] = slots
+        arrays = dict(consts["packed"], hist_lens=hist, dest0=dest0,
+                      dest1=dest1, seg_slots=seg_slots, table_rows=rows,
+                      counts=np.asarray([len(slots), sum(vlens)], np.int32))
+        row_len = consts["row_len"]
+        step = self._graphs.entry(
+            "chunk_prefill", (t, row_len, s_max),
+            lambda dev: self._segment_body("chunk_prefill", dev, row_len),
+            arrays)
+        step.fill(arrays)
+        step.views["tokens"][0].copy_(verify)
+        _, amax = step.launch()
+        res.dispatches += 1
+
+        # ---- accept / rollback on the host: the round's only reads
+        props_h = self._spec_props.cpu().numpy().T.tolist()  # per slot
+        amax = amax.cpu().tolist()
+        n = len(slots)
+        aux = np.zeros((3, s_max), np.int32)
+        emitted_total = accepted_total = drafted_total = n_roll = 0
+        for j, (slot, k, _) in enumerate(entries):
+            st = starts[j]
+            pl = props_h[slot]
+            a = 0
+            while a < k and pl[a] == amax[st + a]:
+                a += 1
+            g = amax[st + a]                         # bonus token
+            res.spec_tokens[slot] = pl[:a] + [g]
+            aux[:, j] = (slot, g, offs[j] + a + 1)
+            self._slot_pos[slot] = offs[j] + a + 1
+            self._slot_generated[slot] += a + 1
+            draft._slot_pos[slot] = offs[j] + a + 1
+            emitted_total += a + 1
+            accepted_total += a
+            drafted_total += k
+            if a < k:
+                n_roll += 1
+        aux[:, n:] = aux[:, n - 1:n]                 # padding: the last lane
+        commit = {"slots": aux[0], "tok": aux[1], "pos": aux[2]}
+        self._graphs.entry("spec_commit", (t, s_max), self._spec_commit_body,
+                           commit).run(commit)
+
+        self.stats.spec_rounds += 1
+        self.stats.draft_tokens += drafted_total
+        self.stats.accepted_tokens += accepted_total
+        self.stats.rollbacks += n_roll
+        self.stats.tokens_out += emitted_total
+        for slot, active in enumerate(self._slot_active):
+            if active:
+                budget = self._slot_budget[slot]
+                if (budget is not None
+                        and self._slot_generated[slot] >= budget
+                        and slot not in res.done):
+                    res.done.append(slot)
+
     # ---------------------------------------------------- fault tolerance
     def attach_faults(self, injector, max_retries: Optional[int] = None,
                       backoff_s: Optional[float] = None) -> None:
@@ -777,23 +1266,37 @@ class InferenceEngine:
 
     def recover(self) -> int:
         """Engine reset after an unrecoverable fault: every slot is freed
-        and the page-conservation audit runs before serving resumes.
-        Returns how many slots were dropped."""
+        and the page-conservation audit runs before serving resumes. The
+        radix prompt cache is not flushed: its registered pages hold K/V
+        of prompts that finished prefill before the fault, so the hot
+        subtree survives (``PrefixCache.retain_recent`` over
+        ``prefix_hot_window``) and the audit accounts it: free +
+        cache-held == total. Returns how many slots were dropped."""
         dropped = sum(1 for a in self._slot_active if a)
-        self.release_all_slots()
+        self.release_all_slots(flush_cache=False)
+        if self.prefix_cache is not None:
+            self.prefix_cache.retain_recent(self.prefix_hot_window)
         if self.paged:
-            assert self._kv.free_pages == self._kv.allocator.num_pages, \
+            held = (self.prefix_cache.held_pages
+                    if self.prefix_cache is not None else 0)
+            assert (self._kv.free_pages + held
+                    == self._kv.allocator.num_pages), \
                 "engine recovery leaked pages"
         self.check_page_invariants()
         self.stats.engine_resets += 1
         return dropped
 
     def check_page_invariants(self) -> bool:
-        """Host-side page audit: allocator conservation plus slot-level
-        ownership (vacant slots own no pages). No-op for ring engines."""
+        """Host-side page audit: allocator conservation (the prefix
+        cache's references included) plus slot-level ownership (vacant
+        slots own no pages). No-op for ring engines."""
         if not self.paged:
             return True
-        self._kv.check_invariants()
+        extra = (self.prefix_cache.page_refs()
+                 if self.prefix_cache is not None else None)
+        self._kv.check_invariants(extra_refs=extra)
+        if self.prefix_cache is not None:
+            self.prefix_cache.check_invariants()
         for slot in self._slot_free:
             assert not self._kv.pages(slot), \
                 f"vacant slot {slot} still owns pages"
@@ -802,8 +1305,11 @@ class InferenceEngine:
     # ------------------------------------------------- plan execution
     def execute(self, plan) -> StepResult:
         """Run one ``StepPlan``: frees → cancels → preemptions → grows →
-        first chunks (ONE packed prefill) → continuation chunks (ONE
-        incremental chunk dispatch) → decodes (ONE slot step). With a
+        alias admissions (prefix-cache hits: a page copy and a row write
+        each, no prefill) → first chunks (ONE packed prefill) →
+        continuation chunks (ONE incremental chunk dispatch) → decodes and
+        teacher-forced catch-up tokens (ONE slot step) → a speculative
+        round for the plan's ``spec`` slots. With a
         ``FaultInjector`` attached, injected ``TransientFault``s retry up
         to ``retry_limit`` times before raising ``EngineFault``; the fault
         fires before the plan mutates anything."""
@@ -840,9 +1346,24 @@ class InferenceEngine:
                 # skip its chunk/decode this tick, report for requeue
                 failed.add(slot)
                 res.failed_grows.append(slot)
-        first = [c for c in plan.admissions if c.slot is None]
+        alias = [c for c in plan.admissions
+                 if c.slot is None and c.alias is not None]
+        first = [c for c in plan.admissions
+                 if c.slot is None and c.alias is None]
         cont = [c for c in plan.admissions if c.slot is not None
                 and c.slot not in failed]
+        for c in alias:
+            # each hit consumes its match-time pins; on OutOfPages (fresh
+            # tail pages) nothing changed, so the pins return to the cache
+            # and the planner requeues the request like any failed
+            # admission
+            try:
+                slot = self.alias_admit(c.batch, c.alias,
+                                        n_tokens=c.n_tokens,
+                                        reserve_tokens=c.reserve_tokens)
+                res.admitted[c.rid] = slot
+            except OutOfPages:
+                self.prefix_cache.release_hit(c.alias)
         if first:
             try:
                 slots = self.insert_many(
@@ -860,21 +1381,37 @@ class InferenceEngine:
             self.chunk_append([(c.slot, c.batch, c.final) for c in cont])
             res.dispatches += 1
         decodes = [s for s in plan.decodes if s not in failed]
-        if decodes:
-            toks, done = self.step(decodes)
+        forced = {s: t for s, t in plan.forced if s not in failed}
+        if decodes or forced:
+            # teacher-forced catch-up slots join THE decode dispatch: the
+            # step writes each one's prompt token's K/V at pos (what a
+            # prefill would write there) and advances pos; forced outputs
+            # never reach res.tokens — nothing was generated
+            toks, done = self.step(decodes + list(forced), forced=forced)
             t = toks.cpu().numpy()
             res.tokens = {int(s): int(t[s]) for s in decodes}
             res.done = list(done)
             res.dispatches += 1
+        spec = [e for e in plan.spec if e[0] not in failed]
+        if spec:
+            self._spec_round(spec, res)
         return res
 
-    def step(self, slots: Optional[List[int]] = None
+    def step(self, slots: Optional[List[int]] = None,
+             forced: Optional[Dict[int, int]] = None
              ) -> Tuple[torch.Tensor, List[int]]:
         """One greedy decode step in a single dispatch — for all active
         slots (default) or the plan's ``decodes`` subset. Returns
         ``(tokens, done)``: tokens (n_slots,) on the device (unstepped
         slots keep their pending token), and the active slots whose token
-        budget is now exhausted (host counters, no device read)."""
+        budget is now exhausted (host counters, no device read).
+
+        ``forced`` maps teacher-forced slots (a prefix-cache hit replaying
+        its uncovered prompt tail) to their prompt token: the token rides
+        the step's upload and becomes the slot's pending token inside the
+        dispatch, the step writes its K/V and advances ``pos`` as a
+        prefill would, and the slot's generated count and the emitted
+        tokens are untouched — nothing was sampled for the stream."""
         if slots is None:
             mask = self._active_mask.copy()
             stepped = [s for s, a in enumerate(self._slot_active) if a]
@@ -883,12 +1420,20 @@ class InferenceEngine:
             for s in slots:
                 mask[s] = self._slot_active[s]
             stepped = [s for s in slots if self._slot_active[s]]
-        arrays = {"mask": mask.astype(np.int32)}
+        forced = forced or {}
+        pending = np.full((self.n_slots,), -1, np.int32)
+        for s, t in forced.items():
+            pending[s] = t
+        arrays = {"mask": mask.astype(np.int32), "forced": pending}
         self._graphs.entry("slot_step", None, self._step_body,
                            arrays).run(arrays)
+        n_forced = 0
         for slot in stepped:
             self._slot_pos[slot] += 1
-            self._slot_generated[slot] += 1
+            if slot in forced:
+                n_forced += 1
+            else:
+                self._slot_generated[slot] += 1
         done: List[int] = []
         for slot, active in enumerate(self._slot_active):
             if active:
@@ -896,14 +1441,18 @@ class InferenceEngine:
                 if budget is not None and self._slot_generated[slot] >= budget:
                     done.append(slot)
         self.stats.decode_steps += 1
-        self.stats.tokens_out += len(stepped)
+        self.stats.tokens_out += len(stepped) - n_forced
+        self.stats.forced_catchup_tokens += n_forced
         return self._last_tok, done
 
     def _step_body(self, dev):
-        """The masked slot step, in place on the slot state."""
+        """The masked slot step, in place on the slot state, after the
+        forced slots' prompt tokens (``forced`` >= 0) become pending."""
+        tok, forced = self._last_tok, dev["forced"]
+        tok.copy_(torch.where(forced >= 0, forced.to(tok.dtype), tok))
         return _slot_decode_step(self.api, self._step_skip, self._ring_keys,
-                                 self.params, self._last_tok,
-                                 self._slot_cache, dev["mask"] != 0)
+                                 self.params, tok, self._slot_cache,
+                                 dev["mask"] != 0)
 
     def kv_cache_bytes(self) -> int:
         """Device bytes held by the slot cache (all leaves, the block
@@ -914,15 +1463,23 @@ class InferenceEngine:
                        for t in self._slot_cache.values()))
 
     # --------------------------------------------- pool accounting hooks
-    def release_all_slots(self) -> None:
+    def release_all_slots(self, flush_cache: bool = True) -> None:
         """Force-free every slot and restore the canonical free-list order
-        of slots and pages (exact replay of seeded runs depends on it)."""
+        of slots and pages (exact replay of seeded runs depends on it).
+        ``flush_cache`` (the pool-reset default) also drops the prefix
+        cache, so a replayed seeded run starts from a cold cache;
+        ``recover`` passes False and keeps the hot working set. A paired
+        draft engine is released the same way."""
         for slot, active in enumerate(self._slot_active):
             if active:
                 self.free(slot)
+        if self.prefix_cache is not None and flush_cache:
+            self.prefix_cache.flush()
         self._slot_free.sort()
         if self.paged:
             self._kv.allocator.sort_free()
+        if self._draft is not None:
+            self._draft.release_all_slots()
 
     def reset_stats(self) -> None:
         self.stats = EngineStats()

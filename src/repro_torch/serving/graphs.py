@@ -3,7 +3,7 @@
 The JAX engine compiles one executable per bucket and keeps each in a
 dict keyed by its bucket; ``jit_cache_sizes`` counts them, and the
 no-recompile invariant holds a serve to adding none. This registry keeps
-the same four kinds under the same keys:
+the same kinds under the same keys — four always:
 
 * ``packed_prefill`` — ``(T, row_len, S)``: the packed prefill of an
   admission batch (and of a ring engine's prefix recompute) together with
@@ -14,7 +14,21 @@ the same four kinds under the same keys:
 * ``slot_step`` — ``None`` (greedy; the JAX key is the sampling mode):
   one masked decode step over every slot;
 * ``generate`` — ``(B, cache_len)``: one decode step of ``generate``,
-  replayed once per token (the twin of the JAX engine's scan).
+  replayed once per token (the twin of the JAX engine's scan);
+
+two more once the engine has a prefix cache (``PREFIX_KINDS``):
+
+* ``copy_page`` — ``None``: the copy-on-write copy of one page of every
+  paged leaf onto another;
+* ``alias_slot`` — ``None``: a hit admission's block-table row and
+  position;
+
+and two more once a draft engine is attached (``SPEC_KINDS``):
+
+* ``draft_scan`` — ``T``, the verify chunk's packed-token bucket: the
+  draft's spec_k + 1 masked ring steps and the verify token row;
+* ``spec_commit`` — ``(T, S)``: the end of a speculative round (the
+  accepted horizon and both engines' pending tokens).
 
 On a CUDA device an entry is a ``torch.cuda.CUDAGraph``:
 
@@ -27,7 +41,10 @@ On a CUDA device an entry is a ``torch.cuda.CUDAGraph``:
   the pool); every later dispatch of the key replays it;
 * the step reads its per-dispatch host data from ONE static int32 buffer
   of the entry; the host fills a pinned staging twin and copies it over
-  with one non-blocking copy ahead of the replay;
+  with one non-blocking copy ahead of the replay (``fill``, then
+  ``launch``: between the two a caller may write a view on the device,
+  as a speculative round writes the draft's verify row into the verify
+  chunk's tokens);
 * the kernel wrappers count launches in Python, which runs only at
   capture: the counts a capture added are taken back and added again at
   every replay.
@@ -48,8 +65,13 @@ import torch
 from repro_torch.kernels import ops
 
 KINDS = ("packed_prefill", "chunk_prefill", "slot_step", "generate")
+# the prefix cache's and speculation's kinds, registered by
+# ``enable_prefix_cache`` and ``attach_draft``
+PREFIX_KINDS = ("copy_page", "alias_slot")
+SPEC_KINDS = ("draft_scan", "spec_commit")
 # the kinds whose steps read and write the slot state of ``init_slots``
-SLOT_KINDS = ("packed_prefill", "chunk_prefill", "slot_step")
+SLOT_KINDS = ("packed_prefill", "chunk_prefill", "slot_step") \
+    + PREFIX_KINDS + SPEC_KINDS
 
 
 class Step:
@@ -87,7 +109,7 @@ class Step:
         self.launches: Dict[str, int] = {}
         self.out = None
 
-    def _fill(self, arrays: Dict[str, np.ndarray]) -> None:
+    def fill(self, arrays: Dict[str, np.ndarray]) -> None:
         """Stage the dispatch's host data and copy it to the device in
         one non-blocking copy (on the CPU the staging is the buffer)."""
         if not self.layout:
@@ -107,10 +129,14 @@ class Step:
             self.copied.record()
 
     def run(self, arrays: Dict[str, np.ndarray]):
-        """One dispatch: stage ``arrays``, then replay the graph, or
-        capture it (after an eager run that does the dispatch's work), or
-        run eagerly where the registry does not capture."""
-        self._fill(arrays)
+        """One dispatch: stage ``arrays``, then ``launch``."""
+        self.fill(arrays)
+        return self.launch()
+
+    def launch(self):
+        """Replay the graph, or capture it (after an eager run that does
+        the dispatch's work), or run eagerly where the registry does not
+        capture — on the data of the last ``fill``."""
         if not self.registry.capturing:
             self.out = self.fn(self.views)
             return self.out
@@ -193,11 +219,18 @@ class StepGraphs:
             got = self.entries[kind][key] = Step(self, kind, fn, arrays)
         return got
 
-    def clear(self, kinds: Iterable[str] = KINDS) -> None:
-        """Drop the executables of ``kinds`` (their buffers were
-        replaced)."""
+    def add_kinds(self, kinds: Iterable[str]) -> None:
+        """Register ``kinds`` (counted by ``sizes`` from now on, as the
+        JAX engine reports an executable once it has built it)."""
         for kind in kinds:
-            self.entries[kind].clear()
+            self.entries.setdefault(kind, {})
+
+    def clear(self, kinds: Optional[Iterable[str]] = None) -> None:
+        """Drop the executables of ``kinds`` (default: all; their buffers
+        were replaced)."""
+        for kind in (self.entries if kinds is None else kinds):
+            if kind in self.entries:
+                self.entries[kind].clear()
 
     def pool_bytes(self) -> int:
         """Device bytes the allocator holds for the registry's graph pool

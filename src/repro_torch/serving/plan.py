@@ -25,16 +25,24 @@ pool``) route their shared admission logic through
 ``StepPlanner.select_admissible`` and execute the whole-prompt plan
 ``admission_plan`` builds.
 
-Not in the port yet: the radix prompt cache, speculative decoding and the
-telemetry plane — the planner takes the JAX package's decisions
-everywhere else, so both packages build the same plan from the same
-state.
+The radix prompt cache (``PlannerConfig.prefix_cache``) turns an
+admission whose prompt starts with a cached prefix into an alias
+admission (no prefill for the covered tokens) whose uncovered tail rides
+the decode dispatch as teacher-forced tokens (``StepPlan.forced``);
+speculative decoding (``PlannerConfig.spec_k``, an engine with a draft
+attached) moves decoding slots onto draft/verify rounds
+(``StepPlan.spec``). Not in the port yet: the telemetry plane (its hooks
+are single attribute checks that find it absent). The planner takes the
+JAX package's decisions everywhere, so both packages build the same plan
+from the same state.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.serving.faults import EngineFault
 from repro_torch.serving.metrics import ModelPoolMetrics
@@ -65,6 +73,13 @@ class PrefillChunk:
     # None = the legacy up-front reservation (prompt + budget); the lazy
     # planner passes just the chunk's own tokens and grows later.
     reserve_tokens: Optional[int] = None
+    # prefix-cache hit (``PrefixHit``) backing a zero-dispatch alias
+    # admission: instead of prefilling, the engine aliases the hit's
+    # pages into the new slot's block table (plus at most one COW page
+    # copy) and the uncovered tail arrives via ``StepPlan.forced``
+    # teacher-forced catch-up. First chunks only (``slot is None``);
+    # ``length == 0`` — no prefill tokens are computed for the chunk.
+    alias: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -88,11 +103,26 @@ class StepPlan:
     cancels: List[int] = dataclasses.field(default_factory=list)
     # lazy page growth: extend slot's page horizon to cover >= tokens
     grows: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    # teacher-forced catch-up: (slot, prompt token) pairs riding THE
+    # decode dispatch — an aliased admission consumes its uncovered
+    # prompt tail one token per tick, writing exactly the K/V a prefill
+    # would write there, with zero extra dispatches. Forced outputs
+    # never reach ``StepResult.tokens`` (nothing was generated)
+    forced: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    # speculative decoding: (slot, k, init_tokens-or-None)
+    # rounds replacing plain decode steps for those slots — the engine's
+    # paired draft proposes k tokens and ONE incremental chunk dispatch
+    # verifies them all. ``init_tokens`` is the slot's full written
+    # history (prompt + emitted prefix), present only when the draft
+    # twin must be (re)admitted; None while the pair is in lockstep
+    spec: List[Tuple[int, int, Optional[List[int]]]] = dataclasses.field(
+        default_factory=list)
 
     @property
     def empty(self) -> bool:
         return not (self.admissions or self.decodes or self.preemptions
-                    or self.frees or self.cancels or self.grows)
+                    or self.frees or self.cancels or self.grows
+                    or self.forced or self.spec)
 
 
 @dataclasses.dataclass
@@ -114,6 +144,11 @@ class StepResult:
     dispatches: int = 0
     failed_grows: List[int] = dataclasses.field(default_factory=list)
     admission_failed: bool = False
+    # speculative rounds: the 1..k+1 tokens each spec slot emitted this
+    # tick (accepted drafts + the verify dispatch's bonus token), in
+    # stream order — the multi-token sibling of ``tokens``
+    spec_tokens: Dict[int, List[int]] = dataclasses.field(
+        default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -145,10 +180,33 @@ class PlannerConfig:
     # unit of sunk recompute work (see preemption_key); "newest" is the
     # legacy latest-arrival rule
     victim: str = "slack"
-    # radix prompt cache and speculative decoding: not ported yet (the
-    # flags exist so a configuration asking for them fails loudly)
+    # radix prompt cache (needs an engine with ``enable_prefix_cache()``
+    # attached): admissions matching a cached prefix alias its pages
+    # instead of prefilling them, finished prompts register their full
+    # pages, and cold cache nodes are evicted BEFORE any resident is
+    # preempted when pages run short
     prefix_cache: bool = False
+    # hit-quality floor: a hit must cover >= 1 full page AND >= this
+    # fraction of the prompt, else it counts as a miss (the uncovered
+    # tail advances one teacher-forced token per tick, so low-coverage
+    # hits trade little prefill for a long serialized catch-up)
+    prefix_min_frac: float = 0.5
+    # speculative decoding (needs ``engine.attach_draft``): draft up to
+    # spec_k tokens per decoding slot per tick and verify them in one
+    # incremental chunk dispatch. 0 = off
     spec_k: int = 0
+    # decode-batch knee ABOVE which speculation is withheld (the
+    # accelerator is compute-bound there and verify FLOPs displace
+    # decode FLOPs — see ``core.scheduler.speculation_worthwhile``).
+    # None = always worthwhile (CPU-scale tests)
+    spec_knee_batch: Optional[int] = None
+    # acceptance-rate gate: withhold speculation while the trailing
+    # acceptance EMA sits below this floor (a chronically-wrong draft
+    # burns a dispatch per round for nothing), except on every
+    # ``spec_probe_every``-th eligible tick — the probe that lets the
+    # EMA recover when the workload turns draftable again
+    spec_min_accept: float = 0.0
+    spec_probe_every: int = 16
     # tiered, tenant-fair admission: tier name -> weight
     # (higher admits first; e.g. {"interactive": 4, "standard": 2,
     # "batch": 1}). None = strict FIFO (every existing plane). Within a
@@ -162,12 +220,6 @@ class PlannerConfig:
     # after at most tier_bypass_limit higher-tier admissions once it is
     # the tier's oldest (plus the page/SLO gates every admission faces)
     tier_bypass_limit: int = 8
-
-    def __post_init__(self):
-        if self.prefix_cache:
-            raise NotImplementedError("the radix prompt cache")
-        if self.spec_k > 0:
-            raise NotImplementedError("speculative decoding")
 
 
 class TieredAdmission:
@@ -264,6 +316,22 @@ class _Resident:
     done: int                          # prompt tokens prefilled so far
     budget: int                        # decode-token budget
     prefilling: bool                   # True until the final chunk ran
+    # teacher-forced catch-up (aliased admissions): a ``forced`` resident
+    # consumes prompt[done] one token per tick via ``StepPlan.forced``
+    # until the prompt completes — it never takes continuation chunks
+    forced: bool = False
+    host_tokens: Optional[List[int]] = None   # prompt as host ints (lazy)
+    # pinned PrefixHit while STAGED only: the engine consumes the pins at
+    # alias admission (or releases them itself on OutOfPages), so observe
+    # clears this on both outcomes; recover() releases it when execute
+    # never ran (fault-before-mutation / stuck tick)
+    alias: Any = None
+    registered: bool = False           # prompt pages inserted in the cache
+    # speculation seed: argmax over the full prompt (the pending token
+    # right after prefill, never itself emitted) — captured ONCE from
+    # the device before the first decode so the planner can rebuild the
+    # slot's written history for draft (re)admission
+    seed_tok: Optional[int] = None
 
 
 def preemption_key(req: Request, sunk_tokens: int, now: float,
@@ -309,9 +377,19 @@ def _chunk_batch(batch, stop: int):
 class StepPlanner:
     """Builds one ``StepPlan`` per tick from (policy knobs + queue +
     engine page/slot view), and folds ``StepResult``s back into
-    queue/metrics state. The tick plane binds one engine and one queue:
-    ``submit`` requests with host prompt arrays, then ``build`` →
-    ``engine.execute`` → ``observe`` once per tick (``serve_ticks``)."""
+    queue/metrics state.
+
+    Two usage modes share the same admission gate:
+
+    * **tick plane** (bound engine + queue): ``submit`` requests with
+      host prompt arrays, then ``build`` → ``engine.execute`` →
+      ``observe`` once per tick (``serve_ticks``).
+    * **pool plane** (``EnginePool``): one planner per hosted model;
+      ``admit``/``topup`` call ``select_admissible`` (the single
+      admission gate — KV pages, SLO expiry, head reservation) against
+      whichever standby engine the policy granted, and execute the
+      resulting whole-prompt plan.
+    """
 
     def __init__(self, engine=None, queue: Optional[RequestQueue] = None,
                  config: Optional[PlannerConfig] = None,
@@ -338,6 +416,13 @@ class StepPlanner:
         # terminates there instead of re-entering the queue
         self._cancelled: set = set()
         self._now = 0.0                    # last build() time (victim keys)
+        # speculation feedback: trailing acceptance-rate EMA (optimistic
+        # start — the first rounds measure it), eligible-tick counter
+        # (drives the probe cadence), and the k planned per spec slot
+        # this tick (observe turns emitted counts into acceptance rates)
+        self._spec_accept_ema = 1.0
+        self._spec_ticks = 0
+        self._spec_planned: Dict[int, int] = {}
         # telemetry plane: not ported yet; None = one attribute check per
         # lifecycle event
         self.telemetry = None
@@ -454,6 +539,66 @@ class StepPlanner:
             return None
         return max(cands)[-1]
 
+    # ---------------------------------------------------- prefix cache
+    def _pcache(self):
+        """The engine's prefix cache when BOTH the config flag and the
+        engine attachment agree; None disables every cache path (the
+        pool plane's unbound planners pass the engine explicitly)."""
+        eng = self.engine
+        if not self.config.prefix_cache or eng is None:
+            return None
+        return eng.prefix_cache
+
+    @staticmethod
+    def _host_tokens(r: _Resident) -> List[int]:
+        if r.host_tokens is None:
+            r.host_tokens = [int(t)
+                             for t in np.asarray(r.batch["tokens"])[0]]
+        return r.host_tokens
+
+    def _min_covered(self, eng, prompt_len: int) -> int:
+        """Hit-quality floor for ``PrefixCache.match`` (see
+        ``PlannerConfig.prefix_min_frac``)."""
+        return max(eng.page_size,
+                   int(math.ceil(self.config.prefix_min_frac * prompt_len)))
+
+    def _evict_cache(self, need: int, pages_avail: int) -> int:
+        """Evict cold radix nodes to cover ``need`` pages BEFORE any
+        resident is preempted: a cached-but-unreferenced prefix page is
+        strictly cheaper to reclaim than a resident's recompute-requeue.
+        Returns the updated availability projection."""
+        cache = self._pcache()
+        if cache is None or need <= pages_avail:
+            return pages_avail
+        return pages_avail + cache.evict(need - pages_avail)
+
+    def _register_prompts(self) -> None:
+        """Insert finished prompts' full pages into the prefix cache —
+        once per resident, only after its prompt is COMPLETE. That
+        timing is the safety argument for read-only aliasing: chunk
+        recompute (which rewrites prompt positions) is over, and every
+        later write — decode or a dead masked write — lands at
+        ``pos >= prompt_len``, past the registered pages."""
+        cache = self._pcache()
+        eng = self.engine
+        if cache is None or not eng.paged:
+            return
+        ps = eng.page_size
+        for slot, r in self._resident.items():
+            if r.prefilling or r.registered:
+                continue
+            r.registered = True
+            n_full = r.prompt_len // ps
+            if n_full < 1:
+                continue
+            toks = self._host_tokens(r)
+            cache.insert(toks[:n_full * ps], eng.slot_pages(slot)[:n_full])
+            # concurrent same-prefix prefills double-filled pages the
+            # cache could not yet serve: repoint this row at the
+            # canonical pages (bit-identical content) and free its
+            # duplicates — zero-cost when nothing matches
+            eng.dedup_slot_prefix(slot, toks, n_full)
+
     def build(self, now: float) -> StepPlan:
         """Emit this tick's plan. Mutates planner bookkeeping under the
         assumption the plan WILL be executed (the tick loop always does:
@@ -495,6 +640,7 @@ class StepPlanner:
             # next decode writes at pos = written tokens; cover it
             upto = min(eng.slot_pos(slot) + 1, eng.slot_len)
             need = self._grow_cost(slot, upto)
+            pages_avail = self._evict_cache(need, pages_avail)
             while need > pages_avail:
                 v = self._pick_victim(excluded=victims | freed)
                 if v is None:
@@ -513,8 +659,57 @@ class StepPlanner:
                 plan.grows.append((slot, upto))
                 pages_avail -= need
 
+        # -- phase A': teacher-forced catch-up for aliased admissions.
+        # Each forced resident consumes ONE uncovered prompt token this
+        # tick, riding the decode dispatch — zero extra dispatches. Its
+        # page need is exactly a decode's (the forced write lands at
+        # slot_pos), competing through the same evict-then-preempt
+        # ladder; a failed grow requeues it like any decode's would.
+        for slot, r in sorted(self._resident.items()):
+            if (not r.forced or slot in victims or slot in freed
+                    or slot not in self._resident):
+                continue
+            upto = min(eng.slot_pos(slot) + 1, eng.slot_len)
+            need = self._grow_cost(slot, upto)
+            pages_avail = self._evict_cache(need, pages_avail)
+            while need > pages_avail:
+                v = self._pick_victim(excluded=victims | freed)
+                if v is None:
+                    break
+                victims.add(v)
+                pages_avail += eng.slot_page_count(v)
+                pages_avail += self._preempt(v, plan, now)
+                if v == slot:
+                    need = 0
+                    break
+            if slot in victims:
+                continue
+            if upto > eng.reserved_tokens(slot):
+                plan.grows.append((slot, upto))
+                pages_avail -= need
+            toks = self._host_tokens(r)
+            plan.forced.append((slot, toks[r.done]))
+            r.done += 1
+            if r.done >= r.prompt_len:
+                # the final forced step's logits seed the first sampled
+                # token exactly as a one-shot prefill's last logits
+                # would — decodable from the NEXT tick's snapshot
+                r.prefilling = False
+                r.forced = False
+
         decodes = [s for s in decodes if s not in victims]
         slots_avail += len(victims)
+
+        # -- phase A_spec: move eligible decode slots onto speculative
+        # rounds. Gated on the roofline knee (speculate while decode is
+        # memory-bound; see ``speculation_worthwhile``) and on the
+        # trailing acceptance EMA with periodic probes. A spec slot's
+        # page horizon widens from pos+1 to pos+k+1 (the verify chunk
+        # writes k+1 positions); on page shortage k degrades instead of
+        # preempting anyone — speculation is an optimization and must
+        # never evict a resident to fund itself.
+        self._spec_planned = {}
+        pages_avail = self._plan_spec(plan, decodes, pages_avail)
 
         # -- phase B: continuation chunks for in-flight prefills, oldest
         # request first (finish what is resident before admitting more).
@@ -531,7 +726,7 @@ class StepPlanner:
         inflight = sorted(
             ((r.req.arrival, r.req.rid, slot) for slot, r in
              self._resident.items()
-             if r.prefilling
+             if r.prefilling and not r.forced
              and slot not in victims and slot not in freed))
         first_cont = True
         for _, _, slot in inflight:
@@ -547,6 +742,8 @@ class StepPlanner:
                 # including slack past the reserved horizon in its last
                 # page), so a zero-page-cost continuation is never
                 # skipped; a zero-token chunk just waits for pages
+                pages_avail = self._evict_cache(
+                    self._grow_cost(slot, r.done + c), pages_avail)
                 while c > 0:
                     need = self._grow_cost(slot, r.done + c)
                     if need <= pages_avail:
@@ -574,8 +771,23 @@ class StepPlanner:
             kept = self._scan_queue(
                 eng, q, now, max_batch=slots_avail,
                 pages_avail=pages_avail, budget_left=budget_left)
-            for req, batch, budget, c, reserve in kept:
+            for req, batch, budget, c, reserve, hit, toks in kept:
                 p = _prompt_tokens(batch)
+                if hit is not None:
+                    # prefix-cache hit: zero-cost leading chunk — no
+                    # prefill tokens computed, no chunk budget charged.
+                    # The uncovered tail teacher-forces from next tick
+                    plan.admissions.append(PrefillChunk(
+                        rid=req.rid, batch=batch, start=0, length=0,
+                        final=False, n_tokens=budget,
+                        reserve_tokens=reserve, alias=hit))
+                    self._staged.append(_Resident(
+                        req=req, batch=batch, prompt_len=p,
+                        done=hit.covered, budget=budget, prefilling=True,
+                        forced=True, host_tokens=toks, alias=hit))
+                    self._tel_event("prefix_hit", req, covered=hit.covered,
+                                    cow=hit.cow_src is not None)
+                    continue
                 final = c == p
                 plan.admissions.append(PrefillChunk(
                     rid=req.rid, batch=_chunk_batch(batch, c),
@@ -583,7 +795,8 @@ class StepPlanner:
                     n_tokens=budget, reserve_tokens=reserve))
                 self._staged.append(_Resident(
                     req=req, batch=batch, prompt_len=p,
-                    done=c, budget=budget, prefilling=not final))
+                    done=c, budget=budget, prefilling=not final,
+                    host_tokens=toks))
 
         plan.decodes = decodes
         # stall-breaker: every resident is page-starved mid-prefill and
@@ -594,6 +807,67 @@ class StepPlanner:
             if v is not None:
                 self._preempt(v, plan, now)
         return plan
+
+    def _plan_spec(self, plan: StepPlan, decodes: List[int],
+                   pages_avail: int) -> int:
+        """Phase A_spec: convert eligible ``decodes`` entries into
+        ``plan.spec`` rounds (mutates ``decodes`` in place), widening
+        their grow horizons to cover the verify chunk. Returns the
+        updated page-availability projection."""
+        eng, cfg = self.engine, self.config
+        if (cfg.spec_k <= 0 or not decodes or eng is None
+                or getattr(eng, "_draft", None) is None):
+            return pages_avail
+        from repro_torch.core.scheduler.base import speculation_worthwhile
+        if not speculation_worthwhile(len(decodes), cfg.spec_knee_batch):
+            return pages_avail
+        self._spec_ticks += 1
+        probe = (self._spec_ticks % max(1, cfg.spec_probe_every)) == 0
+        if self._spec_accept_ema < cfg.spec_min_accept and not probe:
+            return pages_avail
+        for slot in list(decodes):
+            r = self._resident.get(slot)
+            if r is None:
+                continue
+            pos = eng.slot_pos(slot)
+            # k is capped so the round can never overshoot the request's
+            # budget (emits <= budget_left tokens) or the slot's pages
+            # (writes k+1 positions, all < slot_len); budget_left == 1
+            # degenerates to a plain decode step
+            budget_left = r.budget - r.req.tokens_out
+            k = min(cfg.spec_k, budget_left - 1, eng.slot_len - 1 - pos)
+            if k < 1:
+                continue
+            synced = eng.draft_synced(slot)
+            if not synced and r.seed_tok is None:
+                continue            # history unknown: cannot init a draft
+            if eng.paged:
+                base = self._grow_cost(slot, pos + 1)
+                delta = self._grow_cost(slot, pos + k + 1) - base
+                pages_avail = self._evict_cache(delta, pages_avail)
+                while k >= 1 and (self._grow_cost(slot, pos + k + 1)
+                                  - base) > pages_avail:
+                    k -= 1          # degrade, never preempt, to fit
+                if k < 1:
+                    continue
+                delta = self._grow_cost(slot, pos + k + 1) - base
+                if pos + k + 1 > eng.reserved_tokens(slot):
+                    # widen (or introduce) the slot's grow; phase A
+                    # already charged ``base`` for its pos+1 entry
+                    plan.grows = [(s, u) for s, u in plan.grows
+                                  if s != slot]
+                    plan.grows.append((slot, pos + k + 1))
+                    pages_avail -= delta
+            init: Optional[List[int]] = None
+            if not synced:
+                st = self.streams[r.req.rid]
+                toks = self._host_tokens(r)
+                init = toks[:r.prompt_len] + (
+                    [r.seed_tok] + st[:-1] if st else [])
+            plan.spec.append((slot, k, init))
+            decodes.remove(slot)
+            self._spec_planned[slot] = k
+        return pages_avail
 
     def _preempt(self, slot: int, plan: StepPlan, now: float) -> int:
         """Evict ``slot``: pages free, request requeues, prompt restarts
@@ -612,6 +886,9 @@ class StepPlanner:
                      if s == slot)
         plan.grows = [(s, u) for s, u in plan.grows if s != slot]
         plan.admissions = [c for c in plan.admissions if c.slot != slot]
+        plan.forced = [(s, t) for s, t in plan.forced if s != slot]
+        plan.spec = [e for e in plan.spec if e[0] != slot]
+        self._spec_planned.pop(slot, None)
         self.metrics.preemptions += 1
         self._tel_event("preempt", r.req, slot=slot)
         self._requeue(r.req)
@@ -668,7 +945,16 @@ class StepPlanner:
             self._requeue(r.req)
             n += 1
         self._resident.clear()
+        pcache = (self.engine.prefix_cache
+                  if self.engine is not None else None)
         for r in self._staged:
+            # staged alias pins were never consumed (EngineFault fires
+            # before the plan mutates anything; a stuck tick never
+            # executed) — return them so the engine-reset page audit
+            # (free == total after the cache flush) holds
+            if r.alias is not None and pcache is not None:
+                pcache.release_hit(r.alias)
+                r.alias = None
             self._requeue(r.req)
             n += 1
         self._staged = []
@@ -704,8 +990,12 @@ class StepPlanner:
                     budget_left) -> List[Tuple]:
         """Tick-plane admission scan: pops requests the projected pages /
         slots / chunk budget can back. Returns
-        [(req, batch, budget, first_chunk_len, reserve_tokens)]."""
+        [(req, batch, budget, first_chunk_len, reserve_tokens, hit,
+        host_tokens)] — ``hit`` is a pinned ``PrefixHit`` for alias
+        admissions (None otherwise; ``host_tokens`` likewise only
+        materialized when the prefix cache looked at the prompt)."""
         cfg = self.config
+        cache = self._pcache()
         kept: List[Tuple] = []
         blocked: List[Request] = []
         is_head = True
@@ -737,18 +1027,42 @@ class StepPlanner:
                 continue
             c = int(min(p, budget_left, max(1, eng.slot_len - 1)))
             reserve: Optional[int] = None
+            hit = None
+            toks: Optional[List[int]] = None
+            if cache is not None and eng.paged:
+                toks = [int(t) for t in np.asarray(batch["tokens"])[0]]
+                hit = cache.match(toks, max_covered=p - 1,
+                                  min_covered=self._min_covered(eng, p))
             if eng.paged:
-                horizon = c if cfg.lazy else min(p + budget, eng.slot_len)
-                need = self._pages_for(horizon)
+                if hit is not None:
+                    # pages for the FRESH tail only: the hit's covered
+                    # pages alias at zero page cost (a refcount bump,
+                    # not an allocation)
+                    horizon = (hit.covered + 1 if cfg.lazy
+                               else min(p + budget, eng.slot_len))
+                    need = self._pages_for(horizon) - len(hit.pages)
+                else:
+                    horizon = c if cfg.lazy else min(p + budget,
+                                                     eng.slot_len)
+                    need = self._pages_for(horizon)
                 reserve = horizon
+                pages_avail = self._evict_cache(need, pages_avail)
                 left = self._page_gate(req, is_head, need, pages_avail)
                 if left is None:
+                    if hit is not None:
+                        # pins return to the cache; the request retries
+                        # (and re-matches) on a later scan
+                        cache.release_hit(hit)
+                        hit = None
                     blocked.append(req)
                     is_head = False
                     continue
                 pages_avail = left
-            kept.append((req, batch, budget, c, reserve))
-            budget_left -= c
+            if hit is not None:
+                kept.append((req, batch, budget, 0, reserve, hit, toks))
+            else:
+                kept.append((req, batch, budget, c, reserve, None, toks))
+                budget_left -= c
             self._note_admitted(req, p + budget, q, blocked)
             is_head = False
         for req in blocked:
@@ -831,12 +1145,49 @@ class StepPlanner:
             self._requeue(r.req)
         for r in self._staged:
             slot = res.admitted.get(r.req.rid)
+            # the engine settled every executed alias either way: an
+            # admitted hit's pins now live in the slot's row; a failed
+            # one's pins went back via release_hit. Neither is ours to
+            # release any more (recover() handles never-executed plans)
+            r.alias = None
             if slot is not None:
                 self._resident[slot] = r
                 self._tel_event("admitted", r.req, slot=slot)
             else:
                 self._requeue(r.req)
         self._staged = []
+        self._register_prompts()
+        eng = self.engine
+        if (self.config.spec_k > 0 and eng is not None
+                and getattr(eng, "_draft", None) is not None):
+            # capture each resident's SEED token (the prefill's argmax,
+            # consumed by the first decode step but never emitted) once,
+            # before its first decode — it is the one generated token
+            # the streams don't record, and rebuilding a draft twin's
+            # history after a desync needs it
+            for slot, r in self._resident.items():
+                if (not r.prefilling and r.seed_tok is None
+                        and not self.streams[r.req.rid]):
+                    r.seed_tok = eng.host_last_token(slot)
+        for slot, toks in res.spec_tokens.items():
+            r = self._resident.get(slot)
+            if r is None:
+                continue
+            req = r.req
+            if req.first_token < 0:
+                req.first_token = now
+                self._tel_event("first_token", req)
+            req.tokens_out += len(toks)
+            self.streams[req.rid].extend(toks)
+            if req.tenant:
+                tt = self.metrics.tenant_tokens
+                tt[req.tenant] = tt.get(req.tenant, 0) + len(toks)
+            k = self._spec_planned.pop(slot, None)
+            if k:
+                # toks = accepted draft tokens + the verify bonus, so
+                # acceptance rate for the round is (len-1)/k
+                self._spec_accept_ema = (0.9 * self._spec_accept_ema
+                                         + 0.1 * (len(toks) - 1) / k)
         for slot, tok in res.tokens.items():
             r = self._resident.get(slot)
             if r is not None:
@@ -909,7 +1260,14 @@ class StepPlanner:
         once over their lifetime; a page-blocked FIFO head accrues an
         aging page reservation that bypassing smaller requests cannot
         spend (anti-starvation). Returns [(request, token budget)] in
-        queue order."""
+        queue order — except that with the prefix cache on, kept
+        requests whose prompts are HOT in the radix cache (a read-only
+        ``PrefixCache.peek`` covers at least the ``prefix_min_frac``
+        floor) stable-sort ahead of cold ones: a hot admission aliases
+        pages instead of prefilling, so serving it first spends strictly
+        less of the pool. Pop order — and with it the head-reservation /
+        aging anti-starvation contract — is unchanged; only the order
+        WITHIN the admitted batch moves."""
         lazy = self.config.lazy
         gen_len = max(1, gen_len)
         room = max(1, eng.slot_len - prompt_len)
@@ -954,21 +1312,59 @@ class StepPlanner:
             is_head = False
         for req in blocked:
             q.push(req)
+        cache = (getattr(eng, "prefix_cache", None)
+                 if self.config.prefix_cache else None)
+        if cache is not None and eng.paged and len(kept) > 1:
+            # hit-aware ordering: peek is strictly read-only (no clock
+            # tick, no LRU touch, no pins) so probing here cannot
+            # perturb eviction order or leak references
+            floor = self._min_covered(eng, prompt_len)
+            hot = []
+            for req, _ in kept:
+                batch = self._prompts.get(req.rid)
+                toks = (None if batch is None else
+                        [int(t) for t in np.asarray(batch["tokens"])[0]])
+                hot.append(toks is not None and cache.peek(
+                    toks, max_covered=prompt_len - 1) >= floor)
+            if any(hot) and not all(hot):
+                kept = ([rb for rb, h in zip(kept, hot) if h]
+                        + [rb for rb, h in zip(kept, hot) if not h])
         return kept
 
     def admission_plan(self, batches: Sequence[Any],
-                       kept: Sequence[Tuple[Request, int]]) -> StepPlan:
+                       kept: Sequence[Tuple[Request, int]],
+                       eng=None) -> StepPlan:
         """Wrap a ``select_admissible`` result as a whole-prompt plan
-        (the unchunked admission the pool plane runs: one packed
-        prefill)."""
+        (the unchunked admission the pool plane runs). With ``eng``
+        passed and the prefix cache on, prompts matching a cached prefix
+        become zero-dispatch alias admissions — the pool completes their
+        uncovered tail eagerly via ``InferenceEngine.catchup_prefill``
+        right after the plan executes (the pool plane has no per-tick
+        forced phase to ride)."""
+        cache = (eng.prefix_cache
+                 if eng is not None and self.config.prefix_cache else None)
         plan = StepPlan()
         for batch, (req, budget) in zip(batches, kept):
             p = _prompt_tokens(batch)
+            hit = None
+            if cache is not None and eng.paged:
+                toks = [int(t) for t in np.asarray(batch["tokens"])[0]]
+                hit = cache.match(toks, max_covered=p - 1,
+                                  min_covered=self._min_covered(eng, p))
+            if hit is not None:
+                plan.admissions.append(PrefillChunk(
+                    rid=req.rid, batch=batch, start=0, length=0,
+                    final=False, n_tokens=budget,
+                    reserve_tokens=(hit.covered + 1) if self.config.lazy
+                    else None,
+                    alias=hit))
+                continue
             plan.admissions.append(PrefillChunk(
                 rid=req.rid, batch=batch, start=0, length=p, final=True,
                 n_tokens=budget,
                 reserve_tokens=(p + 1) if self.config.lazy else None))
         return plan
+
 
 # --------------------------------------------------------------------------
 # tick serving loop (EventLoopHooks over the shared core event loop)
@@ -1102,7 +1498,7 @@ class TickServer:
         self._mirror_fault_stats()
         progress = bool(res.tokens or res.done or res.admitted
                         or res.failed_grows or plan.admissions
-                        or plan.frees or plan.cancels
+                        or plan.forced or plan.frees or plan.cancels
                         or plan.preemptions)
         if progress:
             self._no_progress = 0

@@ -44,15 +44,17 @@ deterministic and SLO-meaningful on any host, yet exercise the true
 engine hot path end to end. The serving loop lives in
 ``repro_torch.serving.controller``.
 
-Not in the port yet (each raises ``NotImplementedError``): the radix
-prompt cache (``prefix_cache=True``), cross-model speculative decoding
-(``enable_speculation``) and the telemetry plane (``attach_telemetry``).
+The radix prompt cache (``prefix_cache=True``) and cross-model
+speculative decoding (``enable_speculation``) run as in the JAX pool.
+Not in the port yet: the telemetry plane (``attach_telemetry`` raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.hardware import H100, local_gpu
@@ -155,9 +157,20 @@ class EnginePool:
         self.lazy_kv = lazy_kv
         # base PlannerConfig for every per-model planner (load-shed
         # watermarks, victim rule, ...); `lazy` is overridden by lazy_kv
+        # and `prefix_cache` by the pool-level knob below
         self._planner_config = planner_config or PlannerConfig()
+        # radix prompt cache: attach one PrefixCache per CAPABLE standby
+        # engine (dense transformers; families whose per-row state
+        # exceeds pages + pos — SSM — skip and serve exactly as before).
+        # Admissions then alias cached prefixes and complete their tails
+        # by eager teacher-forced catch-up (``admission_plan``/
+        # ``catchup_prefill``).
+        self.prefix_cache = prefix_cache
         if prefix_cache:
-            raise NotImplementedError("the radix prompt cache")
+            for host in hosts.values():
+                for eng in host.engines():
+                    if eng.prefix_cache_capable():
+                        eng.enable_prefix_cache()
         self.queues: Dict[str, RequestQueue] = {}
         self._runs: Dict[int, PoolRun] = {}
         self._metrics: Dict[str, ModelPoolMetrics] = {}
@@ -192,7 +205,8 @@ class EnginePool:
         # reservation/aging) admit AND topup route through
         self._planners = {
             n: StepPlanner(config=dataclasses.replace(
-                self._planner_config, lazy=self.lazy_kv),
+                self._planner_config, lazy=self.lazy_kv,
+                prefix_cache=self.prefix_cache),
                 metrics=self._metrics[n])
             for n in self.profiles}
         self._runs.clear()
@@ -203,8 +217,10 @@ class EnginePool:
         self._last_t = 0.0
         for host in self.hosts.values():
             for eng in host.engines():
-                eng.release_all_slots()
+                eng.release_all_slots()     # frees draft twins too
                 eng.reset_stats()
+                if eng._draft is not None:
+                    eng._draft.reset_stats()
 
     def attach_telemetry(self, tel) -> None:
         """The telemetry plane is not ported yet."""
@@ -254,12 +270,35 @@ class EnginePool:
                         eng.grow_slot(
                             slot, host.prompt_len + eng.page_size + 1)
                         eng.free(slot)
+                # prefix-cache hit admissions dispatch two more
+                # executables (COW page copy, table-row alias write) —
+                # build them on dead state up front
+                eng.warm_prefix_ops()
         self.reset()
 
     def enable_speculation(self, target: str, draft: str,
                            spec_k: int = 4) -> int:
-        """Cross-model speculative decoding: not ported yet."""
-        raise NotImplementedError("speculative decoding")
+        """Cross-model speculative decoding over the pool: pair every
+        spec-capable standby engine of ``target`` with a fresh ring-slot
+        draft engine built from ``draft``'s weights (one per standby —
+        identity slot pairing needs a twin per engine). Raises if the
+        vocabularies differ (token ids must mean the same thing to
+        drafter and verifier); incapable standbys are skipped.
+        ``step_run`` then speculates on eligible slots. Returns how many
+        standby engines were paired."""
+        t_host, d_host = self.hosts[target], self.hosts[draft]
+        paired = 0
+        for alloc in t_host.allocations.values():
+            eng = alloc.engine
+            if not eng.spec_capable():
+                continue
+            d_eng = InferenceEngine(
+                d_host.api, d_host.params, cache_len=eng.slot_len,
+                alloc_chips=alloc.chips).init_slots(
+                    eng.n_slots, paged=False)
+            eng.attach_draft(d_eng, spec_k)
+            paired += 1
+        return paired
 
     def jit_cache_sizes(self) -> Dict[str, int]:
         """Every standby engine's executables (captured graphs on the
@@ -417,23 +456,33 @@ class EnginePool:
         # engine executes it as ONE packed prefill dispatch with each
         # segment's K/V scattered straight into its slot's pages
         plan = self._planners[rr.model].admission_plan(
-            [host.prompt_batch()] * len(kept), kept)
+            [host.prompt_batch()] * len(kept), kept, eng=eng)
         try:
             sres = eng.execute(plan)
         except EngineFault:
+            # the fault fired BEFORE the plan mutated anything, so any
+            # alias chunks still hold their match-time pins — return
+            # them or recover()'s page-conservation audit trips
+            self._release_plan_pins(eng, plan)
             self._engine_reset(rr.model, eng, kept)
             return None
         if sres.admission_failed:
             # transient/injected allocator failure: insert_many rolled
-            # back all-or-nothing — requeue and let a later plan retry
+            # back all-or-nothing — alias admissions that DID land roll
+            # back here too (all-or-nothing at the pool grain), then
+            # requeue and let a later plan retry
             for slot in sres.admitted.values():
                 eng.free(slot)
             for req, _ in kept:
                 q.push(req)
             return None
+        self._finish_aliases(host, eng, plan, sres)
         for req, budget in kept:
             slot = sres.admitted.get(req.rid)
             if slot is None:
+                # an individual alias admission ran out of fresh tail
+                # pages (its pins already went back to the cache):
+                # requeue just that request
                 q.push(req)
                 continue
             run.slots[slot] = req
@@ -475,10 +524,11 @@ class EnginePool:
                                     gen_len, drop_expired)
         if kept:
             plan = self._planners[run.model].admission_plan(
-                [host.prompt_batch()] * len(kept), kept)
+                [host.prompt_batch()] * len(kept), kept, eng=eng)
             try:
                 sres = eng.execute(plan)
             except EngineFault:
+                self._release_plan_pins(eng, plan)
                 self._engine_reset(run.model, eng, kept)
                 return 0
             if sres.admission_failed:
@@ -487,6 +537,7 @@ class EnginePool:
                 for req, _ in kept:
                     self.queues[run.model].push(req)
                 return 0
+            self._finish_aliases(host, eng, plan, sres)
             admitted = 0
             for req, budget in kept:
                 slot = sres.admitted.get(req.rid)
@@ -530,6 +581,42 @@ class EnginePool:
         m = self._metrics[run.model]
         m.preemptions += 1
         m.requeues += 1
+
+    @staticmethod
+    def _release_plan_pins(eng: InferenceEngine, plan) -> None:
+        """Return every alias chunk's match-time pins after an execute
+        that never ran (``EngineFault`` fires before the plan mutates
+        anything) — without this the reset's page-conservation audit
+        (free == total after the cache flush) trips."""
+        if eng.prefix_cache is None:
+            return
+        for c in plan.admissions:
+            if c.alias is not None:
+                eng.prefix_cache.release_hit(c.alias)
+
+    def _finish_aliases(self, host: ModelHost, eng: InferenceEngine,
+                        plan, sres) -> None:
+        """Pool-plane completion of prefix-cache admissions: aliased
+        slots catch up their uncovered prompt tail eagerly (teacher-
+        forced through the warm slot step — the pool has no per-tick
+        forced phase to spread them over), then every admitted slot
+        registers its full prompt pages in the cache (``insert``
+        dedupes shared prefixes, so repeats retain nothing new)."""
+        cache = eng.prefix_cache
+        if cache is None:
+            return
+        toks = [int(t) for t in
+                np.asarray(host.prompt_batch()["tokens"])[0]]
+        hits = {c.rid: c.alias for c in plan.admissions
+                if c.alias is not None}
+        n_full = host.prompt_len // eng.page_size
+        for rid, slot in sres.admitted.items():
+            hit = hits.get(rid)
+            if hit is not None:
+                eng.catchup_prefill(slot, toks, hit.covered)
+            if n_full >= 1:
+                cache.insert(toks[:n_full * eng.page_size],
+                             eng.slot_pages(slot)[:n_full])
 
     def _engine_reset(self, model: str, eng: InferenceEngine,
                       kept=None) -> None:
@@ -585,18 +672,57 @@ class EnginePool:
                 if not self._runs:
                     self._alloc_frac = 0.0
                 return True
+        decode_slots = sorted(run.remaining)
+        spec_entries: List = []
+        if eng._draft is not None and eng.spec_k > 0:
+            # pool-plane speculation: a slot speculates while its draft
+            # twin is in lockstep, or — right after admission, before any
+            # decode — by initializing the twin from the model's (shared)
+            # prompt. Mid-stream desync cannot re-init here (the pool does
+            # not record per-slot token streams), so such slots just
+            # decode plainly.
+            host = self.hosts[run.model]
+            prompt = None
+            for slot in list(decode_slots):
+                rem = run.remaining[slot]
+                pos = eng.slot_pos(slot)
+                k = min(eng.spec_k, rem - 1, eng.slot_len - 1 - pos)
+                if k < 1:
+                    continue
+                init = None
+                if not eng.draft_synced(slot):
+                    if pos != host.prompt_len:
+                        continue
+                    if prompt is None:
+                        prompt = [int(t) for t in np.asarray(
+                            host.prompt_batch()["tokens"])[0]]
+                    init = prompt
+                if self.lazy_kv and eng.paged:
+                    while k >= 1:       # degrade k on page pressure,
+                        try:            # never preempt for speculation
+                            eng.grow_slot(slot, pos + k + 1)
+                            break
+                        except OutOfPages:
+                            k -= 1
+                    if k < 1:
+                        continue
+                spec_entries.append((slot, k, init))
+                decode_slots.remove(slot)
         try:
-            res = eng.execute(StepPlan(decodes=sorted(run.remaining)))
+            res = eng.execute(StepPlan(decodes=decode_slots,
+                                       spec=spec_entries))
         except EngineFault:
             self._engine_reset(run.model, eng)
             return True
-        emitted = {slot: [tok] for slot, tok in res.tokens.items()}
-        for slot in emitted:
+        emitted = dict(res.spec_tokens)
+        for slot in res.tokens:
+            emitted.setdefault(slot, []).append(res.tokens[slot])
+        for slot, toks in emitted.items():
             req = run.slots.get(slot)
             if req is not None:
                 if req.first_token < 0:
                     req.first_token = now
-                req.tokens_out += 1
+                req.tokens_out += len(toks)
         owned_emit = sum(len(t) for s, t in emitted.items()
                          if s in run.slots)
         done = res.done
@@ -782,9 +908,7 @@ def build_pool(names: Sequence[str], *, request_rate: float = 500.0,
     ``lazy_kv``); ``prefix_cache`` attaches a radix prompt cache to
     every capable standby engine (incapable families skip gracefully)
     and its hit-admission executables are warmed with everything
-    else (not ported: raises)."""
-    if prefix_cache:
-        raise NotImplementedError("the radix prompt cache")
+    else."""
     hosts: Dict[str, ModelHost] = {}
     for i, name in enumerate(names):
         host = build_host(
@@ -796,7 +920,8 @@ def build_pool(names: Sequence[str], *, request_rate: float = 500.0,
             device=device, dtype=dtype)
         hosts[host.profile.name] = host
     pool = EnginePool(hosts, caps=caps, lazy_kv=lazy_kv,
-                      planner_config=planner_config)
+                      planner_config=planner_config,
+                      prefix_cache=prefix_cache)
     if warm:
         pool.warmup()
     return pool

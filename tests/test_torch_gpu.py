@@ -30,7 +30,8 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.models.layers import packed_positions  # noqa: E402
-from repro_torch.serving.engine import make_engine  # noqa: E402
+from repro_torch.serving.engine import (InferenceEngine,  # noqa: E402
+                                        make_engine)
 from repro_torch.serving.plan import (PlannerConfig, StepPlanner,  # noqa
                                       serve_ticks)
 from repro_torch.serving.request import Request, RequestQueue  # noqa: E402
@@ -395,6 +396,80 @@ def test_gpu_generate_matches_cpu_generate(cuda):
     assert [n > n0 for n, n0 in zip(_launch_counts(), launches0)] == \
         [False, False, False, True, True]
     assert torch.equal(got, cpu.generate({"tokens": tokens}, 12))
+
+
+def _shared_prefix_requests(cfg, n=10):
+    """``tests/test_prefix_cache.py``'s shared-prefix stream: templates of
+    20 and 8 tokens (20 is not a page multiple: hits copy a page) plus
+    tails of 2-5, budgets 3-8."""
+    rng = np.random.default_rng(3)
+    temps = [rng.integers(1, cfg.vocab_size, size=s).astype(np.int32)
+             for s in (20, 8)]
+    spec, prompts = [], {}
+    for i in range(n):
+        t = temps[int(rng.integers(0, 2))]
+        tail = rng.integers(1, cfg.vocab_size,
+                            size=int(rng.integers(2, 6))).astype(np.int32)
+        prompts[i] = np.concatenate([t, tail])[None, :]
+        spec.append((i, prompts[i].shape[1], int(rng.integers(3, 9))))
+    return spec, prompts
+
+
+@pytest.mark.parametrize("feature", ["prefix_cache", "speculative"])
+def test_gpu_prefix_and_speculative_serves_match_cpu(cuda, feature):
+    """The radix prompt cache (the shared-prefix stream, cache off and
+    on) and speculative decoding (an identical-weights ring draft,
+    spec_k 3, plain and speculative) on the card under CUDA graphs and on
+    the CPU (reduced olmo-1b, float32): every serve's greedy streams and
+    counters equal across devices, each feature's streams equal its plain
+    serve's, acceptance is 1.0, and the feature's kernels ran on the card:
+    #1 and #2 for forced catch-up and misses; #3 (verify) and #4 (the
+    draft) for speculation."""
+    cfg = get_config("olmo-1b").reduced()
+    engines = []
+    for dev in (cuda, "cpu"):
+        eng = make_engine(cfg, seed=3, cache_len=32, device=dev).init_slots(
+            4, page_size=8)
+        if engines:
+            eng.params = _cpu(engines[0].params)
+        if feature == "prefix_cache":
+            eng.enable_prefix_cache()
+            eng.warm_prefix_ops()
+        else:
+            draft = InferenceEngine(eng.api, eng.params,
+                                    cache_len=32).init_slots(4, paged=False)
+            eng.attach_draft(draft, spec_k=3)
+        engines.append(eng)
+    spec, prompts = _shared_prefix_requests(cfg)
+    on = ({"prefix_cache": True} if feature == "prefix_cache"
+          else {"spec_k": 3})
+    launches0 = _launch_counts()
+    runs = []
+    for eng in engines:
+        for kw in ({}, on):
+            eng.release_all_slots()
+            eng.reset_stats()
+            reqs = [Request(arrival=0.0, rid=i, model=cfg.name, slo=1e9,
+                            n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+            planner = StepPlanner(eng, RequestQueue(cfg.name, slo=1e9),
+                                  PlannerConfig(gen_len=4, **kw))
+            srv = serve_ticks(planner, reqs,
+                              lambda r: {"tokens": prompts[r.rid]})
+            assert not srv.truncated
+            runs.append((planner.streams, dataclasses.asdict(eng.stats)))
+        if eng.device.type == "cuda":
+            ran = [n > n0 for n, n0 in zip(_launch_counts(), launches0)]
+    assert runs[2:] == runs[:2], "GPU and CPU serves differ"
+    assert runs[1][0] == runs[0][0], f"{feature} changed the streams"
+    st = runs[1][1]
+    if feature == "prefix_cache":
+        assert st["prefix_hits"] and st["cow_copies"]
+        assert st["forced_catchup_tokens"]
+        assert ran == [True, True, False, False, False]
+    else:
+        assert st["spec_rounds"]
+        assert st["accepted_tokens"] == st["draft_tokens"]
+        assert ran == [True, True, True, True, False]
 
 
 def _cpu(tree):

@@ -44,7 +44,8 @@ from repro_torch.serving import request as port_request  # noqa: E402
 from repro_torch.serving.engine import (InferenceEngine,  # noqa: E402
                                         _packed_bucket, _pow2_at_least,
                                         _write_segments)
-from repro_torch.serving.graphs import KINDS  # noqa: E402
+from repro_torch.serving.graphs import (KINDS, PREFIX_KINDS,  # noqa
+                                       SPEC_KINDS)
 
 SSM = "mamba2-1.3b"
 
@@ -106,7 +107,8 @@ def _serve(side, cfg, eng, spec, prompts, *, fault_kw=None,
     finally:
         eng.attach_faults(None, max_retries=2)
     assert not srv.truncated
-    assert eng.free_pages == eng.total_pages, "leaked pages"
+    held = eng.prefix_cache.held_pages if eng.prefix_cache else 0
+    assert eng.free_pages + held == eng.total_pages, "leaked pages"
     return ({r: tuple(t) for r, t in planner.streams.items()}, planner,
             srv)
 
@@ -355,6 +357,72 @@ def test_serve_keeps_every_slot_buffer_in_place_and_matches_jax(
     jeng.release_all_slots()
     peng.release_all_slots()
     assert _addresses(peng) == addr
+
+
+def _shared_prefix_spec(cfg, seed, n):
+    """``tests/test_prefix_cache.py``'s shared-prefix stream as
+    [(rid, prompt_len, n_tokens)] and host prompts: templates of 20 and 8
+    tokens (20 is not a page multiple, so hits copy a page) plus tails
+    of 2-5."""
+    rng = np.random.default_rng(seed)
+    temps = [rng.integers(1, cfg.vocab_size, size=s).astype(np.int32)
+             for s in (20, 8)]
+    spec, prompts = [], {}
+    for i in range(n):
+        t = temps[int(rng.integers(0, 2))]
+        tail = rng.integers(1, cfg.vocab_size,
+                            size=int(rng.integers(2, 6))).astype(np.int32)
+        prompts[i] = np.concatenate([t, tail])[None, :]
+        spec.append((i, prompts[i].shape[1], int(rng.integers(3, 9))))
+    return spec, prompts
+
+
+def test_prefix_and_spec_kinds_equal_jax_after_the_same_serves():
+    """The prefix cache's ``copy_page``/``alias_slot`` and speculation's
+    ``draft_scan``/``spec_commit`` (the registry's new kinds, registered
+    when the features attach): after the same serves — the shared-prefix
+    stream with the cache and speculation both on, twice — the port
+    counts as many executables of each kind as the JAX engine
+    (``alias_slot``: see below), its ``chunk_prefill`` keys
+    (continuations and verify chunks) are the JAX engine's, the streams
+    are the JAX package's, and the repeat serve adds nothing. Alias
+    admissions catch up through forced tokens while other slots run
+    speculative rounds."""
+    cfg, jeng, peng = _pair("olmo-1b", 32, 4)
+    assert set(peng.jit_cache_sizes()) == set(KINDS)
+    drafts = (type(jeng)(jeng.api, jeng.params, cache_len=32),
+              InferenceEngine(peng.api, peng.params, cache_len=32))
+    for eng, draft in zip((jeng, peng), drafts):
+        eng.enable_prefix_cache()
+        eng.warm_prefix_ops()
+        eng.attach_draft(draft.init_slots(4, paged=False), spec_k=3)
+    assert set(peng.jit_cache_sizes()) == set(KINDS) | set(PREFIX_KINDS) \
+        | set(SPEC_KINDS)
+    # the JAX engine jits the module-level ``_alias_slot``, whose trace
+    # cache every JAX engine of the process shares: it is held to tracing
+    # it anew in no serve, the port to one entry
+    alias = jeng.jit_cache_sizes()["alias_slot"]
+    spec, prompts = _shared_prefix_spec(cfg, 3, 8)
+    runs = []
+    for _ in range(2):
+        a = _serve("jax", cfg, jeng, spec, prompts, prefix_cache=True,
+                   spec_k=3)
+        b = _serve("port", cfg, peng, spec, prompts, prefix_cache=True,
+                   spec_k=3)
+        assert b[0] == a[0]
+        assert dataclasses.asdict(peng.stats) == \
+            dataclasses.asdict(jeng.stats)
+        runs.append(peng.jit_cache_sizes())
+    st = peng.stats
+    assert st.spec_rounds and st.prefix_hits and st.forced_catchup_tokens
+    want = jeng.jit_cache_sizes()
+    kinds = ("copy_page",) + SPEC_KINDS
+    assert {k: runs[-1][k] for k in kinds} == {k: want[k] for k in kinds}
+    assert runs[-1]["copy_page"] == runs[-1]["alias_slot"] == 1
+    assert want["alias_slot"] == alias
+    assert set(peng._graphs.entries["chunk_prefill"]) == set(
+        jeng._chunk_prefill_jit)
+    assert runs[1] == runs[0]
 
 
 def test_fixed_shape_scatter_with_device_counts_equals_int_counts():

@@ -352,11 +352,20 @@ def test_chips_for_frac_parametrized_by_pod_size():
 
 
 # -------------------------------------------------- the port's own surface
-def test_unported_pool_features_raise(pool):
-    with pytest.raises(NotImplementedError, match="prompt cache"):
-        EnginePool(pool.hosts, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        pool.enable_speculation("olmo-1b", "qwen2-0.5b")
+def test_unported_pool_features_raise():
+    """The telemetry plane is not ported and raises; the prefix cache and
+    cross-model speculation are: a pool of its own (the module's pools
+    stay as built) attaches a cache to every capable standby, skips the
+    SSM family, and pairs a draft with every olmo-1b standby."""
+    pool = build_pool(["olmo-1b", "mamba2-1.3b"], request_rate=RATE,
+                      base_slots=2, cache_len=32, device="cpu", warm=False,
+                      prefix_cache=True)
+    for name, host in pool.hosts.items():
+        for eng in host.engines():
+            assert (eng.prefix_cache is not None) == (name == "olmo-1b")
+    assert pool.enable_speculation("olmo-1b", "olmo-1b", spec_k=2) == len(
+        pool.hosts["olmo-1b"].allocations)
+    assert pool.enable_speculation("mamba2-1.3b", "olmo-1b") == 0
     with pytest.raises(NotImplementedError, match="telemetry"):
         pool.attach_telemetry(object())
 

@@ -345,10 +345,10 @@ def test_page_bookkeeping_matches_jax(engines):
 
 
 def test_unported_planner_features_raise():
-    with pytest.raises(NotImplementedError, match="speculative"):
-        port_plan.PlannerConfig(spec_k=2)
-    with pytest.raises(NotImplementedError, match="prompt cache"):
-        port_plan.PlannerConfig(prefix_cache=True)
+    """Sampled slot steps are not ported and raise; the prefix cache and
+    speculative decoding are, and the planner takes both knobs."""
+    assert port_plan.PlannerConfig(spec_k=2).spec_k == 2
+    assert port_plan.PlannerConfig(prefix_cache=True).prefix_cache
     cfg = get_config("olmo-1b").reduced()
     eng = InferenceEngine(build_model(cfg, device="cpu"), None,
                           cache_len=CACHE_LEN)
@@ -356,6 +356,9 @@ def test_unported_planner_features_raise():
         eng.init_slots(2, sampling=object())
     with pytest.raises(ValueError, match="multiple of page_size"):
         eng.init_slots(2, cache_len=20, page_size=8)
+    eng.init_slots(2, page_size=8)
+    assert eng.enable_prefix_cache() is eng.prefix_cache
+    assert eng.spec_capable()
 
 
 # ------------------------------------------------------------ Mamba2 (ssm)
