@@ -7,9 +7,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases af  # kernels and the Mamba2 family
     python3 chip_smoke.py --phases g   # the D-STACK pool on the card
     python3 chip_smoke.py --phases h   # prefix cache and speculation
+    python3 chip_smoke.py --phases i   # sampling, telemetry, the gateway
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs eight phases, each printing one JSON line:
+with ``nvcc`` and runs nine phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -71,6 +72,25 @@ with ``nvcc`` and runs eight phases, each printing one JSON line:
       audit and a canonical free list after the divergent serve, and
       #1-#4 launched; the bf16 streams of different kernels (cache off vs
       on, plain vs speculative) are counted equal, not asserted;
+  (i) sampling, telemetry and the gateway: olmo-1b at full width in
+      bfloat16 (phase (b)'s weights). (i1) (b)'s requests on 8 sampled
+      paged slots (temperature 0.8, top-k 50, top-p 0.95, seed 0): one
+      capturing pass, then eager, graphed, graphed, eager turns from the
+      same seed — identical streams, no capture, #2, #3 and #1 launched;
+      seed 1 draws other streams, temperature 0 gives (b)'s greedy
+      streams; (i2) 2^16 draws from each of 8 rows of the model's logits
+      lie in the plain filter's support within a total variation of 0.03
+      of its renormalised softmax, and sampled ``generate`` 8 x 512 + 64
+      gives one seed's tokens graphed twice and eager once (#5, #4);
+      (i3) ``bench_gateway --full``'s burst trace through the async
+      gateway on 4 paged slots of 32 (pages of 8), every packing captured
+      up front: virtual-clock serves under FIFO and tiers (tiers lift
+      interactive attainment; streams equal ``serve_ticks``'), then
+      wall-clock serves, telemetry off and on (trace validated and saved,
+      TTFT/TBT, dispatches against f_L), no capture, #2 and #1; (i4)
+      (g)'s pool under ``dstack`` with the telemetry plane attached: (g)'s
+      served and violated counts, no capture, the Prometheus text
+      round-tripped, #1, #2 and #6;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -83,7 +103,12 @@ with ``nvcc`` and runs eight phases, each printing one JSON line:
       identical; and the quick trio cut to 2 layers, float32, serves
       under ``dstack`` in one pool on each device: the same admissions
       (model, granted units, batch, request ids) and the same served and
-      violated counts.
+      violated counts; a telemetry-attached paged serve (its streams and
+      trace keys), sampled slots and sampled ``generate`` at temperature
+      0 and at top-k 1 (the greedy streams), and (i3)'s gateway serves at
+      2 layers: on the GPU the whole trace, whose scorecards must equal
+      (i3)'s, and on both devices its first 0.2 virtual seconds, the same
+      streams and scorecards.
 
 Every path of (b), (d), (e) and (f) runs on one engine that replays CUDA
 graphs per bucket (``repro_torch.serving.graphs``): a first graphed run
@@ -97,8 +122,10 @@ timed wall is the device's busy share.
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
 its count over the first graphed turn of each main path of (b), (d), (e)
-and (f), plus the four serves of (g) and the first graphed cache-on and
-speculative turns of (h)), the card's name and power limit, and, last,
+and (f), plus the four serves of (g), the first graphed cache-on and
+speculative turns of (h), and (i)'s first graphed sampled turn, timed
+graphed ``generate``, traced wall-clock gateway serve and traced pool
+serve), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
@@ -681,7 +708,7 @@ def _requests(n, prompt_range, budget_range, vocab, seed, model="olmo-1b"):
     return reqs, prompts
 
 
-def _serve(eng, reqs, prompts, chunk_tokens, **planner_kw):
+def _serve(eng, reqs, prompts, chunk_tokens, telemetry=None, **planner_kw):
     import copy
     from repro_torch.serving.plan import (PlannerConfig, StepPlanner,
                                           serve_ticks)
@@ -691,8 +718,13 @@ def _serve(eng, reqs, prompts, chunk_tokens, **planner_kw):
     planner = StepPlanner(eng, RequestQueue(reqs[0].model, slo=1e9),
                           PlannerConfig(chunk_tokens=chunk_tokens,
                                         **planner_kw))
-    srv = serve_ticks(planner, copy.deepcopy(reqs),
-                      lambda r: {"tokens": prompts[r.rid]})
+    planner.telemetry = telemetry
+    eng.attach_telemetry(telemetry)
+    try:
+        srv = serve_ticks(planner, copy.deepcopy(reqs),
+                          lambda r: {"tokens": prompts[r.rid]})
+    finally:
+        eng.attach_telemetry(None)
     assert not srv.truncated
     return {r: list(t) for r, t in planner.streams.items()}, srv
 
@@ -1181,15 +1213,23 @@ def _calibrate(torch, pool, reps: int = 5):
     return rows, per_layer
 
 
-def phase_g(torch):
+def _build_pool(torch):
+    """The quick trio at full width in bfloat16, 4 paged slots of 1024
+    per standby, not yet warmed."""
     from repro_torch.serving.pool import build_pool
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pool = build_pool(POOL_MODELS, request_rate=POOL_RATE, base_slots=4,
+    return build_pool(POOL_MODELS, request_rate=POOL_RATE, base_slots=4,
                       cache_len=1024, prompt_len=128, reduced=False,
                       page_size=16, warm=False, device="cuda",
                       dtype=torch.bfloat16)
+
+
+def phase_g(torch, keep=None):
+    """(g)'s pool; with ``keep``, the pool and its ``dstack`` serve's row
+    stay there for phase (i4)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pool = _build_pool(torch)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     hw = pool.profiles[POOL_MODELS[0]].hw       # the card's (local_gpu)
@@ -1248,6 +1288,8 @@ def phase_g(torch):
            "dispatch_overhead_modelled_s": hw.dispatch_overhead,
            "launches": launches}
     _emit(out)
+    if keep is not None:
+        keep.update(pool=pool, dstack=serves["dstack"])
     del pool, engines
     torch.cuda.empty_cache()
     return out
@@ -1552,6 +1594,411 @@ def phase_h(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase (i): sampled decoding, the telemetry plane and the async gateway
+# --------------------------------------------------------------------------
+I_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+I2_ROWS, I2_DRAWS, I2_BATCH = 8, 1 << 16, 1024
+I2_GEN = (8, 512, 64)              # generate: batch, prompt, new tokens
+# (i3): bench_gateway --full's burst trace, tiers, planner and slots
+GW_TRAFFIC = dict(model="olmo-1b", duration=0.6, rate=240.0, seed=12,
+                  slo_unit=1e-3, prompt_tokens=(4, 12), gen_tokens=(3, 8))
+GW_BURST = 16.0
+GW_SLOTS, GW_CACHE, GW_PAGE = 4, 32, 8
+GW_POLICIES = ("temporal", "dstack")     # FIFO admission, weighted tiers
+GW_QUICK = 0.2         # bench_gateway's quick duration: (c)'s CPU slice
+# the gateway's planner does not chunk: admissions (#2) and decodes (#1)
+GW_PATH = ("paged_decode_attention", "segment_flash_attention")
+
+
+def _sampling(**kw):
+    from repro_torch.serving.engine import SamplingParams
+    return SamplingParams(**kw)
+
+
+def _i1(torch, eng, reqs, prompts, greedy_streams):
+    """(i1): (b)'s 16 requests on 8 sampled paged slots (``I_SAMPLING``,
+    seed 0): one capturing pass, then eager, graphed, graphed, eager turns
+    from the same seed (identical streams, 0 captures); seed 1 gives
+    another stream; temperature 0 gives (b)'s greedy streams."""
+    n_tok = sum(r.n_tokens for r in reqs)
+
+    def run(seed=0):
+        eng.seed_slots(seed)
+        return _serve(eng, reqs, prompts, chunk_tokens=512)
+
+    streams, warm, turns = _turns(torch, eng, run, n_tok, PAGED_PATH, "i1")
+    vocab = eng.cfg.vocab_size
+    assert all(0 <= t < vocab for s in streams.values() for t in s), \
+        "i1: a sampled token outside the vocabulary"
+    other = run(1)[0]
+    assert other != streams, "i1: seed 1 drew seed 0's streams"
+    # temperature 0: the greedy streams of (b) (eager, so nothing new is
+    # captured for a config served once)
+    eng.init_slots(8, page_size=16, sampling=_sampling(temperature=0.0))
+    eng.graphs = False
+    cold = _serve(eng, reqs, prompts, chunk_tokens=512)[0]
+    eng.graphs = True
+    if greedy_streams is None:
+        eng.init_slots(8, page_size=16)
+        greedy_streams = _serve(eng, reqs, prompts, chunk_tokens=512)[0]
+    assert cold == greedy_streams, "i1: temperature 0 is not greedy"
+    graphed = next(t for t in turns if t["mode"] == "graphed")
+    out = {"requests": len(reqs), "tokens_served": n_tok,
+           "sampling": I_SAMPLING,
+           **{k: _by_mode(turns, k) for k in (
+               "tokens_per_s", "tick_ms_p50", "tick_ms_p99")},
+           "ticks": graphed["ticks"], "dispatches": graphed["dispatches"],
+           "streams_equal_seed_1": _equal_streams(streams, other),
+           "graphs": _graph_report(eng, warm, turns),
+           "launches": graphed["launches"]}
+    _log(json.dumps({"i1": {k: v for k, v in out.items()
+                            if k != "graphs"}}))
+    return out
+
+
+def _i2(torch, eng):
+    """(i2): the sampler on the card — 2^16 draws from each of 8 rows of
+    the model's own last-token logits (64-token prompts), against the
+    plain filter's support and its renormalised softmax; then sampled
+    ``generate`` 8 x 512 + 64 graphed (capturing, untimed), graphed and
+    eager from one seed, identical tokens."""
+    from repro_torch.models import layers as L
+    cfg = eng.cfg
+    rng = np.random.default_rng(21)
+    tokens = rng.integers(1, cfg.vocab_size, (I2_ROWS, 64)).astype(np.int32)
+    logits = eng.prefill({"tokens": tokens}, 128)[0].float()
+    filt = L.top_k_top_p_filter(logits / I_SAMPLING["temperature"],
+                                top_k=I_SAMPLING["top_k"],
+                                top_p=I_SAMPLING["top_p"])
+    support = filt > -1e29
+    p = torch.softmax(filt.double(), -1)
+    gen = torch.Generator(device=logits.device).manual_seed(0)
+    counts = torch.zeros_like(p)
+    outside = 0
+    for _ in range(I2_DRAWS // I2_BATCH):
+        draws = L.sample_logits(gen, logits.repeat_interleave(I2_BATCH, 0),
+                                **I_SAMPLING).view(I2_ROWS, I2_BATCH)
+        outside += int((~support.gather(1, draws)).sum())
+        counts.scatter_add_(1, draws, torch.ones_like(draws,
+                                                      dtype=counts.dtype))
+    tv = (0.5 * (counts / I2_DRAWS - p).abs().sum(-1)).tolist()
+    _log(json.dumps({"i2/sampler": {"tv": tv, "outside": outside}}))
+    assert outside == 0, f"i2: {outside} draws outside the filter's support"
+    assert max(tv) <= 0.03, f"i2: total variation {tv}"
+    step_ms = _time_ms(lambda: L.sample_logits(gen, logits, **I_SAMPLING),
+                       torch, sleep=False)
+    # sampled generate: graphed (captures), graphed, eager — one seed
+    b, s, new = I2_GEN
+    prompt = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+    sp = _sampling(**I_SAMPLING)
+    runs = []
+    for mode in ("graphed", "graphed", "eager"):
+        eng.graphs = mode == "graphed"
+        torch.cuda.synchronize()
+        c0 = _captures(eng)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        got = eng.generate({"tokens": prompt}, new, rng=0, sampling=sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append({"mode": mode, "tokens": got.cpu().tolist(),
+                     "wall_s": wall, "tokens_per_s": b * new / wall,
+                     "captures": _captures(eng) - c0,
+                     "launches": _launch_counts()})
+    eng.graphs = True
+    assert runs[0]["tokens"] == runs[1]["tokens"] == runs[2]["tokens"], \
+        "i2: sampled generate differs between runs of one seed"
+    for r in runs[1:]:
+        assert r["captures"] == 0, f"i2: a timed {r['mode']} run captured"
+        _check_launches(r["launches"], GENERATE_PATH, f"i2/{r['mode']}")
+    out = {"rows": I2_ROWS, "draws_per_row": I2_DRAWS,
+           "vocab": cfg.vocab_size, "support_sizes":
+           support.sum(-1).tolist(), "tv": tv, "tv_max": max(tv),
+           "sample_logits_ms_8_rows": step_ms,
+           "generate": [{k: v for k, v in r.items() if k != "tokens"}
+                        for r in runs],
+           "launches": runs[1]["launches"]}
+    _log(json.dumps({"i2": {k: v for k, v in out.items()
+                            if k != "generate"}}))
+    return out
+
+
+def _warm_packings(eng, lo, hi):
+    """Capture every packed-prefill executable an admission of 1..n_slots
+    prompts of ``lo``..``hi`` tokens can meet (one admission per
+    ``segment_key``), and the slot step; then free everything."""
+    import itertools
+    keys = {}
+    for n in range(1, eng.n_slots + 1):
+        for lens in itertools.combinations_with_replacement(
+                range(lo, hi + 1), n):
+            keys.setdefault(eng.segment_key(lens), lens)
+    for lens in keys.values():
+        eng.insert_many([{"tokens": np.ones((1, ln), np.int32)}
+                         for ln in lens], n_tokens=[1] * len(lens))
+        eng.step()
+        eng.release_all_slots()
+    return len(keys)
+
+
+def _gw_trace(vocab, duration=GW_TRAFFIC["duration"]):
+    """The burst trace over its first ``duration`` virtual seconds, and
+    its prompts."""
+    from repro_torch.serving import traffic
+    reqs = traffic.burst_trace(traffic.TrafficConfig(
+        **dict(GW_TRAFFIC, duration=duration)), burst_mult=GW_BURST)
+    return reqs, traffic.synth_prompts(reqs, vocab=vocab, seed=0)
+
+
+def _gw_serve(eng, reqs, prompts, policy, *, wall=False, telemetry=None,
+              ticks=False):
+    """One serve of the burst trace under ``policy`` — through the async
+    gateway (virtual or wall clock) or, with ``ticks``, ``serve_ticks`` —
+    as ``bench_gateway`` serves it. Returns (streams, scorecard, planner,
+    seconds)."""
+    import torch
+    from repro_torch.serving import traffic
+    from repro_torch.serving.gateway import AsyncGateway
+    from repro_torch.serving.plan import (PlannerConfig, StepPlanner,
+                                          serve_ticks)
+    from repro_torch.serving.request import RequestQueue
+    for r in reqs:
+        r.state, r.finish, r.first_token, r.tokens_out = \
+            "pending", -1.0, -1.0, 0
+    eng.release_all_slots()
+    eng.reset_stats()
+    tiers = dict(traffic.TIER_WEIGHTS) if policy == "dstack" else None
+    planner = StepPlanner(eng, RequestQueue(eng.cfg.name, slo=1e9),
+                          PlannerConfig(gen_len=4, tiers=tiers))
+    planner.telemetry = telemetry
+    t0 = time.perf_counter()
+    if ticks:
+        srv = serve_ticks(planner, reqs, lambda r: prompts[r.rid],
+                          stall_limit=100)
+        assert not srv.truncated
+        n_ticks = srv.ticks
+    else:
+        gw = AsyncGateway(planner, wall_clock=wall, stall_limit=100)
+        gw.serve_trace(reqs, prompts)
+        assert not gw.truncated, "gateway serve hit its max_ticks"
+        n_ticks = gw.server.ticks
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    planner.telemetry = None
+    assert eng.free_pages == eng.total_pages, "gateway serve leaked pages"
+    q = planner.queue
+    card = {"attainment_by_tier": traffic.attainment_by(reqs, "tier"),
+            "attainment_by_tenant": traffic.attainment_by(reqs, "tenant"),
+            "tenant_jain": planner.metrics.tenant_fairness(),
+            "completed": q.completed, "shed": q.shed, "dropped": q.dropped,
+            "deadline_aborted": q.deadline_aborted, "late": q.late,
+            "ticks": n_ticks}
+    streams = {r: list(t) for r, t in planner.streams.items()}
+    return streams, card, planner, seconds
+
+
+def _gw_virtual(eng, duration=GW_TRAFFIC["duration"]):
+    """The burst trace's virtual-clock gateway serves under both policies
+    on ``eng``: {policy: (streams, scorecard)}."""
+    reqs, prompts = _gw_trace(eng.cfg.vocab_size, duration)
+    return {p: _gw_serve(eng, reqs, prompts, p)[:2] for p in GW_POLICIES}
+
+
+def _i3(torch, eng):
+    """(i3): ``bench_gateway --full``'s burst trace on one engine of 4 paged
+    slots of 32 tokens (pages of 8) sharing (i1)'s weights: every packing
+    captured up front; virtual-clock serves under FIFO and tiers (their
+    counts are host decisions, held against the 2-layer float32 GPU serve
+    in phase (c), itself held against the CPU) and ``serve_ticks`` under
+    tiers (the gateway's streams);
+    then wall-clock serves under tiers with SLOs relaxed (a tick here is
+    slower than the trace's 1 ms virtual tick), telemetry off and on —
+    the traced one saved, validated and joined against f_L."""
+    from repro_torch.core.hardware import local_gpu
+    from repro_torch.core.profiles import build_profile
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.metrics import percentile
+    from repro_torch.serving.telemetry import (Telemetry, TraceRecorder,
+                                               format_roofline,
+                                               roofline_report,
+                                               validate_chrome_trace)
+    geng = InferenceEngine(eng.api, eng.params, cache_len=GW_CACHE,
+                           alloc_chips=100).init_slots(
+        GW_SLOTS, page_size=GW_PAGE)
+    t0 = time.perf_counter()
+    n_keys = _warm_packings(geng, *GW_TRAFFIC["prompt_tokens"])
+    torch.cuda.synchronize()
+    warm = geng.jit_cache_sizes()
+    _log(json.dumps({"i3/warm": {"packings": n_keys, "captures":
+                                 sum(warm.values()),
+                                 "s": time.perf_counter() - t0}}))
+    reqs, prompts = _gw_trace(eng.cfg.vocab_size)
+    virtual = {}
+    for policy in GW_POLICIES:
+        streams, card, _, secs = _gw_serve(geng, reqs, prompts, policy)
+        virtual[policy] = {"card": card, "wall_s": secs,
+                           "streams": streams}
+    ticks_streams = _gw_serve(geng, reqs, prompts, "dstack", ticks=True)[0]
+    assert ticks_streams == virtual["dstack"]["streams"], \
+        "i3: gateway streams differ from serve_ticks"
+    fifo, tiered = (virtual[p]["card"] for p in GW_POLICIES)
+    assert tiered["attainment_by_tier"]["interactive"] > \
+        fifo["attainment_by_tier"]["interactive"], (fifo, tiered)
+    # wall clock, SLOs relaxed: telemetry off, then on
+    slos = [r.slo for r in reqs]
+    walls = {}
+    for r in reqs:
+        r.slo = 1e9
+    try:
+        for traced in (False, True):
+            tel = Telemetry(trace=TraceRecorder()) if traced else None
+            geng.attach_telemetry(tel)
+            _reset_launch_counts()
+            try:
+                streams, card, planner, secs = _gw_serve(
+                    geng, reqs, prompts, "dstack", wall=True, telemetry=tel)
+            finally:
+                geng.attach_telemetry(None)
+            q = planner.queue
+            walls[traced] = {
+                "wall_s": secs, "ticks": card["ticks"],
+                "tokens_per_s": sum(map(len, streams.values())) / secs,
+                "ttft_ms_p50": 1e3 * percentile(q.ttfts, 0.5),
+                "ttft_ms_p99": 1e3 * percentile(q.ttfts, 0.99),
+                "tbt_ms_p50": 1e3 * percentile(q.tbts, 0.5),
+                "tbt_ms_p99": 1e3 * percentile(q.tbts, 0.99),
+                "completed": q.completed,
+                "streams_equal_virtual": _equal_streams(
+                    streams, virtual["dstack"]["streams"]),
+                "launches": _launch_counts()}
+            _check_launches(walls[traced]["launches"], GW_PATH,
+                            f"i3/wall/{'traced' if traced else 'plain'}")
+    finally:
+        for r, slo in zip(reqs, slos):
+            r.slo = slo
+    # on-time attainment of the traced wall pass against the real SLOs
+    from repro_torch.serving import traffic
+    walls[True]["attainment_by_tier_real_slo"] = traffic.attainment_by(
+        reqs, "tier")
+    assert geng.jit_cache_sizes() == warm, "i3: a serve captured"
+    obj = tel.trace.to_chrome_trace()
+    n_spans = validate_chrome_trace(obj)
+    OUT_DIR.mkdir(exist_ok=True)
+    tel.trace.save(str(OUT_DIR / "i3_gateway_trace.json"))
+    prof = build_profile(eng.cfg.name, request_rate=1000.0, hw=local_gpu())
+    rows = roofline_report(tel.timers, {eng.cfg.name: prof})
+    for line in format_roofline(rows):
+        _log(line)
+    out = {"model": eng.cfg.name, "dtype": "bfloat16",
+           "slots": f"{GW_SLOTS} paged x {GW_CACHE}, pages of {GW_PAGE}",
+           "trace": dict(GW_TRAFFIC, burst_mult=GW_BURST,
+                         requests=len(reqs)),
+           "packings_warmed": n_keys, "captures_after_warm_up": 0,
+           "virtual": {p: {"card": v["card"], "wall_s": v["wall_s"]}
+                       for p, v in virtual.items()},
+           "wall": {("traced" if k else "plain"): v
+                    for k, v in walls.items()},
+           "trace_spans": n_spans, "trace_events": len(tel.trace.events),
+           "timer_samples": tel.timers.total_samples,
+           "roofline": [r.as_dict() for r in rows],
+           "launches": walls[True]["launches"]}
+    _log(json.dumps({"i3": {k: v for k, v in out.items()
+                            if k != "roofline"}}))
+    return out
+
+
+def _i4(torch, keep):
+    """(i4): (g)'s pool under ``dstack`` once more with the telemetry plane
+    attached (trace and timers) — the same served and violated counts as
+    the untraced ``dstack`` serve, no capture, #1, #2 and #6 launched —
+    and its Prometheus exposition round-tripped."""
+    from repro_torch.serving.telemetry import (MetricsRegistry, Telemetry,
+                                               TraceRecorder,
+                                               export_pool_result,
+                                               parse_prometheus,
+                                               roofline_report,
+                                               validate_chrome_trace)
+    pool = keep.get("pool")
+    if pool is None:
+        pool = keep["pool"] = _build_pool(torch)
+        pool.warmup()
+        keep["dstack"] = _pool_row(*_pool_serve(pool, "dstack"))
+    base = keep["dstack"]
+    warm = pool.jit_cache_sizes()
+    tel = Telemetry(trace=TraceRecorder())
+    pool.attach_telemetry(tel)
+    _reset_launch_counts()
+    try:
+        ctl, res, log = _pool_serve(pool, "dstack")
+        torch.cuda.synchronize()
+    finally:
+        pool.attach_telemetry(None)
+    got = _launch_counts()
+    _check_launches(got, POOL_PATH, "i4")
+    assert pool.jit_cache_sizes() == warm, "i4: the traced serve captured"
+    counts = {n: (m.completed, m.violated) for n, m in res.per_model.items()}
+    want = {n: (m["served"], m["violated"])
+            for n, m in base["per_model"].items()}
+    assert counts == want, f"i4: traced {counts}, untraced {want}"
+    reg = MetricsRegistry()
+    export_pool_result(reg, res)
+    text = reg.render()
+    parsed = parse_prometheus(text)
+    for n, (served, violated) in counts.items():
+        assert parsed[("dstack_requests_total",
+                       (("cause", "completed"), ("model", n)))] == served
+        assert parsed[("dstack_slo_violations_total",
+                       (("model", n),))] == violated
+    assert parse_prometheus(reg.render()) == parsed
+    n_spans = validate_chrome_trace(tel.trace.to_chrome_trace())
+    rows = roofline_report(tel.timers, pool.profiles)
+    out = {"served": res.total_completed, "violated": res.total_violated,
+           "wall_s": res.wall_s,
+           "untraced_wall_s": base["wall_s"],
+           "metric_lines": len(text.splitlines()),
+           "trace_spans": n_spans, "timer_samples":
+           tel.timers.total_samples,
+           "roofline": [r.as_dict() for r in rows], "launches": got}
+    _log(json.dumps({"i4": {k: v for k, v in out.items()
+                            if k != "roofline"}}))
+    return out
+
+
+def phase_i(torch, greedy_streams=None, keep=None):
+    """olmo-1b at full width, bfloat16, seed 0 (phase (b)'s weights):
+    (i1) a sampled serve, (i2) the sampler and sampled ``generate``, (i3)
+    the async gateway on the burst trace, (i4) telemetry on (g)'s pool."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    cfg = get_config("olmo-1b")
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda").init_slots(
+        8, page_size=16, sampling=_sampling(**I_SAMPLING), rng_seed=0)
+    reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0)
+    out = {"phase": "i", "model": cfg.name, "dtype": "bfloat16"}
+    parts = {}
+    for name, fn, args in (
+            ("i1", _i1, (eng, reqs, prompts, greedy_streams)),
+            ("i2", _i2, (eng,)), ("i3", _i3, (eng,)),
+            ("i4", _i4, (keep if keep is not None else {},))):
+        t0 = time.perf_counter()
+        parts[name] = fn(torch, *args)
+        parts[name]["s"] = time.perf_counter() - t0
+    launches = {n: sum(p["launches"][n] for p in parts.values())
+                for n in KERNEL_NAMES}
+    out.update(parts, launches=launches)
+    _emit({"phase": "i", "i1": {k: parts["i1"][k] for k in (
+        "tokens_per_s", "streams_equal_seed_1", "s")},
+        "i2": {k: parts["i2"][k] for k in ("tv_max", "s")},
+        "i3": {"virtual": parts["i3"]["virtual"], "s": parts["i3"]["s"]},
+        "i4": {k: parts["i4"][k] for k in ("served", "violated", "s")}})
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def _insert_step_serve(eng, prompts, budgets):
     """Continuous batching through ``insert``/``step``/``free``: requests
     enter free slots in order, every active slot steps, done slots free.
@@ -1585,11 +2032,14 @@ def _both(engines, run):
     return (gpu, cpu), launches, time.perf_counter() - t0
 
 
-def phase_c(torch):
+def phase_c(torch, i3=None):
+    """GPU against CPU at full width cut to 2 layers, float32. ``i3``:
+    phase (i3)'s report, whose virtual-clock scorecards the GPU gateway
+    serves must equal."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    from repro_torch.serving.engine import (InferenceEngine, _packed_bucket,
-                                            make_engine)
+    from repro_torch.serving.engine import InferenceEngine, make_engine
+    from repro_torch.serving.telemetry import Telemetry, TraceRecorder
     cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2,
                               dtype="float32")
     gpu_params = make_engine(cfg, seed=1, device="cuda").params
@@ -1636,9 +2086,24 @@ def phase_c(torch):
 
     # 1. paged serve with incremental continuations
     got = check("paged_serve", engines, serve, PAGED_PATH, packed_logits,
-                requests=len(reqs), packed_tokens=_packed_bucket(sum(lens)))
+                requests=len(reqs),
+                packed_tokens=engines[0].segment_key(lens)[0])
     assert engines[0].stats.incr_chunks > 0, "no continuation ran"
     checks["paged_serve"]["tokens"] = sum(map(len, got.values()))
+
+    # 1b. the same serve with the telemetry plane attached: the untraced
+    # streams, and one trace key sequence (every field but wall-clock)
+    # on both devices
+    def traced_serve(eng):
+        tel = Telemetry(trace=TraceRecorder())
+        streams = _serve(eng, reqs, prompts, chunk_tokens=128,
+                         telemetry=tel)[0]
+        return streams, tel.trace.key_sequence()
+
+    traced, keys = check("traced_serve", engines, traced_serve, PAGED_PATH,
+                         packed_logits, events=None)
+    assert traced == got, "the traced serve changed the streams"
+    checks["traced_serve"]["events"] = len(keys)
 
     # 2. the radix prompt cache: a shared-prefix serve cache off, then on
     # — the streams must be the same, on each device. Templates of 203 and
@@ -1684,11 +2149,30 @@ def phase_c(torch):
     # 4. batch generate: 4 prompts of 300 tokens, 24 new tokens each
     tokens = np.random.default_rng(2).integers(
         1, cfg.vocab_size, (4, 300)).astype(np.int32)
-    check("generate", pair(cfg, 256),
-          lambda e: e.generate({"tokens": tokens}, 24).cpu().tolist(),
-          GENERATE_PATH,
-          lambda e: e.prefill({"tokens": tokens}, e.bucket_len(300 + 32))[0],
-          batch=4, prompt_len=300, new_tokens=24)
+    greedy_gen = check(
+        "generate", pair(cfg, 256),
+        lambda e: e.generate({"tokens": tokens}, 24).cpu().tolist(),
+        GENERATE_PATH,
+        lambda e: e.prefill({"tokens": tokens}, e.bucket_len(300 + 32))[0],
+        batch=4, prompt_len=300, new_tokens=24)
+
+    # 4b. sampling configs that leave one choice (temperature 0; top-k 1)
+    # on sampled slots and in sampled generate: the greedy streams
+    def degenerate(eng):
+        out = {}
+        for name, sp in (("temperature_0", _sampling(temperature=0.0)),
+                         ("top_k_1", _sampling(temperature=0.8, top_k=1))):
+            eng.init_slots(4, page_size=16, sampling=sp, rng_seed=1)
+            out[name] = _serve(eng, reqs, prompts, chunk_tokens=128)[0]
+            out[f"{name}/generate"] = eng.generate(
+                {"tokens": tokens}, 24, rng=1, sampling=sp).cpu().tolist()
+        return out
+
+    got_s = check("sampled_greedy", pair(cfg, 512), degenerate,
+                  PAGED_PATH + GENERATE_PATH, packed_logits)
+    for name, streams in got_s.items():
+        assert streams == (greedy_gen if name.endswith("generate")
+                           else got), f"sampled {name} is not greedy"
 
     # 5. ring serve: continuations recompute the prefix
     engines = [e.init_slots(4, paged=False) for e in pair(cfg, 512)]
@@ -1763,12 +2247,31 @@ def phase_c(torch):
     assert all(c > 0 for c, _, _ in results[0].values()), results
     _check_launches(launches, POOL_PATH, "c/pool_dstack")
 
+    # 9. the async gateway on the virtual clock, FIFO and tiers, on 4
+    # paged slots of 32 (pages of 8): bench_gateway --full's burst trace
+    # on the GPU, whose scorecards (host decisions) must equal phase
+    # (i3)'s at full depth in bf16; and its quick slice on both devices,
+    # identical streams and scorecards
+    engines = [e.init_slots(GW_SLOTS, page_size=GW_PAGE)
+               for e in pair(cfg, GW_CACHE)]
+    t0 = time.perf_counter()
+    _warm_packings(engines[0], *GW_TRAFFIC["prompt_tokens"])
+    cards = {p: v[1] for p, v in _gw_virtual(engines[0]).items()}
+    full_s = time.perf_counter() - t0
+    check("gateway", engines, lambda e: _gw_virtual(e, GW_QUICK), GW_PATH,
+          packed_logits, duration=GW_QUICK, cards=cards, full_trace_s=full_s,
+          cards_equal_i3=None if i3 is None else all(
+              cards[p] == i3["virtual"][p]["card"] for p in GW_POLICIES))
+    assert checks["gateway"]["cards_equal_i3"] in (None, True), \
+        "gateway: (i3)'s bf16 scorecards differ from the float32 ones"
+
     out = {"phase": "c",
            "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b (2 layers)",
            "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff",
-               "admissions_identical", "counts_identical") if kk in v}
+               "admissions_identical", "counts_identical",
+               "cards_equal_i3") if kk in v}
                for k, v in checks.items()}}
     _emit(out)
     return dict(out, checks=checks)
@@ -1817,8 +2320,8 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefghc",
-                    help="which phases to run, of a, b, d, e, f, g, h, c "
+    ap.add_argument("--phases", default="abdefghic",
+                    help="which phases to run, of a, b, d, e, f, g, h, i, c "
                          "(default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -1875,17 +2378,23 @@ def main(argv=None) -> int:
         report["e"] = timed("e", phase_e, paged_streams)
     if "f" in args.phases:
         report["f"] = timed("f", phase_f)
+    keep = {}          # (g)'s pool, kept for (i4)
     if "g" in args.phases:
-        report["g"] = timed("g", phase_g)
+        report["g"] = timed("g", phase_g, keep if "i" in args.phases
+                            else None)
     if "h" in args.phases:
         report["h"] = timed("h", phase_h)
-    for phase in "bdefgh":
+    if "i" in args.phases:
+        report["i"] = timed("i", phase_i, paged_streams, keep)
+        keep.clear()
+        torch.cuda.empty_cache()
+    for phase in "bdefghi":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
-        report["c"] = timed("c", phase_c)
+        report["c"] = timed("c", phase_c, report.get("i", {}).get("i3"))
     if summary:
-        if all(p in args.phases for p in "bdefgh"):
+        if all(p in args.phases for p in "bdefghi"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

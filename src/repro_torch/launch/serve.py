@@ -48,14 +48,17 @@ def run_sim(model_names, duration: float, policy_name: str, rate: float):
 
 
 def run_real(model_names, duration: float, policy_name: str, rate: float,
-             gen_len: int = 4, lazy_kv: bool = False, device=None):
+             gen_len: int = 4, lazy_kv: bool = False, device=None,
+             trace_path=None, metrics: bool = False):
     """Thin wrapper over the engine pool: the named policy drives real
     graphed slot engines end to end (standby allocations captured once).
     ``lazy_kv`` switches admission to prompt-only page reservation with
     preempt-and-requeue on OutOfPages; ``device`` defaults to the CUDA
     device, where the models run at full width in bfloat16 (the reduced
     configs' shapes are not all built into the kernels); on the CPU they
-    run reduced, in float32."""
+    run reduced, in float32. ``trace_path`` arms the telemetry plane and
+    writes a Perfetto-loadable Chrome trace there; ``metrics`` prints a
+    Prometheus text snapshot of the run."""
     import torch
 
     from repro_torch.device import resolve_device
@@ -72,10 +75,29 @@ def run_real(model_names, duration: float, policy_name: str, rate: float,
                            for a in host.allocations.values())
         print(f"  {n:26s} standby engines: {allocs} "
               f"on {host.api.device}")
-    res = run_policy(pool, policy_name, rate=rate, duration=duration,
-                     gen_len=gen_len)
+    tel = None
+    if trace_path or metrics:
+        from repro_torch.serving.telemetry import Telemetry, TraceRecorder
+        tel = Telemetry(trace=TraceRecorder() if trace_path else None)
+        pool.attach_telemetry(tel)
+    try:
+        res = run_policy(pool, policy_name, rate=rate, duration=duration,
+                         gen_len=gen_len)
+    finally:
+        if tel is not None:
+            pool.attach_telemetry(None)
     for line in res.table_rows():
         print(line)
+    if trace_path:
+        tel.trace.save(trace_path)
+        print(f"trace: {len(tel.trace.events)} events -> {trace_path} "
+              f"(load in https://ui.perfetto.dev)")
+    if metrics:
+        from repro_torch.serving.telemetry import (MetricsRegistry,
+                                                   export_pool_result)
+        reg = MetricsRegistry()
+        export_pool_result(reg, res)
+        print(reg.render(), end="")
     return res
 
 
@@ -95,6 +117,14 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="(real mode) torch device (default: the CUDA "
                          "device; 'cpu' runs the plain versions)")
+    ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
+                    metavar="PATH",
+                    help="(real mode) record a Chrome/Perfetto trace of "
+                         "the serve and write it to PATH "
+                         "(default trace.json)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="(real mode) print a Prometheus text snapshot "
+                         "of the run")
     args = ap.parse_args()
     names = args.models.split(",")
     if args.mode == "sim":
@@ -103,7 +133,8 @@ def main() -> None:
     else:
         dur = args.duration if args.duration is not None else 0.05
         run_real(names, dur, args.policy, args.rate, gen_len=args.gen_len,
-                 lazy_kv=args.lazy_kv, device=args.device)
+                 lazy_kv=args.lazy_kv, device=args.device,
+                 trace_path=args.trace, metrics=args.metrics)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,11 @@ between the two packages leaf for leaf (``repro_torch.models.weights``).
 Attention on the serving path goes through ``repro_torch.kernels.ops``: the
 hand-written CUDA kernels for tensors on a GPU, their plain versions —
 the JAX CPU path's arithmetic — for tensors on the CPU.
+
+Sampling (``top_k_top_p_filter``, ``sample_logits``) is the JAX package's
+plain sampler: ``jax.random.categorical`` is the arg-max of Gumbel noise
+plus the logits, and the noise comes from an explicit ``torch.Generator``
+through ``gumbel_noise``, the one function that draws.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ __all__ = [
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
     "cache_row_update", "paged_cache_update", "decode_attention",
     "paged_decode_attention", "paged_chunk_attention", "decode_index",
-    "carry_cache_meta",
+    "carry_cache_meta", "gumbel_noise", "top_k_top_p_filter",
+    "sample_logits",
 ]
 
 
@@ -352,3 +358,53 @@ def carry_cache_meta(out, cache):
     if "block_tables" in cache:
         out["block_tables"] = cache["block_tables"]
     return out
+
+
+# --------------------------------------------------------------------------
+# sampling
+# --------------------------------------------------------------------------
+def gumbel_noise(generator: torch.Generator, shape) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(U))`` of ``shape`` in float32 on
+    the generator's device, U uniform on [tiny, 1) — what
+    ``jax.random.gumbel`` draws from a key. Every sampled token of the port
+    draws its noise here."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def top_k_top_p_filter(logits: torch.Tensor, *, top_k: int = 0,
+                       top_p: float = 1.0) -> torch.Tensor:
+    """Mask logits outside the top-k set and/or the top-p nucleus to -1e30.
+    ``top_k``/``top_p`` are Python values (one captured step per pair). The
+    arg-max token is always kept, so a degenerate ``top_p`` can never mask
+    the whole vocabulary."""
+    if top_k and top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, -1e30)
+    if top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt.float(), dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep tokens whose cumulative mass BEFORE them is < top_p
+        keep = (cum - probs) < top_p
+        keep[..., 0] = True
+        thresh = torch.where(keep, srt, torch.full_like(srt, float("inf"))
+                             ).amin(-1, keepdim=True).to(logits.dtype)
+        logits = logits.masked_fill(logits < thresh, -1e30)
+    return logits
+
+
+def sample_logits(generator: torch.Generator, logits: torch.Tensor, *,
+                  temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """Next tokens (B,) from (B, V) logits. ``temperature <= 0`` is the
+    greedy arg-max; otherwise temperature-scaled top-k/top-p sampling by
+    the Gumbel trick: the arg-max of ``gumbel_noise`` plus the filtered
+    float32 logits."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, -1)
+    lg = logits.float() / temperature
+    lg = top_k_top_p_filter(lg, top_k=top_k, top_p=top_p)
+    return torch.argmax(gumbel_noise(generator, lg.shape) + lg, -1)

@@ -6,7 +6,7 @@ with the same method names, the same page bookkeeping
 
 * ``generate`` (and its per-token twin ``generate_eager``) runs a padded
   batch: one ``prefill`` into a contiguous cache of the bucketed length,
-  then greedy ``decode`` steps;
+  then ``decode`` steps, greedy or sampled (``SamplingParams``);
 * ``init_slots`` backs continuous-batching slots with a block-table page
   pool (``paged=True``) or with per-slot rings (``paged=False``, and every
   sliding-window config: the ring's overwrite is the window); a family
@@ -21,7 +21,8 @@ with the same method names, the same page bookkeeping
   attending the K/V their slot holds in the page pool), by prefix
   recompute on ring slots (the whole prefix re-runs the packed prefill);
 * ``step`` decodes one token for the stepped slots in ONE masked dispatch
-  (teacher-forced slots write a prompt token's K/V in the same dispatch);
+  (teacher-forced slots write a prompt token's K/V in the same dispatch),
+  greedy or with the slots' ``SamplingParams`` (``init_slots``);
 * ``execute(plan)`` runs one ``StepPlan`` in at most these three
   dispatches per tick, plus a speculative round's;
 * ``enable_prefix_cache`` attaches the radix prompt cache
@@ -55,8 +56,21 @@ the slot executables with the buffers they bind. The packed metadata
 numpy and reaches the device as one int32 copy per dispatch — nothing on
 the serving path reads a device value back except the one tick-end read
 of the decoded tokens (and, in a speculative round, one read of the
-draft's proposals and the verify chunk's argmax). Sampled decoding and
-telemetry are not ported yet: ``telemetry`` stays ``None``.
+draft's proposals and the verify chunk's argmax).
+
+Sampling draws Gumbel noise (``repro_torch.models.layers.gumbel_noise``)
+from a ``torch.Generator`` of the engine's: one for the slots, seeded by
+``init_slots(rng_seed=)`` (the JAX engine's ``_slot_rng``), and one for
+``generate``, seeded by its ``rng``. Each sampled executable is captured
+with its generator registered, so a replay draws what an eager step from
+the same generator state draws, and the next replay draws afresh. As in
+the JAX engine, a slot's first token after its prefill is the arg-max
+even on a sampled engine.
+
+The telemetry plane (``attach_telemetry``, ``repro_torch.serving.
+telemetry``) times each dispatch of ``execute`` behind a synchronisation
+of the engine's stream and traces it; detached, every site is one
+``is None`` check.
 """
 from __future__ import annotations
 
@@ -67,6 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models.registry import ModelAPI, build_model
 from repro_torch.serving.faults import EngineFault, TransientFault
 from repro_torch.serving.graphs import (PREFIX_KINDS, SLOT_KINDS,
@@ -86,6 +101,16 @@ def _packed_bucket(n: int) -> int:
     p = _pow2_at_least(n)
     half = 3 * p // 4
     return half if half >= n else p
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Static sampling configuration — hashable, so it keys the sampled
+    executables (one per distinct setting, reused across requests).
+    temperature <= 0 means greedy arg-max."""
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
 
 
 @dataclasses.dataclass
@@ -139,8 +164,13 @@ class InferenceEngine:
         self.fault_injector = None
         self.retry_limit = 2
         self.retry_backoff_s = 0.0
-        # the telemetry plane is not ported yet; the planner sees it absent
+        # telemetry plane (repro_torch.serving.telemetry): when attached,
+        # each of execute()'s dispatches is timed behind a synchronisation
+        # of the engine's stream and traced as a sub-span. None = every
+        # site is a single attribute check (no clock reads, no syncs)
         self.telemetry = None
+        # generate's and generate_eager's noise (seeded per call by rng)
+        self._gen_rng = torch.Generator(device=self.device)
         # radix prompt cache (enable_prefix_cache): a host-side radix tree
         # over the page allocator; hit admissions dispatch the
         # ``copy_page`` and ``alias_slot`` executables
@@ -168,6 +198,9 @@ class InferenceEngine:
         self._last_tok: Optional[torch.Tensor] = None
         self._step_skip = frozenset()
         self._ring_keys: Tuple[str, ...] = ()
+        # the slot step's sampling config (None = greedy) and generator
+        self._slot_sampling: Optional[SamplingParams] = None
+        self._slot_gen: Optional[torch.Generator] = None
 
     # ------------------------------------------------------------------
     @property
@@ -246,20 +279,26 @@ class InferenceEngine:
         return logits, cache
 
     def generate(self, batch: Dict[str, Any], max_new_tokens: int,
-                 sampling=None) -> torch.Tensor:
-        """Greedy generation for a padded batch: one eager prefill into a
-        cache of ``bucket_len(S + t_bucket)`` rows, then ``t_bucket``
-        dispatches of the ``generate`` step executable of (B, cache
-        length) (the JAX engine's scan length: the next power of two of
+                 rng: int = 0,
+                 sampling: Optional[SamplingParams] = None) -> torch.Tensor:
+        """Generation for a padded batch: one eager prefill into a cache of
+        ``bucket_len(S + t_bucket)`` rows, then ``t_bucket`` dispatches of
+        the ``generate`` step executable of (B, cache length, sampling)
+        (the JAX engine's scan length: the next power of two of
         ``max_new_tokens``) whose surplus tokens are dropped. Returns
-        (B, max_new_tokens) token ids on the device."""
-        if sampling is not None:
-            raise NotImplementedError("sampled generation")
+        (B, max_new_tokens) token ids on the device.
+
+        ``sampling=None`` decodes greedily; a ``SamplingParams`` samples
+        every token, the first included, with noise from the engine's
+        generate generator seeded with ``rng`` (0 by default, as the JAX
+        engine's default key is ``PRNGKey(0)``)."""
         tokens = self._tokens(batch)
         b, s = tokens.shape
         t_bucket = max(1, _pow2_at_least(max_new_tokens))
         clen = self.bucket_len(s + t_bucket)
         logits, cache = self.prefill({"tokens": tokens}, clen)
+        if sampling is not None:
+            self._gen_rng.manual_seed(rng)
         key = (int(b), clen)
         state = self._gen_state.get(key)
         if state is None:
@@ -272,10 +311,12 @@ class InferenceEngine:
                 "i": torch.zeros((1,), dtype=torch.int64,
                                  device=self.device)}
         step = self._graphs.entry(
-            "generate", key, lambda _: self._generate_body(state), {})
+            "generate", key + (sampling,),
+            lambda _: self._generate_body(state, sampling), {},
+            None if sampling is None else self._gen_rng)
         for name, leaf in state["cache"].items():
             leaf.copy_(cache[name])
-        state["tok"].copy_(torch.argmax(logits, -1))
+        state["tok"].copy_(_pick(logits, sampling, self._gen_rng))
         state["i"].zero_()
         del logits, cache
         for _ in range(t_bucket):
@@ -284,26 +325,30 @@ class InferenceEngine:
         self.stats.tokens_out += b * max_new_tokens
         return state["out"][:, :max_new_tokens].clone()
 
-    def _generate_body(self, state):
+    def _generate_body(self, state, mode: Optional[SamplingParams]):
         """One decode step of ``generate`` on its fixed buffers: record
         the pending token at column ``i``, step the cache in place, and
-        leave the next token pending."""
+        leave the next token pending (picked by ``mode``)."""
         tok, cache = state["tok"], state["cache"]
         state["out"].index_copy_(1, state["i"], tok[:, None])
         logits, new = self.api.decode_step(self.params, tok, cache)
         for name, leaf in cache.items():
             if new[name] is not leaf:
                 leaf.copy_(new[name])
-        tok.copy_(torch.argmax(logits, -1))
+        tok.copy_(_pick(logits, mode, self._gen_rng))
         state["i"].add_(1)
         return logits
 
-    def generate_eager(self, batch: Dict[str, Any],
-                       max_new_tokens: int) -> torch.Tensor:
+    def generate_eager(self, batch: Dict[str, Any], max_new_tokens: int,
+                       greedy: bool = True, rng: int = 0) -> torch.Tensor:
         """The JAX engine's reference path: an unbucketed prefill of exactly
         ``max(cache_len, S + max_new_tokens)`` rows, then one counted
         ``decode`` per token. Equal to ``generate`` under greedy decoding
-        (the counters differ as they do in the JAX engine)."""
+        (the counters differ as they do in the JAX engine). With
+        ``greedy=False`` each token after the first is drawn from the raw
+        logits (no temperature or filter, as the JAX path's
+        ``categorical``) with noise from the generate generator seeded
+        with ``rng``; the first token is the arg-max either way."""
         tokens = self._tokens(batch)
         b, s = tokens.shape
         need = max(self.cache_len, s + max_new_tokens)
@@ -313,12 +358,18 @@ class InferenceEngine:
             self.stats.prefills += 1
         else:
             logits, cache = self.prefill({"tokens": tokens}, self.cache_len)
+        if not greedy:
+            self._gen_rng.manual_seed(rng)
         outs = []
         tok = torch.argmax(logits, -1)
         for _ in range(max_new_tokens):
             outs.append(tok)
             logits, cache = self.decode(tok, cache)
-            tok = torch.argmax(logits, -1)
+            if greedy:
+                tok = torch.argmax(logits, -1)
+            else:
+                tok = torch.argmax(
+                    L.gumbel_noise(self._gen_rng, logits.shape) + logits, -1)
         self.stats.tokens_out += b * max_new_tokens
         return torch.stack(outs, dim=1)
 
@@ -341,17 +392,22 @@ class InferenceEngine:
 
     def init_slots(self, n_slots: int, cache_len: Optional[int] = None, *,
                    paged: bool = True, page_size: int = 8,
-                   total_pages: Optional[int] = None, sampling=None):
-        """Allocate ``n_slots`` greedy slots of ``cache_len`` tokens.
+                   total_pages: Optional[int] = None,
+                   sampling: Optional[SamplingParams] = None,
+                   rng_seed: int = 0):
+        """Allocate ``n_slots`` slots of ``cache_len`` tokens.
         ``paged=True`` backs them with a block-table page pool of
         ``total_pages`` usable pages (default ``n_slots * cache_len /
         page_size``); ``paged=False`` gives each slot its own ring (the
         parity baseline). Sliding-window configs stay on ring slots even
         when ``paged`` is asked for: the ring's overwrite is the window,
-        while a paged slot keeps its full history."""
-        if sampling is not None:
-            raise NotImplementedError("sampled slot steps")
+        while a paged slot keeps its full history. ``sampling`` fixes the
+        slot step's sampling config (None = greedy); its noise comes from
+        a generator on the engine's device seeded with ``rng_seed``."""
         self.slot_len = cache_len or self.cache_len
+        self._slot_sampling = sampling
+        self._slot_gen = torch.Generator(device=self.device).manual_seed(
+            rng_seed)
         self.paged = (bool(paged) and bool(self.api.paged_keys)
                       and not getattr(self.cfg, "sliding_window", 0))
         if self.paged:
@@ -390,6 +446,13 @@ class InferenceEngine:
         # the slot executables bind the buffers just replaced
         self._graphs.clear(SLOT_KINDS)
         return self
+
+    def seed_slots(self, rng_seed: int) -> None:
+        """Restart the slot step's noise from ``rng_seed`` (what
+        ``init_slots(rng_seed=)`` seeds), keeping the slots' executables:
+        a sampled serve after it draws what a serve on freshly initialised
+        slots of that seed draws, graphed or eager."""
+        self._slot_gen.manual_seed(rng_seed)
 
     # ------------------------------------------------ admission accounting
     def _need_tokens(self, prompt_len: int, n_tokens: Optional[int]) -> int:
@@ -562,17 +625,24 @@ class InferenceEngine:
         self.stats.packed_prefills += 1
         self.stats.prefill_tokens += sum(lens)
 
+    def segment_key(self, lens: List[int]) -> Tuple[int, int, int]:
+        """The executable key ``(T, row_len, S)`` of a packed batch of
+        segments of ``lens`` tokens: the packed row's bucketed length,
+        the per-segment row length and the segment axis."""
+        return (max(1, _packed_bucket(sum(lens))),
+                min(self.slot_len, _pow2_at_least(max(lens))),
+                max(1, _pow2_at_least(len(lens))))
+
     def _segment_step(self, kind: str, packed, dest, lens: List[int]):
         """Dispatch the ``kind`` executable (``packed_prefill`` or
         ``chunk_prefill``) of the key ``(T, row_len, S)`` — the JAX
         engine's — on the host arrays of one packed batch of segments of
         ``lens`` new tokens; the segment and token counts ride along so
         the fixed-shape scatter can tell padding from real lanes."""
-        row_len = min(self.slot_len, _pow2_at_least(max(lens)))
+        key = self.segment_key(lens)
+        row_len = key[1]
         arrays = dict(packed, **dest, counts=np.asarray(
             [len(lens), sum(lens)], np.int32))
-        key = (arrays["tokens"].shape[1], row_len,
-               arrays["seg_starts"].shape[0])
         self._graphs.entry(
             kind, key, lambda dev: self._segment_body(kind, dev, row_len),
             arrays).run(arrays)
@@ -694,8 +764,8 @@ class InferenceEngine:
     def spec_capable(self) -> bool:
         """Speculative decoding needs greedy slot steps (draft/verify
         equivalence is an arg-max identity) on a ``chunk_capable``
-        engine; the port's slots are always greedy."""
-        return self.chunk_capable()
+        engine."""
+        return self.chunk_capable() and self._slot_sampling is None
 
     def host_last_token(self, slot: int) -> int:
         """Host read of the slot's pending token (the next decode input,
@@ -834,6 +904,11 @@ class InferenceEngine:
         self.stats.inserts += 1
         self.stats.prefix_hits += 1
         self.stats.prefix_hit_tokens += covered
+        if self.telemetry is not None:
+            self.telemetry.instant(
+                self.telemetry.engine_track(self), "prefix_hit",
+                slot=slot, covered=covered,
+                cow=int(hit.cow_src is not None))
         return slot
 
     def catchup_prefill(self, slot: int, tokens, covered: int) -> None:
@@ -872,6 +947,10 @@ class InferenceEngine:
         _set_table_row(self._slot_cache, slot,
                        np.asarray(self._kv.table_row(slot), np.int32))
         self.stats.dedup_pages += freed
+        if self.telemetry is not None:
+            self.telemetry.instant(
+                self.telemetry.engine_track(self), "prefix_dedup",
+                slot=slot, pages=freed)
         return freed
 
     # ------------------------------------------------ page-view accessors
@@ -1135,6 +1214,7 @@ class InferenceEngine:
         conserves pages. The draft ring rewinds the same way, and both
         engines hold the bonus token as their pending input."""
         draft = self._draft
+        tel = self.telemetry
         slots = [s for s, _, _ in entries]
         offs = [self._slot_pos[s] for s in slots]
 
@@ -1156,12 +1236,16 @@ class InferenceEngine:
             chosen = set(order)
             draft._slot_free = order + [s for s in draft._slot_free
                                         if s not in chosen]
+            t0 = tel.t0() if tel is not None else 0.0
             got = draft.insert_many(
                 [{"tokens": np.asarray(toks, np.int32)[None, :]}
                  for _, toks in admit], n_tokens=[None] * len(admit))
             assert got == order, "draft twin landed on the wrong slot"
             self._draft_ready.update(order)
             res.dispatches += 1
+            if tel is not None:
+                tel.dispatch_done(draft, "spec_admit", len(admit), t0,
+                                  segs=len(admit))
 
         consts = self._round_consts(entries)
         t, s_max, starts = consts["t"], consts["s_max"], consts["starts"]
@@ -1169,9 +1253,13 @@ class InferenceEngine:
 
         # ---- draft: k+1 masked steps, one dispatch, nothing read back
         scan = consts["scan"]
+        t0 = tel.t0() if tel is not None else 0.0
         verify = self._graphs.entry(
             "draft_scan", t, self._draft_scan_body, scan).run(scan)
         res.dispatches += 1
+        if tel is not None:
+            tel.dispatch_done(draft, "spec_draft", self.spec_k + 1, t0,
+                              slots=len(slots))
 
         # ---- verify: [t, d_1..d_k] per slot, one incremental chunk whose
         # token row is the draft scan's output, copied on the device into
@@ -1205,10 +1293,14 @@ class InferenceEngine:
             "chunk_prefill", (t, row_len, s_max),
             lambda dev: self._segment_body("chunk_prefill", dev, row_len),
             arrays)
+        t0 = tel.t0() if tel is not None else 0.0
         step.fill(arrays)
         step.views["tokens"][0].copy_(verify)
         _, amax = step.launch()
         res.dispatches += 1
+        if tel is not None:
+            tel.dispatch_done(self, "spec_verify", t, t0, segs=len(slots),
+                              tokens=sum(vlens))
 
         # ---- accept / rollback on the host: the round's only reads
         props_h = self._spec_props.cpu().numpy().T.tolist()  # per slot
@@ -1250,6 +1342,10 @@ class InferenceEngine:
                         and self._slot_generated[slot] >= budget
                         and slot not in res.done):
                     res.done.append(slot)
+        if tel is not None:
+            tel.instant(tel.engine_track(self), "spec_round",
+                        slots=len(slots), drafted=drafted_total,
+                        accepted=accepted_total, rollbacks=n_roll)
 
     # ---------------------------------------------------- fault tolerance
     def attach_faults(self, injector, max_retries: Optional[int] = None,
@@ -1263,6 +1359,15 @@ class InferenceEngine:
             self.retry_backoff_s = float(backoff_s)
         if self._kv is not None:
             self._kv.allocator.fault_injector = injector
+
+    def attach_telemetry(self, tel) -> None:
+        """Arm (or with None, disarm) the telemetry plane
+        (``repro_torch.serving.telemetry.Telemetry``) on this engine. Like
+        ``attach_faults``, attach after warm-up: timing covers only built
+        executables. Each timed dispatch ends in a synchronisation of the
+        engine's stream, which changes how the host and the device overlap
+        but never values, dispatch counts or captures."""
+        self.telemetry = tel
 
     def recover(self) -> int:
         """Engine reset after an unrecoverable fault: every slot is freed
@@ -1284,6 +1389,9 @@ class InferenceEngine:
                 "engine recovery leaked pages"
         self.check_page_invariants()
         self.stats.engine_resets += 1
+        if self.telemetry is not None:
+            self.telemetry.instant(self.telemetry.engine_track(self),
+                                   "engine_reset", dropped=dropped)
         return dropped
 
     def check_page_invariants(self) -> bool:
@@ -1321,13 +1429,26 @@ class InferenceEngine:
             except TransientFault as e:
                 self.stats.engine_retries += 1
                 attempts += 1
+                if self.telemetry is not None:
+                    self.telemetry.instant(
+                        self.telemetry.engine_track(self), "retry",
+                        attempt=attempts)
                 if attempts > self.retry_limit:
                     raise EngineFault(
                         f"dispatch fault persisted past {self.retry_limit} "
                         f"retries") from e
                 if self.retry_backoff_s > 0:
                     time.sleep(self.retry_backoff_s * (2 ** (attempts - 1)))
-        return self._execute_plan(plan)
+        tel = self.telemetry
+        if tel is None or tel.trace is None:
+            return self._execute_plan(plan)
+        with tel.trace.span(tel.engine_track(self), "execute",
+                            admissions=len(plan.admissions),
+                            decodes=len(plan.decodes),
+                            frees=len(plan.frees), cancels=len(plan.cancels),
+                            preemptions=len(plan.preemptions),
+                            grows=len(plan.grows)):
+            return self._execute_plan(plan)
 
     def _execute_plan(self, plan) -> StepResult:
         res = StepResult()
@@ -1337,15 +1458,21 @@ class InferenceEngine:
             self.free(slot)
         for slot in plan.preemptions:
             self.free(slot)
+        tel = self.telemetry
         failed: set = set()
-        for slot, upto in plan.grows:
-            try:
-                self.grow_slot(slot, upto)
-            except OutOfPages:
-                # the slot is untouched but its next write is unbacked —
-                # skip its chunk/decode this tick, report for requeue
-                failed.add(slot)
-                res.failed_grows.append(slot)
+        if plan.grows:
+            t0 = tel.t0() if tel is not None else 0.0
+            for slot, upto in plan.grows:
+                try:
+                    self.grow_slot(slot, upto)
+                except OutOfPages:
+                    # the slot is untouched but its next write is unbacked
+                    # — skip its chunk/decode this tick, report for requeue
+                    failed.add(slot)
+                    res.failed_grows.append(slot)
+            if tel is not None:
+                tel.dispatch_done(self, "grow", len(plan.grows), t0,
+                                  failed=len(res.failed_grows))
         alias = [c for c in plan.admissions
                  if c.slot is None and c.alias is not None]
         first = [c for c in plan.admissions
@@ -1364,7 +1491,11 @@ class InferenceEngine:
                 res.admitted[c.rid] = slot
             except OutOfPages:
                 self.prefix_cache.release_hit(c.alias)
+                if tel is not None:
+                    tel.instant(tel.engine_track(self),
+                                "alias_admission_failed", rid=c.rid)
         if first:
+            t0 = tel.t0() if tel is not None else 0.0
             try:
                 slots = self.insert_many(
                     [c.batch for c in first],
@@ -1373,16 +1504,32 @@ class InferenceEngine:
                 res.admitted.update(
                     {c.rid: s for c, s in zip(first, slots)})
                 res.dispatches += 1
+                if tel is not None:
+                    ntok = sum(int(c.batch["tokens"].shape[1])
+                               for c in first)
+                    tel.dispatch_done(self, "admission_prefill",
+                                      _packed_bucket(ntok), t0,
+                                      segs=len(first), tokens=ntok)
             except OutOfPages:
                 # all-or-nothing rollback already ran; the planner
                 # requeues the whole staged batch
                 res.admission_failed = True
+                if tel is not None:
+                    tel.instant(tel.engine_track(self), "admission_failed",
+                                segs=len(first))
         if cont:
+            t0 = tel.t0() if tel is not None else 0.0
             self.chunk_append([(c.slot, c.batch, c.final) for c in cont])
             res.dispatches += 1
+            if tel is not None:
+                ntok = sum(int(c.batch["tokens"].shape[1]) for c in cont)
+                tel.dispatch_done(self, "chunk_prefill",
+                                  _packed_bucket(ntok), t0,
+                                  segs=len(cont), tokens=ntok)
         decodes = [s for s in plan.decodes if s not in failed]
         forced = {s: t for s, t in plan.forced if s not in failed}
         if decodes or forced:
+            t0 = tel.t0() if tel is not None else 0.0
             # teacher-forced catch-up slots join THE decode dispatch: the
             # step writes each one's prompt token's K/V at pos (what a
             # prefill would write there) and advances pos; forced outputs
@@ -1392,6 +1539,10 @@ class InferenceEngine:
             res.tokens = {int(s): int(t[s]) for s in decodes}
             res.done = list(done)
             res.dispatches += 1
+            if tel is not None:
+                tel.dispatch_done(self, "decode",
+                                  len(decodes) + len(forced), t0,
+                                  forced=len(forced))
         spec = [e for e in plan.spec if e[0] not in failed]
         if spec:
             self._spec_round(spec, res)
@@ -1400,8 +1551,9 @@ class InferenceEngine:
     def step(self, slots: Optional[List[int]] = None,
              forced: Optional[Dict[int, int]] = None
              ) -> Tuple[torch.Tensor, List[int]]:
-        """One greedy decode step in a single dispatch — for all active
-        slots (default) or the plan's ``decodes`` subset. Returns
+        """One decode step in a single dispatch — for all active slots
+        (default) or the plan's ``decodes`` subset — greedy or sampled
+        with the slots' ``SamplingParams``. Returns
         ``(tokens, done)``: tokens (n_slots,) on the device (unstepped
         slots keep their pending token), and the active slots whose token
         budget is now exhausted (host counters, no device read).
@@ -1425,8 +1577,10 @@ class InferenceEngine:
         for s, t in forced.items():
             pending[s] = t
         arrays = {"mask": mask.astype(np.int32), "forced": pending}
-        self._graphs.entry("slot_step", None, self._step_body,
-                           arrays).run(arrays)
+        sampling = self._slot_sampling
+        self._graphs.entry("slot_step", sampling, self._step_body, arrays,
+                           None if sampling is None else self._slot_gen
+                           ).run(arrays)
         n_forced = 0
         for slot in stepped:
             self._slot_pos[slot] += 1
@@ -1452,7 +1606,8 @@ class InferenceEngine:
         tok.copy_(torch.where(forced >= 0, forced.to(tok.dtype), tok))
         return _slot_decode_step(self.api, self._step_skip, self._ring_keys,
                                  self.params, tok, self._slot_cache,
-                                 dev["mask"] != 0)
+                                 dev["mask"] != 0, self._slot_sampling,
+                                 self._slot_gen)
 
     def kv_cache_bytes(self) -> int:
         """Device bytes held by the slot cache (all leaves, the block
@@ -1485,6 +1640,16 @@ class InferenceEngine:
         self.stats = EngineStats()
 
 
+def _pick(logits, sampling: Optional[SamplingParams], generator):
+    """The next tokens from (B, V) logits: the arg-max, or drawn with
+    ``sampling`` from ``generator`` (the JAX engine's ``pick``)."""
+    if sampling is None:
+        return torch.argmax(logits, -1)
+    return L.sample_logits(generator, logits,
+                           temperature=sampling.temperature,
+                           top_k=sampling.top_k, top_p=sampling.top_p)
+
+
 def _merge_rows(new, cache, mask, skip) -> None:
     """Write ``new``'s per-row leaves into ``cache`` IN PLACE, only for
     rows in ``mask``; rows outside it keep theirs. Leaves in ``skip``
@@ -1502,9 +1667,12 @@ def _merge_rows(new, cache, mask, skip) -> None:
                                new[key].to(leaf.dtype), leaf))
 
 
-def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask):
-    """One greedy decode step over every slot row, IN PLACE on ``tok``
-    and ``cache`` (a captured step reads and writes fixed addresses);
+def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask,
+                      sampling: Optional[SamplingParams] = None,
+                      generator: Optional[torch.Generator] = None):
+    """One decode step over every slot row, IN PLACE on ``tok`` and
+    ``cache`` (a captured step reads and writes fixed addresses), its
+    tokens the arg-max or, with ``sampling``, drawn from ``generator``;
     rows outside ``mask`` (vacant and mid-prefill slots) keep their
     position and pending token and, on a ring, the cache entry the step
     overwrote in place (ring row ``pos % C`` of each ``ring_keys`` leaf),
@@ -1522,7 +1690,7 @@ def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask):
         leaf[:, bidx, at] = torch.where(mask[None, :, None, None],
                                         leaf[:, bidx, at], old)
     _merge_rows(new, cache, mask, skip)
-    tok.copy_(torch.where(mask, torch.argmax(logits, -1), tok))
+    tok.copy_(torch.where(mask, _pick(logits, sampling, generator), tok))
     return logits
 
 

@@ -11,10 +11,12 @@ the same kinds under the same keys — four always:
   apart as ``write_segments``;
 * ``chunk_prefill`` — ``(T, row_len, S)``: the incremental chunk of paged
   continuations, with the same scatter;
-* ``slot_step`` — ``None`` (greedy; the JAX key is the sampling mode):
-  one masked decode step over every slot;
-* ``generate`` — ``(B, cache_len)``: one decode step of ``generate``,
-  replayed once per token (the twin of the JAX engine's scan);
+* ``slot_step`` — the slot sampling config, as the JAX key: ``None``
+  (greedy) or the ``SamplingParams``: one masked decode step over every
+  slot;
+* ``generate`` — ``(B, cache_len, sampling)``: one decode step of
+  ``generate``, replayed once per token (the twin of the JAX engine's
+  scan, keyed ``(max_new_tokens, greedy, sampling)``);
 
 two more once the engine has a prefix cache (``PREFIX_KINDS``):
 
@@ -47,7 +49,13 @@ On a CUDA device an entry is a ``torch.cuda.CUDAGraph``:
   chunk's tokens);
 * the kernel wrappers count launches in Python, which runs only at
   capture: the counts a capture added are taken back and added again at
-  every replay.
+  every replay;
+* a sampled step draws its noise from the engine's ``torch.Generator``,
+  registered with the graph before the capture
+  (``CUDAGraph.register_generator_state``): every replay then reads the
+  generator's seed and offset as it stands and advances the offset by
+  what the step draws, so each replay draws fresh noise and a graphed run
+  draws what an eager run from the same seed draws.
 
 On the CPU, and on a CUDA engine whose ``graphs`` is off (the eager
 comparison), an entry runs the same step function eagerly on the same
@@ -85,10 +93,12 @@ class Step:
 
     def __init__(self, registry: "StepGraphs", kind: str,
                  fn: Callable[[Dict[str, torch.Tensor]], Any],
-                 arrays: Dict[str, np.ndarray]):
+                 arrays: Dict[str, np.ndarray],
+                 generator: Optional[torch.Generator] = None):
         self.registry = registry
         self.kind = kind
         self.fn = fn
+        self.generator = generator
         self.layout = {k: np.shape(a) for k, a in arrays.items()}
         size = sum(int(np.prod(s)) for s in self.layout.values())
         dev = registry.device
@@ -155,6 +165,8 @@ class Step:
         cur.wait_stream(reg.side)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
         # captured on the stream the eager run warmed (cuBLAS keeps a
         # workspace per stream)
         # no garbage collection inside the capture: a collected engine's
@@ -213,10 +225,15 @@ class StepGraphs:
 
     def entry(self, kind: str, key: Hashable,
               fn: Callable[[Dict[str, torch.Tensor]], Any],
-              arrays: Dict[str, np.ndarray]) -> Step:
+              arrays: Dict[str, np.ndarray],
+              generator: Optional[torch.Generator] = None) -> Step:
+        """The executable of ``key``, made on first use from ``fn`` (a
+        step that draws random numbers passes the ``generator`` it draws
+        from)."""
         got = self.entries[kind].get(key)
         if got is None:
-            got = self.entries[kind][key] = Step(self, kind, fn, arrays)
+            got = self.entries[kind][key] = Step(self, kind, fn, arrays,
+                                                 generator)
         return got
 
     def add_kinds(self, kinds: Iterable[str]) -> None:

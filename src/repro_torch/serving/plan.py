@@ -31,9 +31,10 @@ admission (no prefill for the covered tokens) whose uncovered tail rides
 the decode dispatch as teacher-forced tokens (``StepPlan.forced``);
 speculative decoding (``PlannerConfig.spec_k``, an engine with a draft
 attached) moves decoding slots onto draft/verify rounds
-(``StepPlan.spec``). Not in the port yet: the telemetry plane (its hooks
-are single attribute checks that find it absent). The planner takes the
-JAX package's decisions everywhere, so both packages build the same plan
+(``StepPlan.spec``). The telemetry plane (``repro_torch.serving.
+telemetry``), when attached, receives every lifecycle instant; detached,
+each hook is a single attribute check. The planner takes the JAX
+package's decisions everywhere, so both packages build the same plan
 from the same state.
 """
 from __future__ import annotations
@@ -423,8 +424,9 @@ class StepPlanner:
         self._spec_accept_ema = 1.0
         self._spec_ticks = 0
         self._spec_planned: Dict[int, int] = {}
-        # telemetry plane: not ported yet; None = one attribute check per
-        # lifecycle event
+        # telemetry plane (repro_torch.serving.telemetry.Telemetry), set by
+        # EnginePool.attach_telemetry or directly by the tick plane;
+        # None = zero-cost (one attribute check per lifecycle event)
         self.telemetry = None
         # tiered, tenant-fair admission (None = strict FIFO, the exact
         # legacy pop order — every existing plane takes this branch)
@@ -570,7 +572,13 @@ class StepPlanner:
         cache = self._pcache()
         if cache is None or need <= pages_avail:
             return pages_avail
-        return pages_avail + cache.evict(need - pages_avail)
+        freed = cache.evict(need - pages_avail)
+        if freed:
+            eng = self.engine
+            if eng.telemetry is not None:
+                eng.telemetry.instant(eng.telemetry.engine_track(eng),
+                                      "prefix_evict", pages=freed)
+        return pages_avail + freed
 
     def _register_prompts(self) -> None:
         """Insert finished prompts' full pages into the prefix cache —

@@ -44,10 +44,9 @@ deterministic and SLO-meaningful on any host, yet exercise the true
 engine hot path end to end. The serving loop lives in
 ``repro_torch.serving.controller``.
 
-The radix prompt cache (``prefix_cache=True``) and cross-model
-speculative decoding (``enable_speculation``) run as in the JAX pool.
-Not in the port yet: the telemetry plane (``attach_telemetry`` raises
-``NotImplementedError``).
+The radix prompt cache (``prefix_cache=True``), cross-model speculative
+decoding (``enable_speculation``) and the telemetry plane
+(``attach_telemetry``) run as in the JAX pool.
 """
 from __future__ import annotations
 
@@ -180,8 +179,9 @@ class EnginePool:
         self._occ_area = 0.0
         self._page_area = 0.0
         self._last_t = 0.0
-        # the telemetry plane is not ported: the core event loop reads
-        # this attribute and finds it disabled
+        # telemetry plane (attach_telemetry): shared across every engine
+        # and per-model planner; reset() re-propagates it to the fresh
+        # planners. None = disabled (zero-cost attribute checks).
         self.telemetry = None
         self.reset()
 
@@ -209,6 +209,8 @@ class EnginePool:
                 prefix_cache=self.prefix_cache),
                 metrics=self._metrics[n])
             for n in self.profiles}
+        for p in self._planners.values():
+            p.telemetry = self.telemetry
         self._runs.clear()
         self._seq = 0
         self._alloc_frac = 0.0
@@ -223,8 +225,20 @@ class EnginePool:
                     eng._draft.reset_stats()
 
     def attach_telemetry(self, tel) -> None:
-        """The telemetry plane is not ported yet."""
-        raise NotImplementedError("the telemetry plane")
+        """Arm (or with None, disarm) one shared ``Telemetry`` plane
+        across the pool: every standby engine (timed, traced dispatches)
+        and every per-model planner (lifecycle instants). Survives
+        ``reset()`` — run_policy's reset re-propagates it — so attach
+        once, serve many policies. Attach after warmup, like
+        ``attach_faults``."""
+        self.telemetry = tel
+        for p in self._planners.values():
+            p.telemetry = tel
+        for host in self.hosts.values():
+            for eng in host.engines():
+                eng.attach_telemetry(tel)
+                if eng._draft is not None:
+                    eng._draft.attach_telemetry(tel)
 
     def warmup(self) -> None:
         """Capture every standby engine's admission-prefill + slot-step
@@ -297,6 +311,8 @@ class EnginePool:
                 alloc_chips=alloc.chips).init_slots(
                     eng.n_slots, paged=False)
             eng.attach_draft(d_eng, spec_k)
+            if self.telemetry is not None:
+                d_eng.attach_telemetry(self.telemetry)
             paired += 1
         return paired
 
@@ -322,8 +338,12 @@ class EnginePool:
         frac = used / total if total else 0.0
         if planner.should_shed(queue_len=len(q), page_frac=frac):
             q.shed_request(req)
+            if self.telemetry is not None:
+                self.telemetry.request_event(req.model, "shed", rid=req.rid)
             return
         q.push(req)
+        if self.telemetry is not None:
+            self.telemetry.request_event(req.model, "queued", rid=req.rid)
 
     def cancel(self, model: str, rid: int, now: float = 0.0) -> bool:
         """Client cancellation at the pool plane: a queued request is
@@ -335,6 +355,8 @@ class EnginePool:
         if q is None:
             return False
         if q.cancel(rid) is not None:
+            if self.telemetry is not None:
+                self.telemetry.request_event(model, "cancel", rid=rid)
             return True
         for run in self._runs.values():
             if run.model != model:
@@ -346,6 +368,9 @@ class EnginePool:
                     run.engine.free(slot)
                     run.freed_early = True    # topup may refill the slot
                     q.mark_cancelled(req)
+                    if self.telemetry is not None:
+                        self.telemetry.request_event(model, "cancel",
+                                                     rid=rid, slot=slot)
                     return True
         return False
 
@@ -487,6 +512,10 @@ class EnginePool:
                 continue
             run.slots[slot] = req
             run.remaining[slot] = budget
+            if self.telemetry is not None:
+                self.telemetry.request_event(rr.model, "admitted",
+                                             rid=req.rid, slot=slot,
+                                             chips=alloc.chips)
         if not run.slots:
             return None
         run.batch = len(run.slots)
@@ -547,6 +576,10 @@ class EnginePool:
                 admitted += 1
                 run.slots[slot] = req
                 run.remaining[slot] = budget
+                if self.telemetry is not None:
+                    self.telemetry.request_event(run.model, "admitted",
+                                                 rid=req.rid, slot=slot,
+                                                 chips=run.chips)
             if not admitted:
                 return 0
             m = self._metrics[run.model]
@@ -581,6 +614,9 @@ class EnginePool:
         m = self._metrics[run.model]
         m.preemptions += 1
         m.requeues += 1
+        if self.telemetry is not None:
+            self.telemetry.request_event(run.model, "preempt",
+                                         rid=req.rid, slot=victim)
 
     @staticmethod
     def _release_plan_pins(eng: InferenceEngine, plan) -> None:
@@ -722,6 +758,9 @@ class EnginePool:
             if req is not None:
                 if req.first_token < 0:
                     req.first_token = now
+                    if self.telemetry is not None:
+                        self.telemetry.request_event(
+                            run.model, "first_token", rid=req.rid)
                 req.tokens_out += len(toks)
         owned_emit = sum(len(t) for s, t in emitted.items()
                          if s in run.slots)
@@ -739,6 +778,10 @@ class EnginePool:
         self._metrics[run.model].tokens += owned_emit
         if completed:
             self.queues[run.model].complete(completed, now)
+            if self.telemetry is not None:
+                for req in completed:
+                    self.telemetry.request_event(run.model, "complete",
+                                                 rid=req.rid)
             if run.remaining:
                 run.freed_early = True
         if not run.remaining:

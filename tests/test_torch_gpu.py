@@ -725,3 +725,138 @@ def test_graphed_slot_state_keeps_its_addresses(cuda):
     assert eng.jit_cache_sizes() == sizes
     assert {k: v.data_ptr() for k, v in eng._slot_cache.items()} == addr
     assert eng._last_tok.data_ptr() == tok
+
+
+# --------------------------------------------------------------------------
+# sampled decoding, the telemetry plane and the gateway on the card
+# --------------------------------------------------------------------------
+NUCLEUS = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def _sampled_serve(eng, seed):
+    """``_graph_run``'s chunked path with the slot noise restarted from
+    ``seed``."""
+    eng.seed_slots(seed)
+    return _graph_run(eng, "chunked")
+
+
+def test_graphed_sampled_step_equals_eager_and_replays_draw_afresh(cuda):
+    """A sampled slot serve whose steps replay CUDA graphs draws, from the
+    same seed, what the eager engine draws (the generator is registered
+    with each capture), every replay draws afresh (another seed, another
+    stream; a repeat of a seed, the same stream), and a repeat captures
+    nothing; sampled ``generate`` likewise."""
+    from repro_torch.serving.engine import SamplingParams
+    cfg = get_config("olmo-1b").reduced()
+    engines = [make_engine(cfg, seed=3, cache_len=256, device=cuda,
+                           graphs=graphs).init_slots(
+        4, page_size=16, sampling=SamplingParams(**NUCLEUS))
+        for graphs in (True, False)]
+    graphed, eager = engines
+    first = _sampled_serve(graphed, 0)
+    sizes = graphed.jit_cache_sizes()
+    assert sizes["slot_step"] == 1
+    again = _sampled_serve(graphed, 0)
+    assert again == first == _sampled_serve(eager, 0)
+    other = _sampled_serve(graphed, 1)
+    assert other != first and other == _sampled_serve(eager, 1)
+    assert graphed.jit_cache_sizes() == sizes
+    assert all(0 <= t < cfg.vocab_size for s in first.values() for t in s)
+    tokens = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (3, 40)).astype(np.int32)
+    sp = SamplingParams(temperature=5.0)
+    runs = [e.generate({"tokens": tokens}, 12, rng=r, sampling=sp).cpu()
+            for e, r in ((graphed, 7), (graphed, 7), (eager, 7),
+                         (graphed, 8))]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    assert not torch.equal(runs[0], runs[3])
+    # a near-uniform draw: the 12 steps of a row are not one token
+    assert all(len(set(row.tolist())) > 1 for row in runs[0])
+
+
+def test_sampler_distribution_on_the_card(cuda):
+    """Phase (i2) at a small size: every draw lies in the support the
+    plain filter leaves, and the draws' total variation from the
+    renormalised softmax over it is at most 0.03."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lg = torch.randn(4, 1000, generator=gen, device=cuda) * 3.0
+    n = 1 << 14
+    conf = dict(temperature=0.8, top_k=50, top_p=0.95)
+    filt = L.top_k_top_p_filter(lg / 0.8, top_k=50, top_p=0.95)
+    p = torch.softmax(filt.double(), -1)
+    draws = L.sample_logits(gen, lg.repeat_interleave(n, 0), **conf)
+    draws = draws.view(4, n)
+    support = filt > -1e29
+    assert bool(support.gather(1, draws).all())
+    freq = torch.zeros_like(p).scatter_add_(
+        1, draws, torch.ones_like(draws, dtype=p.dtype)) / n
+    tv = 0.5 * (freq - p).abs().sum(-1)
+    assert float(tv.max()) <= 0.03, tv
+
+
+def test_telemetry_attached_graphed_serve_captures_nothing(cuda):
+    """A graphed serve with the telemetry plane attached (each dispatch
+    timed behind a synchronisation of the engine's stream) gives the
+    detached serve's streams and captures nothing new; the trace is
+    valid and every dispatch kind was timed."""
+    from repro_torch.serving.telemetry import (Telemetry, TraceRecorder,
+                                               validate_chrome_trace)
+    cfg = get_config("olmo-1b").reduced()
+    eng = make_engine(cfg, seed=3, cache_len=256, device=cuda).init_slots(
+        4, page_size=16)
+    first = _graph_run(eng, "chunked")
+    sizes = eng.jit_cache_sizes()
+    tel = Telemetry(trace=TraceRecorder())
+    eng.attach_telemetry(tel)
+    try:
+        traced = _graph_run(eng, "chunked")
+    finally:
+        eng.attach_telemetry(None)
+    assert traced == first
+    assert eng.jit_cache_sizes() == sizes
+    assert validate_chrome_trace(tel.trace.to_chrome_trace()) > 0
+    kinds = {k[2] for k in tel.timers.samples}
+    assert {"admission_prefill", "chunk_prefill", "decode"} <= kinds
+    assert all(x > 0 for xs in tel.timers.samples.values() for x in xs)
+
+
+def test_gateway_on_cuda_equals_serve_ticks(cuda):
+    """``bench_gateway``'s quick burst trace through the async gateway on
+    a graphed CUDA engine (float32): the streams of ``serve_ticks`` on the
+    same engine and of the gateway on the CPU, under tiers; and the CPU's
+    scorecard counts."""
+    from repro_torch.serving import traffic
+    from repro_torch.serving.gateway import AsyncGateway
+    cfg = get_config("olmo-1b").reduced()
+    gpu = make_engine(cfg, seed=3, cache_len=32, device=cuda).init_slots(
+        4, page_size=8)
+    cpu = make_engine(cfg, cache_len=32, device="cpu").init_slots(
+        4, page_size=8)
+    cpu.params = _cpu(gpu.params)
+    reqs = traffic.burst_trace(traffic.TrafficConfig(
+        model=cfg.name, duration=0.2, rate=240.0, seed=12, slo_unit=1e-3,
+        prompt_tokens=(4, 12), gen_tokens=(3, 8)), burst_mult=16.0)
+    prompts = traffic.synth_prompts(reqs, vocab=cfg.vocab_size, seed=0)
+    tiers = dict(traffic.TIER_WEIGHTS)
+    out = []
+    for eng, gateway in ((gpu, True), (gpu, False), (cpu, True)):
+        for r in reqs:
+            r.state, r.finish, r.first_token, r.tokens_out = \
+                "pending", -1.0, -1.0, 0
+        eng.release_all_slots()
+        planner = StepPlanner(eng, RequestQueue(cfg.name, slo=1e9),
+                              PlannerConfig(gen_len=4, tiers=tiers))
+        if gateway:
+            gw = AsyncGateway(planner, stall_limit=100)
+            gw.serve_trace(reqs, prompts)
+            assert not gw.truncated
+        else:
+            srv = serve_ticks(planner, reqs, lambda r: prompts[r.rid],
+                              stall_limit=100)
+            assert not srv.truncated
+        q = planner.queue
+        out.append(({r: tuple(t) for r, t in planner.streams.items()},
+                    (q.completed, q.shed, q.dropped, q.deadline_aborted),
+                    traffic.attainment_by(reqs, "tier")))
+    assert out[0] == out[1] == out[2]

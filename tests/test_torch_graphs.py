@@ -200,9 +200,10 @@ def test_chunk_prefill_keys_equal_jax_under_the_compile_gate():
 
 @pytest.mark.parametrize("name", ["olmo-1b", SSM])
 def test_generate_keys_on_batch_and_cache_length(pairs, name):
-    """``generate`` keeps one step executable per (B, cache length): a
-    second call of the same bucket adds none and gives the same tokens,
-    another bucket adds one; the streams are the JAX engine's."""
+    """``generate`` keeps one step executable per (B, cache length,
+    sampling config — None when greedy): a second call of the same bucket
+    adds none and gives the same tokens, another bucket adds one; the
+    streams are the JAX engine's."""
     cfg, jeng, peng = pairs(name)
     before = peng.jit_cache_sizes()["generate"]
     toks = np.random.default_rng(3).integers(
@@ -210,7 +211,7 @@ def test_generate_keys_on_batch_and_cache_length(pairs, name):
     want = np.asarray(jeng.generate({"tokens": jnp.asarray(toks)}, 7))
     got = peng.generate({"tokens": toks}, 7).numpy()
     np.testing.assert_array_equal(got, want)
-    key = (3, peng.bucket_len(9 + 8))
+    key = (3, peng.bucket_len(9 + 8), None)
     assert key in peng._graphs.entries["generate"]
     assert peng.jit_cache_sizes()["generate"] == before + 1
     np.testing.assert_array_equal(

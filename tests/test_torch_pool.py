@@ -52,6 +52,7 @@ from repro_torch.serving.metrics import jain_index, percentile  # noqa
 from repro_torch.serving.pool import (EnginePool, build_host,  # noqa: E402
                                       build_pool)
 from repro_torch.serving.request import Request  # noqa: E402
+from repro_torch.serving.telemetry import Telemetry  # noqa: E402
 
 MODELS = ["qwen2-0.5b", "olmo-1b", "mamba2-1.3b"]
 RATE = 1500.0
@@ -353,10 +354,11 @@ def test_chips_for_frac_parametrized_by_pod_size():
 
 # -------------------------------------------------- the port's own surface
 def test_unported_pool_features_raise():
-    """The telemetry plane is not ported and raises; the prefix cache and
-    cross-model speculation are: a pool of its own (the module's pools
-    stay as built) attaches a cache to every capable standby, skips the
-    SSM family, and pairs a draft with every olmo-1b standby."""
+    """Every pool feature is ported: on a pool of its own (the module's
+    pools stay as built) the prefix cache attaches to every capable
+    standby and skips the SSM family, cross-model speculation pairs a
+    draft with every olmo-1b standby, and ``attach_telemetry`` arms every
+    standby engine, every draft and every planner — and disarms them."""
     pool = build_pool(["olmo-1b", "mamba2-1.3b"], request_rate=RATE,
                       base_slots=2, cache_len=32, device="cpu", warm=False,
                       prefix_cache=True)
@@ -366,8 +368,18 @@ def test_unported_pool_features_raise():
     assert pool.enable_speculation("olmo-1b", "olmo-1b", spec_k=2) == len(
         pool.hosts["olmo-1b"].allocations)
     assert pool.enable_speculation("mamba2-1.3b", "olmo-1b") == 0
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        pool.attach_telemetry(object())
+    tel = Telemetry()
+    pool.attach_telemetry(tel)
+    engines = [e for h in pool.hosts.values() for e in h.engines()]
+    drafts = [e._draft for e in engines if e._draft is not None]
+    assert len(drafts) == len(pool.hosts["olmo-1b"].allocations)
+    assert all(e.telemetry is tel for e in engines + drafts)
+    pool.reset()
+    assert pool.telemetry is tel
+    assert all(p.telemetry is tel for p in pool._planners.values())
+    pool.attach_telemetry(None)
+    assert all(e.telemetry is None for e in engines + drafts)
+    assert all(p.telemetry is None for p in pool._planners.values())
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from repro_torch.serving import faults as port_faults  # noqa: E402
 from repro_torch.serving import plan as port_plan  # noqa: E402
 from repro_torch.serving import request as port_request  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+from repro_torch.serving.engine import SamplingParams  # noqa: E402
 from repro_torch.serving.engine import _write_segments  # noqa: E402
 from repro_torch.serving.engine import make_engine  # noqa: E402
 
@@ -187,8 +188,15 @@ def test_generate_matches_jax(engines, name):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
             assert dataclasses.asdict(peng.stats) == \
                 dataclasses.asdict(jeng.stats), (fn, n_new)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        peng.generate({"tokens": tokens}, 4, sampling=object())
+    # sampled generation runs: in-vocabulary tokens of the asked shape,
+    # and a zero temperature is the greedy arg-max
+    got = peng.generate({"tokens": tokens}, 4, rng=1,
+                        sampling=SamplingParams(temperature=0.8, top_k=50))
+    assert got.shape == (3, 4) and int(got.max()) < cfg.vocab_size
+    np.testing.assert_array_equal(
+        peng.generate({"tokens": tokens}, 4,
+                      sampling=SamplingParams(temperature=0.0)).numpy(),
+        peng.generate({"tokens": tokens}, 4).numpy())
 
 
 def _insert_step_stream(eng, prompts, budgets, n_steps):
@@ -345,15 +353,18 @@ def test_page_bookkeeping_matches_jax(engines):
 
 
 def test_unported_planner_features_raise():
-    """Sampled slot steps are not ported and raise; the prefix cache and
-    speculative decoding are, and the planner takes both knobs."""
+    """Every planner feature is ported: sampled slot steps set up (and
+    make the engine unfit for speculation, which needs greedy steps), the
+    prefix cache and speculative decoding, whose knobs the planner
+    takes; a slot length off the page size still raises."""
     assert port_plan.PlannerConfig(spec_k=2).spec_k == 2
     assert port_plan.PlannerConfig(prefix_cache=True).prefix_cache
     cfg = get_config("olmo-1b").reduced()
     eng = InferenceEngine(build_model(cfg, device="cpu"), None,
                           cache_len=CACHE_LEN)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.init_slots(2, sampling=object())
+    eng.init_slots(2, page_size=8, rng_seed=3,
+                   sampling=SamplingParams(temperature=0.8, top_p=0.9))
+    assert eng.chunk_capable() and not eng.spec_capable()
     with pytest.raises(ValueError, match="multiple of page_size"):
         eng.init_slots(2, cache_len=20, page_size=8)
     eng.init_slots(2, page_size=8)
