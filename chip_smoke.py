@@ -8,9 +8,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases g   # the D-STACK pool on the card
     python3 chip_smoke.py --phases h   # prefix cache and speculation
     python3 chip_smoke.py --phases i   # sampling, telemetry, the gateway
+    python3 chip_smoke.py --phases aj  # kernels and whisper-small
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs nine phases, each printing one JSON line:
+with ``nvcc`` and runs ten phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -23,7 +24,12 @@ with ``nvcc`` and runs nine phases, each printing one JSON line:
       phase (h)'s shape), ragged packed lengths, ragged prompt
       lengths, windows, non-causal attention, L below the chunk and
       packed SSD rows whose dt = 0 tails must leave the state bit for bit
-      as their unpadded runs do; times every main case's kernel, plain
+      as their unpadded runs do; #1, #2, #4 and #5 also at yi-9b's heads
+      (32 query / 4 KV of 128) and deepseek-7b's (32 of 128), and
+      whisper-small's cases (12 heads of 64): #5's cross-attention of 8
+      rows of 64 and of 224 queries over 1536 encoder frames and its
+      encoder self-attention (8 x 1536, non-causal), #4's cross-attention
+      decode (8 rows of 1536); times every case's kernel, plain
       version and, where one PyTorch call computes the same function, that
       call (``scaled_dot_product_attention``, a yardstick the port never
       calls; no single call computes the SSD scan), beside the least time
@@ -91,6 +97,19 @@ with ``nvcc`` and runs nine phases, each printing one JSON line:
       (g)'s pool under ``dstack`` with the telemetry plane attached: (g)'s
       served and violated counts, no capture, the Prometheus text
       round-tripped, #1, #2 and #6;
+  (j) whisper-small at full width (12 encoder and 12 decoder layers,
+      d_model 768, 1536 stub frames per request) in bfloat16: (j1) 16
+      requests (decoder prompts 4-224, 32-128 new tokens, frames of their
+      own) on 8 paged slots of 512 (pages of 16), ``chunk_tokens=128``
+      (continuations recompute the prefix), and the encoder's share of an
+      8-segment admission; (j2) the same on 8 ring slots; (j3)
+      ``generate`` 8 x 64 + 64; each graphed and eager in turns,
+      identical streams, no capture, the path's kernels exactly (#5 for
+      the encoder and the cross-attention of prefills, #2, #1 or #4 for
+      self-attention decode, #4 for cross-attention decode); (j4)
+      ``bench_pool``'s four models (the trio and whisper-small) at (g)'s
+      geometry under ``dstack`` and ``temporal``: every model served, no
+      capture after warm-up;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -98,34 +117,37 @@ with ``nvcc`` and runs nine phases, each printing one JSON line:
       speculative serves with an identical-weights draft (equal streams,
       acceptance 1.0), ``generate``, a ring serve with continuations,
       and a sliding-window ring that wraps — and so does mamba2-1.3b at
-      full width cut to 2
-      layers (a serve and ``generate``); the greedy streams must be
-      identical; and the quick trio cut to 2 layers, float32, serves
-      under ``dstack`` in one pool on each device: the same admissions
-      (model, granted units, batch, request ids) and the same served and
-      violated counts; a telemetry-attached paged serve (its streams and
-      trace keys), sampled slots and sampled ``generate`` at temperature
+      full width cut to 2 layers (a serve and ``generate``), and
+      whisper-small cut to 2 encoder and 2 decoder layers (paged and ring
+      serves, ``generate``); the greedy streams must be identical; and
+      ``bench_pool``'s four models (the quick trio and whisper-small) cut
+      to 2 layers, float32, serve under ``dstack`` in one pool on each
+      device: the same admissions (model, granted units, batch, request
+      ids) and the same served and violated counts; a telemetry-attached
+      paged serve (its streams and trace keys), sampled slots and sampled ``generate`` at temperature
       0 and at top-k 1 (the greedy streams), and (i3)'s gateway serves at
       2 layers: on the GPU the whole trace, whose scorecards must equal
       (i3)'s, and on both devices its first 0.2 virtual seconds, the same
       streams and scorecards.
 
-Every path of (b), (d), (e) and (f) runs on one engine that replays CUDA
-graphs per bucket (``repro_torch.serving.graphs``): a first graphed run
-meets the path's buckets and captures them, untimed; then the path runs
-timed in turns — eager (``graphs`` off), graphed, graphed, eager — each
-with the launch counts at 0 just before it, and must give the first
-run's tokens, launch exactly the path's kernels (replays count) and
-capture nothing; one more run of each mode goes under
-``torch.profiler`` for its device time, whose share of the mode's mean
-timed wall is the device's busy share.
+Every path of (b), (d), (e), (f) and (j1)-(j3) runs on one engine that
+replays CUDA graphs per bucket (``repro_torch.serving.graphs``): a first
+graphed run meets the path's buckets and captures them, untimed; then the
+path runs timed in turns — eager (``graphs`` off), graphed, graphed,
+eager — each with the launch counts at 0 just before it, and must give
+the first run's tokens, launch exactly the path's kernels (replays count)
+and capture nothing; for (b), (d), (e) and (f) one more run of each mode
+goes under ``torch.profiler`` for its device time, whose share of the
+mode's mean timed wall is the device's busy share.
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
 its count over the first graphed turn of each main path of (b), (d), (e)
 and (f), plus the four serves of (g), the first graphed cache-on and
-speculative turns of (h), and (i)'s first graphed sampled turn, timed
+speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
-serve), the card's name and power limit, and, last,
+serve, and (j)'s first graphed turns and its two pool serves; #5's entry
+carries whisper's cases under ``cases``), the card's name and power
+limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
 directory without the port's sources. Detailed results go to
@@ -152,6 +174,20 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 HEADS = {"olmo-1b": (16, 16, 128), "qwen2-0.5b": (14, 2, 64)}
+# the dense configs' heads: #1, #2, #4 and #5 at their main shapes
+DENSE_HEADS = {"yi-9b": (32, 4, 128), "deepseek-7b": (32, 32, 128)}
+DENSE_KERNELS = ("paged_decode_attention", "segment_flash_attention",
+                 "decode_attention", "flash_attention")
+# whisper-small: 12 heads of 64 over 1536 encoder frames. #5 takes the
+# cross-attention of packed rows of 64 and 224 decoder tokens and the
+# encoder's self-attention, #4 the cross-attention decode
+WHISPER_HEADS = (12, 12, 64)
+WHISPER_CASES = {
+    "flash_attention": {
+        "cross_64": dict(b=8, s=1536, sq=64, causal=False),
+        "cross_224": dict(b=8, s=1536, sq=224, causal=False),
+        "encoder": dict(b=8, s=1536, causal=False)},
+    "decode_attention": {"cross": dict(c=1536, lengths=(1536,) * 8)}}
 KERNEL_NAMES = ("paged_decode_attention", "segment_flash_attention",
                 "paged_chunk_attention", "decode_attention",
                 "flash_attention", "ssd_scan")
@@ -425,11 +461,14 @@ def _ring_decode_case(torch, gen, dev, dtype, h, kv, d, c=4096,
 
 
 def _dense_flash_case(torch, gen, dev, dtype, h, kv, d, b=8, s=1000,
-                      causal=True, window=0):
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                      causal=True, window=0, sq=None):
+    """b rows of s keys; ``sq`` queries per row where they differ
+    (cross-attention, non-causal), else s."""
+    sq = sq or s
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    i = np.arange(s)
+    i = np.arange(sq)
     lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
     hi = i if causal else np.full_like(i, s - 1)
     pairs = int((hi - lo + 1).sum()) * b            # visible (i, j) per head
@@ -522,65 +561,90 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
             dict(s=1000, window=100),                      # mid-tile start
             *[dict(s=n) for n in (1, 63, 64, 65, 127, 128, 129)]],
     }
+    # (kernel, model, heads, [(label, shape)]): every kernel at the serving
+    # heads with its further shapes, then the dense configs' main shapes
+    # and whisper-small's cases
+    runs = []
+    for name in kernels:
+        for model, heads in HEADS.items():
+            runs.append((name, model, heads, [("main", {})] + [
+                (kw, kw) for kw in extra[name]]))
+        if name in DENSE_KERNELS:
+            runs += [(name, model, heads, [("main", {})])
+                     for model, heads in DENSE_HEADS.items()]
+        if name in WHISPER_CASES:
+            runs.append((name, "whisper-small", WHISPER_HEADS,
+                         list(WHISPER_CASES[name].items())))
     rows, summary = [], {}
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = _l2_flush(torch, dev)
-    for name, (cuda_fn, plain_fn, make, source, replaces) in kernels.items():
-        for model, (h, kv, d) in HEADS.items():
-            for dname in ("float32", "bfloat16"):
-                dtype = getattr(torch, dname)
-                shapes = [{}] + extra[name]
-                for si, kw in enumerate(shapes):
-                    case = make(torch, gen, dev, dtype, h, kv, d, **kw)
-                    kout = cuda_fn(*case["args_kernel"],
-                                   **case.get("kernel_kw", {}))
-                    pout = plain_fn(*case["args_plain"],
-                                    **case.get("plain_kw", {}))
-                    torch.cuda.synchronize()
-                    got = case["real"](kout).float()
-                    want = case["real"](pout).float()
-                    assert torch.isfinite(got).all(), (name, model, dname)
-                    err = float((got - want).abs().max())
-                    atol, rtol = TOL[dname]
-                    ok = bool(torch.allclose(got, want, atol=atol,
-                                             rtol=rtol))
-                    for rix in case.get("zero_rows", []):
-                        ok &= bool((kout[rix] == 0).all())
-                    for i, m in case.get("pad_rows", []):
-                        ok &= bool((kout[i, m:] == 0).all())
-                    row = {"kernel": name, "model": model, "dtype": dname,
-                           "shape": kw or "main", "max_abs_err": err,
-                           "ok": ok}
-                    run_k = lambda: cuda_fn(*case["args_kernel"],  # noqa
-                                            **case.get("kernel_kw", {}))
-                    run_p = lambda: plain_fn(*case["args_plain"],  # noqa
-                                             **case.get("plain_kw", {}))
-                    row.update(_timings(run_k, torch, flush))
-                    row["plain_ms"] = _time_ms(run_p, torch, iters=5)
-                    row["bound_ms"], row["bound_by"] = _bound_ms(
-                        case["nbytes"], case["flops"], dname)
-                    lib = case["library"]
-                    row.update(_timings(lib(), torch, flush, "library_ms")
-                               if lib is not None else
-                               {"library_ms": None})
-                    if si == 0 and model == timing_model \
-                            and dname == "bfloat16":
-                        summary[name] = {
-                            "name": name, "route": "cuda", "source": source,
-                            "replaces": replaces, "max_abs_err": err,
-                            **{k: row[k] for k in (
-                                "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}}
-                    rows.append(row)
+    for name, model, (h, kv, d), shapes in runs:
+        cuda_fn, plain_fn, make, source, replaces = kernels[name]
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for label, kw in shapes:
+                case = make(torch, gen, dev, dtype, h, kv, d, **kw)
+                kout = cuda_fn(*case["args_kernel"],
+                               **case.get("kernel_kw", {}))
+                pout = plain_fn(*case["args_plain"],
+                                **case.get("plain_kw", {}))
+                torch.cuda.synchronize()
+                got = case["real"](kout).float()
+                want = case["real"](pout).float()
+                assert torch.isfinite(got).all(), (name, model, dname)
+                err = float((got - want).abs().max())
+                atol, rtol = TOL[dname]
+                ok = bool(torch.allclose(got, want, atol=atol,
+                                         rtol=rtol))
+                for rix in case.get("zero_rows", []):
+                    ok &= bool((kout[rix] == 0).all())
+                for i, m in case.get("pad_rows", []):
+                    ok &= bool((kout[i, m:] == 0).all())
+                row = {"kernel": name, "model": model, "dtype": dname,
+                       "shape": label, "max_abs_err": err, "ok": ok}
+                rows.append(row)
+                if dname == "float32" and model not in HEADS:
+                    # the further heads' float32 rows check correctness
+                    # only: their timings would stretch the phase
                     _log(json.dumps(row))
                     del case, kout, pout
+                    continue
+                run_k = lambda: cuda_fn(*case["args_kernel"],  # noqa
+                                        **case.get("kernel_kw", {}))
+                run_p = lambda: plain_fn(*case["args_plain"],  # noqa
+                                         **case.get("plain_kw", {}))
+                row.update(_timings(run_k, torch, flush))
+                row["plain_ms"] = _time_ms(run_p, torch, iters=5)
+                row["bound_ms"], row["bound_by"] = _bound_ms(
+                    case["nbytes"], case["flops"], dname)
+                lib = case["library"]
+                row.update(_timings(lib(), torch, flush, "library_ms")
+                           if lib is not None else
+                           {"library_ms": None})
+                timed = {k: row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+                if label == "main" and model == timing_model \
+                        and dname == "bfloat16":
+                    summary[name] = {
+                        "name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "max_abs_err": err,
+                        **timed}
+                elif model == "whisper-small" and dname == "bfloat16":
+                    # whisper's cases ride on the kernel's entry
+                    summary[name].setdefault("cases", {})[label] = {
+                        "shape": kw, "max_abs_err": err, **timed}
+                _log(json.dumps(row))
+                del case, kout, pout
     ssd_rows, summary["ssd_scan"] = _ssd_cases(torch, gen, dev, flush)
     rows += ssd_rows
     bad = [r for r in rows if not r["ok"]]
     _emit({"phase": "a", "cases": len(rows), "failed": len(bad),
-           "max_abs_err": {f"{r['kernel']}/{r['model']}/{r['dtype']}":
-                           r["max_abs_err"] for r in rows
-                           if r["shape"] == "main"}})
+           "max_abs_err": {
+               f"{r['kernel']}/{r['model']}/{r['dtype']}" + (
+                   "" if r["shape"] == "main" else f"/{r['shape']}"):
+               r["max_abs_err"] for r in rows
+               if r["shape"] == "main" or r["model"] == "whisper-small"}})
     assert not bad, f"kernel disagrees with its plain version: {bad}"
     return rows, summary
 
@@ -708,6 +772,12 @@ def _requests(n, prompt_range, budget_range, vocab, seed, model="olmo-1b"):
     return reqs, prompts
 
 
+def _prompt_batch(prompt):
+    """A prompt's batch: its tokens, or the batch itself where the prompt
+    carries more (an encoder model's frames)."""
+    return prompt if isinstance(prompt, dict) else {"tokens": prompt}
+
+
 def _serve(eng, reqs, prompts, chunk_tokens, telemetry=None, **planner_kw):
     import copy
     from repro_torch.serving.plan import (PlannerConfig, StepPlanner,
@@ -722,7 +792,7 @@ def _serve(eng, reqs, prompts, chunk_tokens, telemetry=None, **planner_kw):
     eng.attach_telemetry(telemetry)
     try:
         srv = serve_ticks(planner, copy.deepcopy(reqs),
-                          lambda r: {"tokens": prompts[r.rid]})
+                          lambda r: _prompt_batch(prompts[r.rid]))
     finally:
         eng.attach_telemetry(None)
     assert not srv.truncated
@@ -943,19 +1013,25 @@ def _profile(torch, run, top: int = 12):
 # --------------------------------------------------------------------------
 # phase (d): batch generate; phase (e): ring serve
 # --------------------------------------------------------------------------
-def _generate_turns(torch, eng, tokens, ran, phase, profile=False):
-    """Batch ``generate`` of ``tokens`` with 64 new tokens each, in turns
-    (``_turns``), and the padded prefill alone once more for the split of
-    the wall time. Returns the run's report."""
+def _generate_turns(torch, eng, tokens, ran, phase, profile=False,
+                    frames=None):
+    """Batch ``generate`` of ``tokens`` (and an encoder model's
+    ``frames``) with 64 new tokens each, in turns (``_turns``), and the
+    padded prefill alone once more for the split of the wall time.
+    Returns the run's report."""
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["enc_embeds"] = frames
+
     def run():
-        return eng.generate({"tokens": tokens}, 64).cpu().tolist(), None
+        return eng.generate(batch, 64).cpu().tolist(), None
 
     b, s = tokens.shape
     out, warm, turns = _turns(torch, eng, run, b * 64, ran, phase)
     assert np.shape(out) == (b, 64), np.shape(out)
     assert all(0 <= t < eng.cfg.vocab_size for row in out for t in row)
     t1 = time.perf_counter()
-    eng.prefill({"tokens": tokens}, eng.bucket_len(s + 64))
+    eng.prefill(batch, eng.bucket_len(s + 64))
     torch.cuda.synchronize()
     row = {"model": eng.cfg.name, "batch": b, "prompt_len": s,
            "new_tokens": 64, "prefill_s": time.perf_counter() - t1,
@@ -1999,6 +2075,208 @@ def phase_i(torch, greedy_streams=None, keep=None):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase (j): the encoder-decoder family, whisper-small
+# --------------------------------------------------------------------------
+# whisper's paths: the encoder and the cross-attention of prefills run #5,
+# packed self-attention #2, decode self-attention #1 (paged) or #4 (ring)
+# and the cross-attention decode #4
+WHISPER_PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
+                      "decode_attention", "flash_attention")
+WHISPER_RING_PATH = ("segment_flash_attention", "decode_attention",
+                     "flash_attention")
+POOL_FULL_PATH = POOL_PATH + ("decode_attention", "flash_attention")
+# bench_pool's MODELS_FULL: the quick trio and whisper-small
+POOL_FULL_MODELS = POOL_MODELS + ("whisper-small",)
+POOL_FULL_POLICIES = ("dstack", "temporal")
+WHISPER_SLOTS, WHISPER_SLOT_LEN, WHISPER_CHUNK = 8, 512, 128
+
+
+def _whisper_requests(torch, cfg, n, prompt_range, budget_range, seed):
+    """``_requests`` whose prompts carry their own stub frames
+    (encoder_seq x d_model in the config's dtype, host memory), drawn
+    from a generator seeded with ``seed``."""
+    from repro_torch.serving import modality
+    reqs, prompts = _requests(n, prompt_range, budget_range, cfg.vocab_size,
+                              seed, cfg.name)
+    gen = torch.Generator().manual_seed(seed)
+    return reqs, {rid: {"tokens": p, "enc_embeds": modality.audio_frames(
+        cfg, 1, generator=gen)} for rid, p in prompts.items()}
+
+
+def _whisper_serve_turns(torch, phase, eng, reqs, prompts, ran):
+    """A serve of ``reqs`` on ``eng`` in turns (``_turns``, no profile):
+    every stream of the asked length. Returns the report and streams."""
+    n_tok = sum(r.n_tokens for r in reqs)
+
+    def run():
+        return _serve(eng, reqs, prompts, chunk_tokens=WHISPER_CHUNK)
+
+    streams, warm, turns = _turns(torch, eng, run, n_tok, ran, phase)
+    for r in reqs:
+        s = streams[r.rid]
+        assert len(s) == r.n_tokens, (r.rid, len(s), r.n_tokens)
+        assert all(0 <= t < eng.cfg.vocab_size for t in s), r.rid
+    graphed = next(t for t in turns if t["mode"] == "graphed")
+    out = {"tokens_served": n_tok, "ticks": graphed["ticks"],
+           "dispatches": graphed["dispatches"],
+           **{k: _by_mode(turns, k) for k in (
+               "tokens_per_s", "tick_ms_p50", "tick_ms_p99",
+               "peak_mem_bytes")},
+           "graphs": _graph_report(eng, warm, turns),
+           "kv_cache_bytes": eng.kv_cache_bytes(),
+           "stats": dataclasses.asdict(eng.stats),
+           "launches": graphed["launches"], "turns": turns}
+    _log(json.dumps({f"{phase}/serve": {
+        k: v for k, v in out.items() if k != "turns"}}))
+    return out, streams
+
+
+def _encoder_share(torch, eng, batches, reps: int = 3):
+    """The encoder's share of an admission: one packed admission of
+    ``batches`` (``insert_many``, eager) against the encoder alone over
+    their frames, each the median of ``reps`` synchronised host-clock
+    runs after one warm run."""
+    from repro_torch.models import encdec
+    frames = torch.cat([b["enc_embeds"] for b in batches]).to(eng.device)
+    graphs, eng.graphs = eng.graphs, False
+    adm, enc = [], []
+    for i in range(reps + 1):
+        eng.release_all_slots()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.insert_many(batches, n_tokens=[1] * len(batches))
+        torch.cuda.synchronize()
+        adm.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        encdec.encode(eng.params, eng.cfg, frames)
+        torch.cuda.synchronize()
+        enc.append(time.perf_counter() - t0)
+    eng.release_all_slots()
+    eng.graphs = graphs
+    a, e = _median(adm[1:]), _median(enc[1:])
+    return {"segments": len(batches),
+            "tokens": sum(int(b["tokens"].shape[1]) for b in batches),
+            "admission_ms": 1e3 * a, "encoder_ms": 1e3 * e,
+            "encoder_share": e / a}
+
+
+def _build_full_pool(torch):
+    """bench_pool's four models at full width in bfloat16, (g)'s
+    geometry: 4 paged slots of 1024 per standby, 128-token prompts."""
+    from repro_torch.serving.pool import build_pool
+    return build_pool(POOL_FULL_MODELS, request_rate=POOL_RATE, base_slots=4,
+                      cache_len=1024, prompt_len=128, reduced=False,
+                      page_size=16, warm=False, device="cuda",
+                      dtype=torch.bfloat16)
+
+
+def phase_j(torch):
+    """whisper-small at full width (12 encoder and 12 decoder layers,
+    d_model 768, 12 heads of 64, 1536 frames), bfloat16, seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import InferenceEngine, make_engine
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, seed=0, cache_len=WHISPER_SLOT_LEN,
+                      dtype=torch.bfloat16, device="cuda").init_slots(
+        WHISPER_SLOTS, page_size=16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reqs, prompts = _whisper_requests(torch, cfg, 16, (4, 225), (32, 129), 0)
+    out = {"phase": "j", "model": cfg.name, "dtype": "bfloat16",
+           "encoder_layers": cfg.encoder_layers, "layers": cfg.num_layers,
+           "encoder_seq": cfg.encoder_seq, "params": cfg.param_count(),
+           "requests": len(reqs),
+           "prompt_tokens": sum(r.prompt_len for r in reqs),
+           "setup_s": setup_s}
+    launches = {n: 0 for n in KERNEL_NAMES}
+
+    def add(got):
+        for n in KERNEL_NAMES:
+            launches[n] += got[n]
+
+    # (j1) paged serve: packed admissions, recomputed continuations
+    j1, streams = _whisper_serve_turns(torch, "j1", eng, reqs, prompts,
+                                       WHISPER_PAGED_PATH)
+    st = eng.stats
+    assert st.chunk_prefills > 0 and st.incr_chunks == 0, st
+    j1["encoder_share"] = _encoder_share(
+        torch, eng, [prompts[r.rid] for r in reqs[:WHISPER_SLOTS]])
+    _log(json.dumps({"j1/encoder_share": j1["encoder_share"]}))
+    add(j1["launches"])
+    out["j1"] = j1
+    # (j2) the same requests on ring slots, the same weights
+    ring = InferenceEngine(eng.api, eng.params,
+                           cache_len=WHISPER_SLOT_LEN).init_slots(
+        WHISPER_SLOTS, paged=False)
+    j2, ring_streams = _whisper_serve_turns(torch, "j2", ring, reqs, prompts,
+                                            WHISPER_RING_PATH)
+    j2["streams_equal_to_paged"] = sum(
+        ring_streams[r] == streams[r] for r in streams)
+    add(j2["launches"])
+    out["j2"] = j2
+    del ring
+    # (j3) batch generate: 8 prompts of 64 tokens, 64 new tokens each
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(1, cfg.vocab_size, (8, 64)).astype(np.int32)
+    from repro_torch.serving import modality
+    frames = modality.audio_frames(
+        cfg, 8, generator=torch.Generator().manual_seed(9))
+    j3 = _generate_turns(torch, eng, tokens, GENERATE_PATH, "j3",
+                         frames=frames)
+    add(j3["launches"])
+    out["j3"] = {k: v for k, v in j3.items() if k != "turns"}
+    del eng
+    torch.cuda.empty_cache()
+    # (j4) the four-model pool under dstack and temporal
+    t0 = time.perf_counter()
+    pool = _build_full_pool(torch)
+    pool.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = pool.jit_cache_sizes()
+    serves = {}
+    for policy in POOL_FULL_POLICIES:
+        _reset_launch_counts()
+        ctl, res, log = _pool_serve(pool, policy)
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        row = _pool_row(ctl, res, log)
+        row["launches"] = got
+        _log(json.dumps({f"j4/{policy}": row}))
+        _check_launches(got, POOL_FULL_PATH, f"j4/{policy}")
+        assert pool.jit_cache_sizes() == warm, f"j4/{policy}: a capture"
+        assert not res.truncated and not ctl.oversubscribed, policy
+        for n, m in res.per_model.items():
+            assert m.completed > 0, f"j4: {n} starved under {policy}"
+        add(got)
+        serves[policy] = row
+    engines = [e for h in pool.hosts.values() for e in h.engines()]
+    out["j4"] = {"models": list(POOL_FULL_MODELS), "build_warm_s": warm_s,
+                 "captures": sum(warm.values()),
+                 "graph_pool_bytes": sum(e.graph_pool_bytes()
+                                         for e in engines),
+                 "profiles": {n: {"knee_pct": p.knee_chips,
+                                  "opt_pct": p.opt_chips,
+                                  "opt_batch": p.opt_batch,
+                                  "slo_ms": 1e3 * p.slo}
+                              for n, p in pool.profiles.items()},
+                 "serves": serves}
+    del pool, engines
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    _emit({k: v for k, v in out.items() if k not in ("j1", "j2", "j4")}
+          | {"j1": {k: j1[k] for k in ("tokens_per_s", "encoder_share",
+                                       "ticks", "dispatches")},
+             "j2": {k: j2[k] for k in ("tokens_per_s",
+                                       "streams_equal_to_paged")},
+             "j4": {p: {k: r[k] for k in ("served", "violated",
+                                          "admissions")}
+                    for p, r in serves.items()}})
+    return out
+
+
 def _insert_step_serve(eng, prompts, budgets):
     """Continuous batching through ``insert``/``step``/``free``: requests
     enter free slots in order, every active slot steps, done slots free.
@@ -2222,8 +2500,44 @@ def phase_c(torch, i3=None):
           SSM_PATH, lambda e: e.prefill({"tokens": mtokens})[0],
           batch=4, prompt_len=300, new_tokens=24)
 
-    # 8. the pool: the quick trio at full width cut to 2 layers, under
-    # dstack on each device — the same admissions and counts
+    # 7b. whisper-small at full width cut to 2 encoder and 2 decoder
+    # layers: a paged serve and a ring serve with recomputed
+    # continuations, then batch generate
+    wcfg = dataclasses.replace(get_config("whisper-small"), num_layers=2,
+                               encoder_layers=2, dtype="float32")
+    wgpu = make_engine(wcfg, seed=1, device="cuda").params
+    wparams = {"cuda": wgpu, "cpu": _to_cpu(wgpu)}
+    wreqs, wprompts = _whisper_requests(torch, wcfg, 6, (4, 225), (8, 33), 8)
+
+    def wserve(eng):
+        return _serve(eng, wreqs, wprompts, chunk_tokens=WHISPER_CHUNK)[0]
+
+    def wlogits(eng):
+        return eng.prefill(wprompts[0], WHISPER_SLOT_LEN)[0]
+
+    for name, paged, ran in (("whisper_paged_serve", True,
+                              WHISPER_PAGED_PATH),
+                             ("whisper_ring_serve", False,
+                              WHISPER_RING_PATH)):
+        engines = [e.init_slots(4, page_size=16, paged=paged)
+                   for e in pair(wcfg, WHISPER_SLOT_LEN, wparams)]
+        got = check(name, engines, wserve, ran, wlogits,
+                    requests=len(wreqs))
+        assert engines[0].stats.chunk_prefills > 0, "no continuation ran"
+        checks[name]["tokens"] = sum(map(len, got.values()))
+    wtokens = np.random.default_rng(10).integers(
+        1, wcfg.vocab_size, (4, 64)).astype(np.int32)
+    from repro_torch.serving import modality
+    wbatch = {"tokens": wtokens, "enc_embeds": modality.audio_frames(
+        wcfg, 4, generator=torch.Generator().manual_seed(10))}
+    check("whisper_generate", pair(wcfg, 256, wparams),
+          lambda e: e.generate(wbatch, 24).cpu().tolist(), GENERATE_PATH,
+          lambda e: e.prefill(wbatch)[0], batch=4, prompt_len=64,
+          new_tokens=24)
+
+    # 8. the pool: bench_pool's four models (the quick trio and
+    # whisper-small) at full width cut to 2 layers, under dstack on each
+    # device — the same admissions and counts
     pools = _pool_pair(torch)
     logs, results = [], []
     _reset_launch_counts()
@@ -2238,6 +2552,7 @@ def phase_c(torch, i3=None):
     cpu_s = time.perf_counter() - t0
     same = logs[0] == logs[1] and results[0] == results[1]
     checks["pool_dstack"] = dict(
+        models=list(POOL_FULL_MODELS),
         admissions_identical=logs[0] == logs[1],
         counts_identical=results[0] == results[1],
         admissions=len(logs[0]), counts=results[0], launches=launches,
@@ -2245,7 +2560,8 @@ def phase_c(torch, i3=None):
     _log(json.dumps({"pool_dstack": checks["pool_dstack"]}))
     assert same, f"pool: GPU and CPU differ: {results}"
     assert all(c > 0 for c, _, _ in results[0].values()), results
-    _check_launches(launches, POOL_PATH, "c/pool_dstack")
+    _check_launches(launches, POOL_FULL_PATH, "c/pool_dstack")
+    del pools
 
     # 9. the async gateway on the virtual clock, FIFO and tiers, on 4
     # paged slots of 32 (pages of 8): bench_gateway --full's burst trace
@@ -2266,7 +2582,8 @@ def phase_c(torch, i3=None):
         "gateway: (i3)'s bf16 scorecards differ from the float32 ones"
 
     out = {"phase": "c",
-           "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b (2 layers)",
+           "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b, whisper-small "
+                    "(2 layers)",
            "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff",
@@ -2278,9 +2595,12 @@ def phase_c(torch, i3=None):
 
 
 def _pool_pair(torch):
-    """(GPU pool, CPU pool) of the quick trio at full width cut to 2
-    layers, float32, on the same weights: 4 paged slots of 256 tokens per
-    standby, 32-token prompts, profiles on the card's ``Hardware``."""
+    """(GPU pool, CPU pool) of ``bench_pool``'s four models (the quick
+    trio and whisper-small) at full width cut to 2 layers
+    (whisper: 2 encoder and 2 decoder layers), float32, on the same
+    weights: 4 paged slots of 256 tokens per standby, 32-token prompts
+    (whisper's with the same stub frames), profiles on the card's
+    ``Hardware``."""
     from repro_torch.configs import get_config
     from repro_torch.core.hardware import local_gpu
     from repro_torch.core.profiles import build_profile
@@ -2291,9 +2611,11 @@ def _pool_pair(torch):
                                           default_allocations)
     hw = local_gpu()
     hosts = {"cuda": {}, "cpu": {}}
-    for i, name in enumerate(POOL_MODELS):
+    for i, name in enumerate(POOL_FULL_MODELS):
         cfg = dataclasses.replace(get_config(name), num_layers=2,
                                   dtype="float32")
+        if cfg.has_encoder:
+            cfg = dataclasses.replace(cfg, encoder_layers=2)
         prof = build_profile(name, request_rate=POOL_RATE, hw=hw)
         api = build_model(cfg, "cuda")
         params = {"cuda": api.init(
@@ -2320,9 +2642,9 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefghic",
-                    help="which phases to run, of a, b, d, e, f, g, h, i, c "
-                         "(default: all)")
+    ap.add_argument("--phases", default="abdefghijc",
+                    help="which phases to run, of a, b, d, e, f, g, h, i, "
+                         "j, c (default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2388,13 +2710,15 @@ def main(argv=None) -> int:
         report["i"] = timed("i", phase_i, paged_streams, keep)
         keep.clear()
         torch.cuda.empty_cache()
-    for phase in "bdefghi":
+    if "j" in args.phases:
+        report["j"] = timed("j", phase_j)
+    for phase in "bdefghij":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c, report.get("i", {}).get("i3"))
     if summary:
-        if all(p in args.phases for p in "bdefghi"):
+        if all(p in args.phases for p in "bdefghij"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

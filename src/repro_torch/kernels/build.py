@@ -46,7 +46,7 @@ SIGNATURES = {
     "decode_attention":
         (_P,) * 6 + (_I,) * 8 + (_F, _P),
     "flash_attention":
-        (_P,) * 4 + (_I,) * 8 + (_F, _P),
+        (_P,) * 4 + (_I,) * 9 + (_F, _P),
     "ssd_scan":
         (_P,) * 8 + (_I,) * 7 + (_P,),
 }

@@ -4,12 +4,14 @@
 //
 // 1. flash_attention replaces the TPU kernel
 //    src/repro/kernels/flash_attention.py, flash_attention (_flash_kernel).
-//    q: (B, S, H, D); k, v: (B, S, KV, D). Token i attends token j iff
+//    q: (B, S, H, D); k, v: (B, Sk, KV, D). Token i attends token j iff
 //    (causal -> j <= i) and (window > 0 -> i - j < window); non-causal
 //    attention without a window sees every key. Query head h reads KV head
-//    h * KV / H. S is any prompt length: the kernel masks the ragged edge
-//    itself, so every padded prefill on the card goes through it (the TPU
-//    needs S to be a multiple of its 512 tile).
+//    h * KV / H. S and Sk are any lengths: the kernel masks the ragged
+//    edges itself, so every padded prefill on the card goes through it
+//    (the TPU needs S to be a multiple of its 512 tile). Sk differs from
+//    S only without causality and window (cross-attention: decoder queries
+//    over encoder frames); the caller refuses the rest.
 //
 // 2. segment_flash_attention replaces the TPU kernel
 //    src/repro/kernels/flash_attention.py, segment_flash_attention
@@ -47,8 +49,8 @@ using namespace attn;
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(T* __restrict__ out, const T* __restrict__ q,
-             const T* __restrict__ k, const T* __restrict__ v, int S, int H,
-             int KV, int causal, int window, float scale) {
+             const T* __restrict__ k, const T* __restrict__ v, int S,
+             int Sk, int H, int KV, int causal, int window, float scale) {
   Smem<D>& sm = smem<D>();
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h * KV / H;
@@ -64,16 +66,16 @@ flash_kernel(T* __restrict__ out, const T* __restrict__ q,
   // keys [first, last]: a window starts the walk at the oldest key the
   // tile's first query still sees, causality ends it at the diagonal
   const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int last = causal ? q_last : S - 1;
+  const int last = causal ? q_last : Sk - 1;
   for (int kt = first / kBK; kt <= last / kBK; ++kt) {
     const int k0 = kt * kBK;
     load_kv<T, D>(sm, k, v, [&](int t) -> long long {
       const int j = k0 + t;
-      return j < S ? (((long long)b * S + j) * KV + g) * D : -1;
+      return j < Sk ? (((long long)b * Sk + j) * KV + g) * D : -1;
     });
     fold_tile<D>(sm, st, scale, [&](int r, int t) {
       const int i = q0 + r, j = k0 + t;
-      return i < S && j < S && (!causal || j <= i) &&
+      return i < S && j < Sk && (!causal || j <= i) &&
              (window <= 0 || i - j < window);
     });
   }
@@ -83,15 +85,15 @@ flash_kernel(T* __restrict__ out, const T* __restrict__ q,
 namespace tc {
 
 // The causal / window / ragged-edge visibility of the dense kernel over a
-// query tile of rows [q0, q_last].
+// query tile of rows [q0, q_last] and Sk keys.
 struct DenseMask {
-  int q0, q_last, S, causal, window;
+  int q0, q_last, Sk, causal, window;
   __device__ __forceinline__ bool full(int k0) const {
-    return k0 + kBK <= S && (!causal || k0 + kBK - 1 <= q0) &&
+    return k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= q0) &&
            (window <= 0 || q_last - k0 < window);
   }
   __device__ __forceinline__ bool visible(int i, int j) const {
-    return j < S && (!causal || j <= i) && (window <= 0 || i - j < window);
+    return j < Sk && (!causal || j <= i) && (window <= 0 || i - j < window);
   }
 };
 
@@ -122,8 +124,8 @@ __global__ void __launch_bounds__(kThreads, 3)
 flash_tc_kernel(__nv_bfloat16* __restrict__ out,
                 const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, int S, int H, int KV,
-                int causal, int window, float scale) {
+                const __nv_bfloat16* __restrict__ v, int S, int Sk, int H,
+                int KV, int causal, int window, float scale) {
   // the last query tiles see the most keys when causal: they start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -131,59 +133,60 @@ flash_tc_kernel(__nv_bfloat16* __restrict__ out,
   const int q_last = min(q0 + tc::kBQ, S) - 1;
   // keys [first, last], as in flash_kernel
   const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int last = causal ? q_last : S - 1;
+  const int last = causal ? q_last : Sk - 1;
   const long long q_stride = (long long)H * D, kv_stride = (long long)KV * D;
   const long long qo = (((long long)b * S + q0) * H + h) * D;
-  const long long ko = ((long long)b * S * KV + g) * D;
+  const long long ko = ((long long)b * Sk * KV + g) * D;
   tc::tc_attend<D>(out + qo, q + qo, q_stride, S - q0,
-                   tc::StridedKeys<D>{k + ko, v + ko, kv_stride, S}, q0,
+                   tc::StridedKeys<D>{k + ko, v + ko, kv_stride, Sk}, q0,
                    first / tc::kBK, last / tc::kBK, scale,
-                   tc::DenseMask{q0, q_last, S, causal, window});
+                   tc::DenseMask{q0, q_last, Sk, causal, window});
 }
 
 template <int D>
 static cudaError_t run_dense_tc(void* out, const void* q, const void* k,
-                                const void* v, int B, int S, int H, int KV,
-                                int causal, int window, float scale,
+                                const void* v, int B, int S, int Sk, int H,
+                                int KV, int causal, int window, float scale,
                                 cudaStream_t stream) {
   const dim3 grid((S + tc::kBQ - 1) / tc::kBQ, H, B);
   return launch(flash_tc_kernel<D>, grid, tc::smem_bytes<D>(), stream,
                 (__nv_bfloat16*)out, (const __nv_bfloat16*)q,
-                (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, S, H, KV,
-                causal, window, scale);
+                (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, S, Sk, H,
+                KV, causal, window, scale);
 }
 
 template <typename T, int D>
 static cudaError_t run_dense(void* out, const void* q, const void* k,
-                             const void* v, int B, int S, int H, int KV,
-                             int causal, int window, float scale,
+                             const void* v, int B, int S, int Sk, int H,
+                             int KV, int causal, int window, float scale,
                              cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   return launch(flash_kernel<T, D>, grid, smem_bytes<D>(), stream, (T*)out,
-                (const T*)q, (const T*)k, (const T*)v, S, H, KV, causal,
+                (const T*)q, (const T*)k, (const T*)v, S, Sk, H, KV, causal,
                 window, scale);
 }
 
-// q, out: (B, S, H, D); k, v: (B, S, KV, D); all contiguous. causal: 0/1;
-// window: 0 = none. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError().
+// q, out: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous. causal: 0/1;
+// window: 0 = none; Sk != S only with neither. dtype: 0 = float32, 1 =
+// bfloat16. Returns cudaGetLastError().
 extern "C" int flash_attention(void* out, const void* q, const void* k,
-                               const void* v, int B, int S, int H, int KV,
-                               int D, int causal, int window, int dtype,
-                               float scale, void* stream) {
+                               const void* v, int B, int S, int Sk, int H,
+                               int KV, int D, int causal, int window,
+                               int dtype, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || S == 0) return cudaSuccess;
+  if (Sk != S && (causal || window > 0)) return cudaErrorInvalidValue;
   if (D == 64 && dtype == 0)
-    return run_dense<float, 64>(out, q, k, v, B, S, H, KV, causal, window,
-                                scale, s);
+    return run_dense<float, 64>(out, q, k, v, B, S, Sk, H, KV, causal,
+                                window, scale, s);
   if (D == 64 && dtype == 1)
-    return run_dense_tc<64>(out, q, k, v, B, S, H, KV, causal, window, scale,
-                            s);
+    return run_dense_tc<64>(out, q, k, v, B, S, Sk, H, KV, causal, window,
+                            scale, s);
   if (D == 128 && dtype == 0)
-    return run_dense<float, 128>(out, q, k, v, B, S, H, KV, causal, window,
-                                 scale, s);
+    return run_dense<float, 128>(out, q, k, v, B, S, Sk, H, KV, causal,
+                                 window, scale, s);
   if (D == 128 && dtype == 1)
-    return run_dense_tc<128>(out, q, k, v, B, S, H, KV, causal, window,
+    return run_dense_tc<128>(out, q, k, v, B, S, Sk, H, KV, causal, window,
                              scale, s);
   return cudaErrorInvalidValue;
 }

@@ -4,15 +4,17 @@ plain PyTorch versions, and one launch count for each kernel.
 
 Replaces the TPU kernels of ``src/repro/kernels/flash_attention.py``:
 
-* ``flash_attention``: q (B, S, H, D) against k, v (B, S, KV, D); token
+* ``flash_attention``: q (B, S, H, D) against k, v (B, Sk, KV, D); token
   ``i`` attends token ``j`` iff ``j <= i`` when causal and ``i - j <
   window`` when a window is given. Padded ``prefill`` and ``forward`` run
-  it (``layers.big_attention``). ``flash_attention_cuda`` launches
-  ``csrc/flash_attention.cu`` for any S (the kernel masks the ragged
-  edge): bfloat16 on the tensor cores (``wgmma``), float32 on the CUDA
-  cores, chosen by dtype behind the one C entry;
-  ``flash_attention_plain`` is ``attention_dense`` under the same mask, as
-  the JAX CPU path's ``big_attention`` runs it.
+  it (``layers.big_attention``), and so do the encoder-decoder family's
+  encoder and cross-attention (non-causal, Sk the encoder's frames: the
+  only calls with Sk != S, which causal or windowed calls refuse).
+  ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` for any S
+  and Sk (the kernel masks the ragged edges): bfloat16 on the tensor
+  cores (``wgmma``), float32 on the CUDA cores, chosen by dtype behind
+  the one C entry; ``flash_attention_plain`` is ``attention_dense`` under
+  the same mask, as the JAX CPU path's ``big_attention`` runs it.
 * ``segment_flash_attention``: a packed row concatenates the prompts of an
   admission batch; token ``i`` attends token ``j`` iff their segment ids
   are equal and ``j <= i`` (and ``i - j < window`` when a window is
@@ -98,8 +100,9 @@ def attention_dense(q, k, v, *, causal: bool, q_offset: int = 0,
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain version: ``attention_dense`` under the causal/window mask.
-    q: (B, S, H, D); k, v: (B, S, KV, D). Queries go in blocks of
-    ``PLAIN_Q_BLOCK`` rows so long prompts never hold all S^2 scores."""
+    q: (B, S, H, D); k, v: (B, Sk, KV, D). Queries go in blocks of
+    ``PLAIN_Q_BLOCK`` rows so long prompts never hold all S * Sk
+    scores."""
     s, sk = q.shape[1], k.shape[1]
     outs = []
     for q0 in range(0, s, PLAIN_Q_BLOCK):
@@ -116,24 +119,28 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the dense CUDA kernel. q: (B, S, H, D); k, v: (B, S, KV, D);
-    head_dim 64 or 128; any S."""
+    """Launch the dense CUDA kernel. q: (B, S, H, D); k, v: (B, Sk, KV, D);
+    head_dim 64 or 128; any S and Sk, Sk != S only non-causal without a
+    window."""
     global flash_launches
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    sk, kvh = k.shape[1], k.shape[2]
     build.check_operands("flash_attention", d, q=q, k=k, v=v)
     if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16 B
         build.check_aligned("flash_attention", q=q, k=k, v=v)
-    if (h % kvh or v.shape != k.shape or k.shape[:2] != q.shape[:2]
+    if (h % kvh or v.shape != k.shape or k.shape[0] != b
             or k.shape[3] != d):
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if sk != s and (causal or window):
+        raise ValueError(f"{sk} keys for {s} queries: causal or windowed "
+                         f"attention needs as many keys as queries")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
     out = torch.empty_like(q)
     fn = build.function("flash_attention")
     err = fn(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s,
-             h, kvh, d, int(bool(causal)), int(window),
+             sk, h, kvh, d, int(bool(causal)), int(window),
              build.dtype_code(q.dtype), 1.0 / math.sqrt(d),
              build.stream_of(q))
     build.check(err, "flash_attention")

@@ -75,7 +75,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, D); k, v: (B, S, KV, D) -> (B, S, H, D)."""
+    """q: (B, S, H, D); k, v: (B, Sk, KV, D) -> (B, S, H, D); Sk != S
+    only non-causal without a window."""
     if _route(q) == "cuda":
         return _flash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window)

@@ -1,6 +1,7 @@
-"""Model-building primitives of the port: the dense-decoder subset of the
-JAX package's ``repro.models.layers``, as plain functions on tensors —
-for padded and packed prefill, and decode over ring or paged caches.
+"""Model-building primitives of the port: the dense-decoder and
+encoder-decoder subset of the JAX package's ``repro.models.layers``, as
+plain functions on tensors — for padded and packed prefill (self- and
+cross-attention), and decode over ring or paged caches.
 
 Parameters are declared through a *plan* of ``ParamDef``s (same shapes and
 initialisers as the JAX package), and the apply functions take the same
@@ -38,10 +39,10 @@ __all__ = [
     "repeat_kv",
     "attention_dense", "big_attention", "cp_attention", "packed_positions",
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
-    "cache_row_update", "paged_cache_update", "decode_attention",
-    "paged_decode_attention", "paged_chunk_attention", "decode_index",
-    "carry_cache_meta", "gumbel_noise", "top_k_top_p_filter",
-    "sample_logits",
+    "packed_cross_attention", "cache_row_update", "paged_cache_update",
+    "decode_attention", "paged_decode_attention", "paged_chunk_attention",
+    "decode_index", "carry_cache_meta", "gumbel_noise",
+    "top_k_top_p_filter", "sample_logits",
 ]
 
 
@@ -215,17 +216,19 @@ def unembed(p, x, cfg):
 # padded (dense) attention
 # --------------------------------------------------------------------------
 def big_attention(q, k, v, *, causal: bool, window: int = 0):
-    """Self-attention of a padded batch. q: (B, S, H, D); k, v:
-    (B, S, KV, D). On a GPU every prompt length goes through the flash
-    kernel (it masks the ragged edge, so there is no tile-multiple gate);
-    on the CPU the plain version runs ``attention_dense`` under the
-    causal/window mask, as the JAX CPU path does."""
+    """Attention of a padded batch. q: (B, S, H, D); k, v: (B, Sk, KV, D),
+    Sk != S only for non-causal attention without a window (an encoder's
+    frames under a decoder's queries). On a GPU every length goes through
+    the flash kernel (it masks the ragged edges, so there is no
+    tile-multiple gate); on the CPU the plain version runs
+    ``attention_dense`` under the causal/window mask, as the JAX CPU path
+    does."""
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def cp_attention(cfg, q, k, v, *, causal: bool, window: int = 0):
-    """Context-parallel self-attention on one device: ``big_attention``
-    (the JAX package's sequence-sharded branch needs a mesh)."""
+    """Context-parallel attention on one device: ``big_attention`` (the
+    JAX package's sequence-sharded branch needs a mesh)."""
     return big_attention(q, k, v, causal=causal, window=window)
 
 
@@ -253,6 +256,22 @@ def packed_prefill_attention(q, k, v, seg_ids, positions, seg_starts,
                                        row_len=row_len, window=window)
 
 
+def packed_cross_attention(q, k_cross, v_cross, seg_ids, positions,
+                           seg_starts, seg_lens, *, row_len: int):
+    """Per-segment cross-attention of a packed encoder-decoder prefill.
+    q: (1, T, H, D) packed decoder queries; k_cross, v_cross:
+    (S, enc_seq, KV, D), one read-only encoder block per segment. Each
+    packed token attends its OWN segment's encoder output: the queries
+    gather to per-segment rows (S, row_len, H, D), attend their block
+    non-causally — the flash kernel on a GPU (B = S, Sq = row_len, Sk =
+    enc_seq, no (S, H, row_len, enc_seq) scores held), its plain version
+    (the JAX package's ``attention_dense``) on the CPU — and gather
+    back."""
+    qr = segments_to_rows(q[0], seg_starts, seg_lens, row_len)
+    ar = ops.flash_attention(qr, k_cross, v_cross, causal=False)
+    return rows_to_segments(ar, seg_ids, positions)[None]
+
+
 # --------------------------------------------------------------------------
 # ring and paged KV caches
 # --------------------------------------------------------------------------
@@ -266,12 +285,18 @@ def cache_row_update(buf, new, slot):
 
 def decode_attention(q, k_cache, v_cache, valid_len):
     """Single-token attention over contiguous per-row caches. q: (B, H, D);
-    caches: (B, C, KV, D); valid_len: (B,) lengths (0 = zeros). On a GPU
-    every C goes through the decode kernel (no tile-multiple gate)."""
-    lengths = torch.broadcast_to(
-        torch.as_tensor(valid_len, dtype=torch.int32,
-                        device=q.device).reshape(-1),
-        (q.shape[0],)).contiguous()
+    caches: (B, C, KV, D); valid_len: (B,) lengths (0 = zeros) or one int
+    for every row (cross-attention's encoder length). On a GPU every C
+    goes through the decode kernel (no tile-multiple gate). An int length
+    is filled on the device, so a captured step holds no host copy."""
+    if isinstance(valid_len, int):
+        lengths = torch.full((q.shape[0],), valid_len, dtype=torch.int32,
+                             device=q.device)
+    else:
+        lengths = torch.broadcast_to(
+            torch.as_tensor(valid_len, dtype=torch.int32,
+                            device=q.device).reshape(-1),
+            (q.shape[0],)).contiguous()
     return ops.decode_attention(q, k_cache, v_cache, lengths)
 
 

@@ -11,12 +11,17 @@ on architecture:
                                                     keeps: derived weights
                                                     made once)
 
-``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device. Two
-families are ported so far: the dense family (no experts), over ring
-(``init_cache``) and paged (``init_paged_cache``) caches, and the Mamba2
-family (``ssm``), whose per-sequence state has nothing to page and which
-ships no ``prefill_chunk`` — the engine keeps it in per-slot state and
-runs its continuations by prefix recompute.
+``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device, plus
+``enc_embeds`` (B, encoder_seq, d_model) for an encoder model (``packed``
+carries the per-segment stack). Four families are ported so far: the
+dense family (no experts) and chameleon's early-fusion ``vlm``, which is
+the same transformer, over ring (``init_cache``) and paged
+(``init_paged_cache``) caches; the Mamba2 family (``ssm``), whose
+per-sequence state has nothing to page; and the encoder-decoder family
+(``audio``, whisper-small), whose cross K/V is a per-slot leaf beside the
+paged self-attention K/V. Neither of the last two ships a
+``prefill_chunk``: the engine runs their continuations by prefix
+recompute.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import ssm, transformer, weights
+from repro_torch.models import weights
 
 
 @dataclasses.dataclass
@@ -57,11 +62,8 @@ class ModelAPI:
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     """The API of ``cfg`` on ``device`` (default: the CUDA device; raises
     where there is none unless ``device="cpu"`` is passed)."""
-    if cfg.family == "ssm":
-        mod = ssm
-    elif cfg.family == "dense" and not cfg.num_experts:
-        mod = transformer
-    else:
+    mod = weights.FAMILY_MODULES.get(cfg.family)
+    if mod is None or cfg.num_experts:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
 
@@ -84,15 +86,18 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         def prefill_chunk(params, packed, cache, row_len):
             return mod.prefill_chunk(params, cfg, packed, cache, row_len)
 
+    # an encoder model's batches also carry the frame embeddings
+    extra = ("enc_embeds",) if cfg.has_encoder else ()
     return ModelAPI(
         cfg=cfg,
         device=dev,
         plan=mod.plan(cfg),
         init=init,
-        forward=lambda params, batch: mod.forward(params, cfg,
-                                                  batch["tokens"]),
+        forward=lambda params, batch: mod.forward(
+            params, cfg, batch["tokens"], *[batch[k] for k in extra]),
         prefill=lambda params, batch, cache_len: mod.prefill(
-            params, cfg, batch["tokens"], cache_len),
+            params, cfg, batch["tokens"], cache_len,
+            *[batch[k] for k in extra]),
         prefill_packed=lambda params, packed, row_len: mod.prefill_packed(
             params, cfg, packed, row_len),
         decode_step=lambda params, token, cache: mod.decode_step(

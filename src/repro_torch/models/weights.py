@@ -2,8 +2,10 @@
 ``ParamDef`` plan, and conversion of the JAX package's parameters.
 
 Both return the JAX package's dictionary layout (``embed``, ``layers`` with
-every leaf stacked on a leading layer axis, ``final_norm``), so a leaf's
-path and shape are the same in both packages.
+every leaf stacked on a leading layer axis, ``final_norm``; the
+encoder-decoder family adds ``enc_pos``, ``dec_pos``, ``enc_layers`` and
+``enc_final``), so a leaf's path and shape are the same in both
+packages.
 """
 from __future__ import annotations
 
@@ -14,12 +16,19 @@ import torch
 
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, ssm, transformer
+
+# family -> the module that holds its plan (the JAX registry's routing:
+# chameleon's early-fusion ``vlm`` is a dense transformer)
+FAMILY_MODULES = {"dense": transformer, "vlm": transformer, "ssm": ssm,
+                  "audio": encdec}
 
 
 def plan_of(cfg) -> dict:
     """The parameter plan of ``cfg``'s family."""
-    return (ssm if cfg.family == "ssm" else transformer).plan(cfg)
+    if cfg.family not in FAMILY_MODULES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return FAMILY_MODULES[cfg.family].plan(cfg)
 
 
 def _materialize(pd: L.ParamDef, generator, device, dtype):

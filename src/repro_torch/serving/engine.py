@@ -1,8 +1,9 @@
 """Slot engine of the port — the data plane under the step planner.
 
-The JAX package's ``InferenceEngine`` for the dense and Mamba2 families,
-with the same method names, the same page bookkeeping
-(``repro_torch.serving.kv_cache``) and the same ``EngineStats``:
+The JAX package's ``InferenceEngine`` for the dense, Mamba2 and
+encoder-decoder families, with the same method names, the same page
+bookkeeping (``repro_torch.serving.kv_cache``) and the same
+``EngineStats``:
 
 * ``generate`` (and its per-token twin ``generate_eager``) runs a padded
   batch: one ``prefill`` into a contiguous cache of the bucketed length,
@@ -11,7 +12,9 @@ with the same method names, the same page bookkeeping
   pool (``paged=True``) or with per-slot rings (``paged=False``, and every
   sliding-window config: the ring's overwrite is the window); a family
   with nothing to page (Mamba2: an SSM state and a conv tail per
-  sequence) always takes per-slot rows;
+  sequence) always takes per-slot rows, and an encoder-decoder keeps its
+  cross K/V (one encoder block per slot) as a per-slot leaf beside its
+  paged self-attention K/V;
 * ``insert`` admits one request through a padded prefill; ``insert_many``
   admits a whole admission batch in ONE packed ragged prefill (prompts
   concatenated into one row, bucketed by ``_packed_bucket``) and scatters
@@ -56,7 +59,9 @@ the slot executables with the buffers they bind. The packed metadata
 numpy and reaches the device as one int32 copy per dispatch — nothing on
 the serving path reads a device value back except the one tick-end read
 of the decoded tokens (and, in a speculative round, one read of the
-draft's proposals and the verify chunk's argmax).
+draft's proposals and the verify chunk's argmax). An encoder model's
+frame embeddings (``enc_embeds``, float) ride beside that copy in a
+static device buffer of their own per executable.
 
 Sampling draws Gumbel noise (``repro_torch.models.layers.gumbel_noise``)
 from a ``torch.Generator`` of the engine's: one for the slots, seeded by
@@ -81,6 +86,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
 from repro_torch.models.registry import ModelAPI, build_model
 from repro_torch.serving.faults import EngineFault, TransientFault
@@ -253,6 +259,22 @@ class InferenceEngine:
             t = torch.from_numpy(np.asarray(t, np.int32))
         return t.to(self.device)
 
+    def _frames(self, batch, device=None) -> torch.Tensor:
+        """``batch["enc_embeds"]`` (numpy or tensor) in the config's dtype,
+        on ``device`` (default: the engine's)."""
+        e = batch["enc_embeds"]
+        if not isinstance(e, torch.Tensor):
+            e = torch.from_numpy(np.array(e, np.float32))
+        return e.to(device or self.device, dtype_of(self.cfg.dtype))
+
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The model inputs of ``batch`` on the engine's device: the
+        tokens, and an encoder model's frame embeddings."""
+        out = {"tokens": self._tokens(batch)}
+        if self.cfg.has_encoder:
+            out["enc_embeds"] = self._frames(batch)
+        return out
+
     def bucket_len(self, need: int) -> int:
         """Cache-length bucket for ``need`` tokens: next power of two,
         floored at the engine's base cache_len."""
@@ -266,8 +288,9 @@ class InferenceEngine:
         """Padded prefill of ``batch["tokens"]`` (B, S) into a fresh
         contiguous cache of ``cache_len`` rows (default: the engine's).
         Returns (last logits (B, V), cache)."""
-        tokens = self._tokens(batch)
-        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
+        dev_batch = self._device_batch(batch)
+        tokens = dev_batch["tokens"]
+        logits, cache = self.api.prefill(self.params, dev_batch,
                                          cache_len or self.cache_len)
         self.stats.prefills += 1
         self.stats.prefill_tokens += int(tokens.shape[0] * tokens.shape[1])
@@ -292,11 +315,11 @@ class InferenceEngine:
         every token, the first included, with noise from the engine's
         generate generator seeded with ``rng`` (0 by default, as the JAX
         engine's default key is ``PRNGKey(0)``)."""
-        tokens = self._tokens(batch)
-        b, s = tokens.shape
+        dev_batch = self._device_batch(batch)
+        b, s = dev_batch["tokens"].shape
         t_bucket = max(1, _pow2_at_least(max_new_tokens))
         clen = self.bucket_len(s + t_bucket)
-        logits, cache = self.prefill({"tokens": tokens}, clen)
+        logits, cache = self.prefill(dev_batch, clen)
         if sampling is not None:
             self._gen_rng.manual_seed(rng)
         key = (int(b), clen)
@@ -349,15 +372,14 @@ class InferenceEngine:
         logits (no temperature or filter, as the JAX path's
         ``categorical``) with noise from the generate generator seeded
         with ``rng``; the first token is the arg-max either way."""
-        tokens = self._tokens(batch)
-        b, s = tokens.shape
+        dev_batch = self._device_batch(batch)
+        b, s = dev_batch["tokens"].shape
         need = max(self.cache_len, s + max_new_tokens)
         if need != self.cache_len:
-            logits, cache = self.api.prefill(self.params, {"tokens": tokens},
-                                             need)
+            logits, cache = self.api.prefill(self.params, dev_batch, need)
             self.stats.prefills += 1
         else:
-            logits, cache = self.prefill({"tokens": tokens}, self.cache_len)
+            logits, cache = self.prefill(dev_batch, self.cache_len)
         if not greedy:
             self._gen_rng.manual_seed(rng)
         outs = []
@@ -490,7 +512,8 @@ class InferenceEngine:
         untouched when the pool cannot cover it."""
         if not self._slot_free:
             raise RuntimeError("no free slots")
-        tokens = self._tokens(batch)
+        dev_batch = self._device_batch(batch)
+        tokens = dev_batch["tokens"]
         assert tokens.shape[0] == 1, "insert admits one request"
         s = int(tokens.shape[1])
         slot = self._slot_free[0]          # claim only after pages are ours
@@ -511,7 +534,7 @@ class InferenceEngine:
         else:
             budget = None if n_tokens is None else max(1, int(n_tokens))
         self._slot_free.pop(0)
-        logits, one = self.prefill({"tokens": tokens}, self.slot_len)
+        logits, one = self.prefill(dev_batch, self.slot_len)
         if self.paged:
             _write_slot_paged(self._slot_cache, one, slot, table_row,
                               self.page_size, self.api.paged_keys)
@@ -532,7 +555,10 @@ class InferenceEngine:
         """Concatenate prompts into one packed row (host numpy): total
         tokens bucket by ``_packed_bucket``, the segment axis by the next
         power of two of the real count; padding tokens carry segment id S
-        and empty segments length 0."""
+        and empty segments length 0. An encoder model's frame embeddings
+        stack per segment into a host tensor (S, encoder_seq, d_model),
+        zero blocks for the padding segments, as the JAX engine pads
+        them."""
         s_max = max(1, _pow2_at_least(len(batches)))
         t = max(1, _packed_bucket(sum(lens)))
         tokens = np.zeros((1, t), np.int32)
@@ -546,8 +572,16 @@ class InferenceEngine:
             starts[i] = off
             seg_lens[i] = ln
             off += ln
-        return {"tokens": tokens, "seg_ids": seg_ids, "seg_starts": starts,
-                "seg_lens": seg_lens}
+        packed = {"tokens": tokens, "seg_ids": seg_ids,
+                  "seg_starts": starts, "seg_lens": seg_lens}
+        if self.cfg.has_encoder:
+            enc = torch.zeros((s_max, self.cfg.encoder_seq,
+                               self.cfg.d_model),
+                              dtype=dtype_of(self.cfg.dtype))
+            for i, b in enumerate(batches):
+                enc[i] = self._frames(b, "cpu")[0]
+            packed["enc_embeds"] = enc
+        return packed
 
     def insert_many(self, batches: List[Dict[str, Any]],
                     n_tokens: Optional[List[Optional[int]]] = None,
@@ -1658,7 +1692,7 @@ def _merge_rows(new, cache, mask, skip) -> None:
     writes there land at a not-yet-valid position or on the null page (a
     ring step restores them)."""
     for key, leaf in cache.items():
-        if key in skip:
+        if key in skip or new[key] is leaf:   # read only (cross K/V)
             continue
         axis = 0 if leaf.dim() == 1 else 1
         shape = [1] * leaf.dim()

@@ -46,7 +46,9 @@ On a CUDA device an entry is a ``torch.cuda.CUDAGraph``:
   with one non-blocking copy ahead of the replay (``fill``, then
   ``launch``: between the two a caller may write a view on the device,
   as a speculative round writes the draft's verify row into the verify
-  chunk's tokens);
+  chunk's tokens); host data given as a tensor (an encoder model's
+  float frame embeddings) gets a static device buffer of its own, of its
+  shape and dtype, filled the same way;
 * the kernel wrappers count launches in Python, which runs only at
   capture: the counts a capture added are taken back and added again at
   every replay;
@@ -85,7 +87,8 @@ SLOT_KINDS = ("packed_prefill", "chunk_prefill", "slot_step") \
 class Step:
     """One executable: ``fn(views)`` runs a step, reading its host data
     from ``views`` — named int32 views of one static device buffer laid
-    out as the first dispatch's ``arrays`` — and returns what the step
+    out as the first dispatch's numpy ``arrays``, and a static device
+    buffer for each host tensor among them — and returns what the step
     computes (the logits; every lasting effect is an in-place write).
     ``out`` holds the last dispatch's result once the step has been
     replayed or run eagerly (a capture's own first dispatch returns its
@@ -99,7 +102,8 @@ class Step:
         self.kind = kind
         self.fn = fn
         self.generator = generator
-        self.layout = {k: np.shape(a) for k, a in arrays.items()}
+        self.layout = {k: np.shape(a) for k, a in arrays.items()
+                       if not isinstance(a, torch.Tensor)}
         size = sum(int(np.prod(s)) for s in self.layout.values())
         dev = registry.device
         self.meta = torch.zeros((size,), dtype=torch.int32, device=dev)
@@ -108,12 +112,21 @@ class Step:
             n = int(np.prod(shape))
             self.views[name] = self.meta[off:off + n].view(shape)
             off += n
+        # host tensors: a device buffer each, staged through a pinned twin
+        self.dense = {k: torch.zeros(a.shape, dtype=a.dtype, device=dev)
+                      for k, a in arrays.items()
+                      if isinstance(a, torch.Tensor)}
+        self.views.update(self.dense)
         if dev.type == "cuda":
             self.staging = torch.zeros((size,), dtype=torch.int32,
                                        pin_memory=True)
+            self.dense_staging = {
+                k: torch.zeros(t.shape, dtype=t.dtype, pin_memory=True)
+                for k, t in self.dense.items()}
             self.copied = torch.cuda.Event()
         else:
             self.staging, self.copied = self.meta, None
+            self.dense_staging = self.dense
         self.host = self.staging.numpy()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
@@ -122,7 +135,7 @@ class Step:
     def fill(self, arrays: Dict[str, np.ndarray]) -> None:
         """Stage the dispatch's host data and copy it to the device in
         one non-blocking copy (on the CPU the staging is the buffer)."""
-        if not self.layout:
+        if not self.layout and not self.dense:
             return
         if self.copied is not None:
             self.copied.synchronize()     # the last copy has read it
@@ -134,8 +147,13 @@ class Step:
             n = int(np.prod(shape))
             self.host[off:off + n] = np.reshape(a, -1)
             off += n
+        for name, buf in self.dense_staging.items():
+            assert arrays[name].shape == buf.shape, (self.kind, name)
+            buf.copy_(arrays[name])
         if self.copied is not None:
             self.meta.copy_(self.staging, non_blocking=True)
+            for name, buf in self.dense.items():
+                buf.copy_(self.dense_staging[name], non_blocking=True)
             self.copied.record()
 
     def run(self, arrays: Dict[str, np.ndarray]):

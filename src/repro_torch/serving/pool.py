@@ -100,12 +100,17 @@ class ModelHost:
 
     def prompt_batch(self) -> Dict[str, torch.Tensor]:
         """Deterministic single-request prompt (fixed shape: one
-        packed-prefill bucket per admission size for the whole workload).
-        It stays in host memory: the engine packs each admission on the
-        host and copies it to the device once."""
+        packed-prefill bucket per admission size for the whole workload),
+        with an encoder model's stub frames (seed 0). It stays in host
+        memory: the engine packs each admission on the host and copies it
+        to the device once."""
         if self._prompt is None:
-            self._prompt = {"tokens": torch.ones(
-                (1, self.prompt_len), dtype=torch.int32)}
+            b = {"tokens": torch.ones((1, self.prompt_len),
+                                      dtype=torch.int32)}
+            if self.cfg.has_encoder:
+                from repro_torch.serving import modality
+                b["enc_embeds"] = modality.audio_frames(self.cfg, 1)
+            self._prompt = b
         return self._prompt
 
     def engines(self) -> List[InferenceEngine]:

@@ -860,3 +860,107 @@ def test_gateway_on_cuda_equals_serve_ticks(cuda):
                     (q.completed, q.shed, q.dropped, q.deadline_aborted),
                     traffic.attainment_by(reqs, "tier")))
     assert out[0] == out[1] == out[2]
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder family: #5 with more keys than queries, whisper
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (2, 64, 1536, 12, 12, 64),      # whisper's packed cross rows
+    (2, 224, 1536, 12, 12, 64),
+    (3, 5, 16, 4, 4, 64),           # reduced whisper
+    (1, 70, 33, 8, 2, 128),         # fewer keys than queries, GQA
+    (2, 129, 200, 16, 16, 128),     # ragged edges on both sides
+])
+def test_flash_kernel_cross_attention_matches_plain(cuda, dtype, b, sq, sk,
+                                                    h, kv, d):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = _randn(gen, (b, sq, h, d), dtype, cuda)
+    k = _randn(gen, (b, sk, kv, d), dtype, cuda)
+    v = _randn(gen, (b, sk, kv, d), dtype, cuda)
+    got = FA.flash_attention_cuda(q, k, v, causal=False)
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        FA.flash_attention_cuda(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        FA.flash_attention_cuda(q, k, v, causal=False, window=8)
+
+
+def test_cross_decode_lengths_are_captured_without_a_host_copy(cuda):
+    """The cross-attention decode's one length (the encoder's) is filled
+    on the device: the call captures into a CUDA graph (a copy from
+    pageable host memory would fail the capture) and the replay equals an
+    eager call."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, (8, 12, 64), "bfloat16", cuda)
+    kc = _randn(gen, (8, 1536, 12, 64), "bfloat16", cuda)
+    vc = _randn(gen, (8, 1536, 12, 64), "bfloat16", cuda)
+    want = L.decode_attention(q, kc, vc, 1536)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        L.decode_attention(q, kc, vc, 1536)           # warm on the stream
+        with torch.cuda.graph(graph, stream=side):
+            out = L.decode_attention(q, kc, vc, 1536)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def _whisper_serve(eng, seed=0):
+    """Six requests with their own stub frames through ``serve_ticks``
+    (chunked: continuations recompute the prefix). Returns the streams."""
+    from repro_torch.serving import modality
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    spec = [(i, int(rng.integers(3, 40)), int(rng.integers(2, 10)))
+            for i in range(6)]
+    prompts = {i: {"tokens": rng.integers(1, eng.cfg.vocab_size, (1, p))
+                   .astype(np.int32),
+                   "enc_embeds": modality.audio_frames(eng.cfg, 1,
+                                                       generator=gen)}
+               for i, p, _ in spec}
+    eng.release_all_slots()
+    reqs = [Request(arrival=0.0, rid=i, model=eng.cfg.name, slo=1e9,
+                    n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+    planner = StepPlanner(eng, RequestQueue(eng.cfg.name, slo=1e9),
+                          PlannerConfig(chunk_tokens=16))
+    srv = serve_ticks(planner, reqs, lambda r: prompts[r.rid])
+    assert not srv.truncated
+    return planner.streams
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_graphed_whisper_serve_equals_eager_and_cpu(cuda, paged):
+    """Reduced whisper-small (float32): a graphed serve captures once and
+    then replays; it equals the same engine's eager serve and the CPU's
+    plain versions, stream for stream, through exactly the family's
+    kernels: #5 (encoder, cross), #2, and #1 (paged) or #4 (ring self),
+    with #4 for the cross-attention decode."""
+    cfg = get_config("whisper-small").reduced()
+    gpu = make_engine(cfg, seed=4, cache_len=64, device=cuda).init_slots(
+        4, paged=paged, page_size=8)
+    cpu = make_engine(cfg, cache_len=64, device="cpu").init_slots(
+        4, paged=paged, page_size=8)
+    cpu.params = _cpu(gpu.params)
+    first = _whisper_serve(gpu)
+    sizes = gpu.jit_cache_sizes()
+    assert sizes["packed_prefill"] > 0 and sizes["slot_step"] == 1
+    ops.reset_launch_counts()
+    assert _whisper_serve(gpu) == first
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert gpu.jit_cache_sizes() == sizes, "a repeat captured again"
+    want = {"segment_flash_attention", "decode_attention",
+            "flash_attention"} | ({"paged_decode_attention"} if paged
+                                  else set())
+    assert {n for n, k in launches.items() if k} == want, launches
+    gpu.graphs = False
+    assert _whisper_serve(gpu) == first
+    gpu.graphs = True
+    assert _whisper_serve(cpu) == first

@@ -50,6 +50,17 @@ from repro_torch.serving.graphs import (KINDS, PREFIX_KINDS,  # noqa
 SSM = "mamba2-1.3b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread serves them
+    as fast, and keeps this module from oversubscribing the cores that
+    parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(name, cache_len, n_slots, paged=True, page_size=8):
     """(reduced cfg, JAX engine, port engine) on the same weights."""
     jeng = jax_make_engine(jax_config(name).reduced(),
@@ -295,7 +306,8 @@ def _addresses(eng):
 
 @pytest.mark.parametrize("name,paged,chunk_tokens", [
     ("olmo-1b", True, 3), ("olmo-1b", False, 3), ("qwen2-0.5b", True, 0),
-    (SSM, True, 3)])
+    (SSM, True, 3), ("deepseek-7b", True, 3), ("yi-9b", True, 3),
+    ("chameleon-34b", True, 3)])
 def test_serve_keeps_every_slot_buffer_in_place_and_matches_jax(
         pairs, name, paged, chunk_tokens):
     """Across a serve (admissions, continuations, decodes, frees) every

@@ -41,7 +41,9 @@ def test_the_port_has_modules_to_check():
             "core/scheduler/base.py", "core/scheduler/baselines.py",
             "core/scheduler/dstack.py", "core/scheduler/ideal.py",
             "serving/pool.py", "serving/controller.py",
-            "serving/prefix_cache.py", "launch/serve.py"} <= port
+            "serving/prefix_cache.py", "launch/serve.py",
+            "core/cluster.py", "models/encdec.py",
+            "serving/modality.py"} <= port
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -2,9 +2,9 @@
 JAX-initialised weights (converted through numpy with
 ``params_from_numpy``) and the same numpy inputs go through ``forward``,
 the padded ``prefill``, ``prefill_packed``, ``prefill_chunk`` and
-``decode_step`` (paged and ring) of both, for olmo-1b and qwen2-0.5b
-reduced (float32). Logits and written K/V must
-agree within atol/rtol 1e-5 — not bit for bit: the two frameworks reduce
+``decode_step`` (paged and ring) of both, for the dense configs (olmo-1b,
+qwen2-0.5b, deepseek-7b, yi-9b and chameleon-34b) reduced (float32).
+Logits and written K/V must agree within atol/rtol 1e-5 — not bit for bit: the two frameworks reduce
 float32 matmuls in different orders (even the JAX package misses
 bit-equality across its own shapes). The Mamba2 family (mamba2-1.3b
 reduced, float32) is held the same way — logits, the per-layer SSM states
@@ -33,8 +33,22 @@ from repro_torch.models.weights import (init_params,  # noqa: E402
                                         params_from_numpy)
 from repro_torch.serving.engine import make_engine  # noqa: E402
 
-MODELS = ["olmo-1b", "qwen2-0.5b"]
+# the dense configs: olmo-1b, qwen2-0.5b (GQA, qkv bias), deepseek-7b
+# (MHA), yi-9b (GQA) and chameleon-34b (early-fusion vlm, layernorm),
+# all reduced
+MODELS = ["olmo-1b", "qwen2-0.5b", "deepseek-7b", "yi-9b", "chameleon-34b"]
 TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread serves them
+    as fast, and keeps this module from oversubscribing the cores that
+    parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

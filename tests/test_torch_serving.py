@@ -43,6 +43,19 @@ from repro_torch.serving.engine import make_engine  # noqa: E402
 CACHE_LEN = 32
 N_SLOTS = 4
 PAGE = 8
+# the remaining dense configs: MHA, GQA and early-fusion vlm (layernorm)
+DENSE = ["deepseek-7b", "yi-9b", "chameleon-34b"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread serves them
+    as fast, and keeps this module from oversubscribing the cores that
+    parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -152,6 +165,28 @@ def test_serve_ticks_streams_match_jax(engines, chunk_tokens):
         assert b[1].engine.stats.incr_chunks > 0
 
 
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_config_serve_ticks_match_jax(engines, name):
+    """The remaining dense configs serve the JAX streams with chunked
+    admission on paged slots. chameleon-34b's prompts are early-fusion
+    ones: stub VQ image tokens ahead of the text
+    (``modality.interleave_multimodal``)."""
+    from repro_torch.serving import modality
+    cfg, jeng, peng = engines(name)
+    spec, prompts = _workload(cfg, seed=5, n=6, prompt_range=(6, 20))
+    if cfg.family == "vlm":
+        for i, p in prompts.items():
+            img = modality.image_tokens(cfg, 1, n_tokens=4, seed=i)
+            prompts[i] = modality.interleave_multimodal(
+                cfg, torch.from_numpy(p[:, 4:]), img).numpy()
+            assert prompts[i].shape == p.shape
+    a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=3)
+    b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=3)
+    assert all(len(t) for t in b[0].values())
+    _assert_same(a, b)
+    assert b[1].engine.stats.incr_chunks > 0
+
+
 @pytest.mark.parametrize("chunk_tokens", [0, 3, 8])
 def test_ring_serve_ticks_streams_match_jax(engines, chunk_tokens):
     """Ring slots: admissions are packed prefills, continuations recompute
@@ -172,7 +207,7 @@ def test_ring_serve_ticks_streams_match_jax(engines, chunk_tokens):
                           prompts, chunk_tokens=chunk_tokens)[0]
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"])
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"] + DENSE)
 def test_generate_matches_jax(engines, name):
     """Batch ``generate`` (bucketed prefill + decode loop) and
     ``generate_eager`` give the JAX engine's tokens and counters."""
@@ -218,7 +253,7 @@ def _insert_step_stream(eng, prompts, budgets, n_steps):
     return out
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"])
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"] + DENSE)
 def test_paged_matches_ring_greedy_mixed_lengths(name):
     """``tests/test_paged_kv.py``'s acceptance bar inside the port: paged
     decode equals ring-slot decode on a mixed-length continuous-batching
