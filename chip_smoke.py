@@ -9,9 +9,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases h   # prefix cache and speculation
     python3 chip_smoke.py --phases i   # sampling, telemetry, the gateway
     python3 chip_smoke.py --phases aj  # kernels and whisper-small
+    python3 chip_smoke.py --phases ak  # kernels and the experts
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs ten phases, each printing one JSON line:
+with ``nvcc`` and runs eleven phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -45,7 +46,7 @@ with ``nvcc`` and runs ten phases, each printing one JSON line:
   (e) ring serve: phase (b)'s requests on 8 ring slots, so admissions and
       prefix-recompute continuations run the packed prefill and decodes
       the contiguous decode kernel (and never the chunk kernel);
-  (f) ssm: mamba2-1.3b at full width in bfloat16 (24 of its 48 layers,
+  (f) ssm: mamba2-1.3b at full width in bfloat16 (12 of its 48 layers,
       d_model 2048, 64 SSD heads of 64, N 128) serves phase (b)'s requests
       on 8 slots of per-sequence state (packed admissions,
       prefix-recompute continuations, recurrent decodes), then runs batch
@@ -110,6 +111,24 @@ with ``nvcc`` and runs ten phases, each printing one JSON line:
       ``bench_pool``'s four models (the trio and whisper-small) at (g)'s
       geometry under ``dstack`` and ``temporal``: every model served, no
       capture after warm-up;
+  (k) the experts, bfloat16, seeded weights: granite-moe-3b-a800m at
+      full width (32 layers, d_model 1536, 24 query / 8 KV heads of 64,
+      40 experts top-8 of d_ff 512). (k1) phase (b)'s 16 requests on 8
+      paged slots of 1024 (pages of 16), ``chunk_tokens=512``: the
+      engine is not ``chunk_capable``, so continuations recompute the
+      prefix — #2 and #1 launch, #3 never; graphed and eager in turns,
+      profiled, the tick beside the decode step's weight floor; the
+      routing (dropped fraction, load-balance loss, layer 0's tokens per
+      expert) of one packed admission and of ``forward`` over 8 x 512;
+      each stage of the dispatch timed alone at a decode step's 8 tokens
+      and at the admission's, and a decode step of 8 live slots graphed
+      and eager. (k2) ``generate`` 8 x 512 + 64: #5, #4. (k3)
+      phi3.5-moe-42b-a6.6b at full width cut to 4 of its 32 layers (d_model
+      4096, 32 / 8 heads of 128, 16 experts top-2 of d_ff 6400;
+      the whole model's 84 GB does not fit one card), ``generate``
+      8 x 512 + 32: #5, #4. (k4) the quick trio and granite in one pool
+      at (g)'s geometry under ``dstack`` and ``temporal``: every model
+      served, every grant a level, no capture after warm-up, #1, #2, #6;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -128,9 +147,14 @@ with ``nvcc`` and runs ten phases, each printing one JSON line:
       0 and at top-k 1 (the greedy streams), and (i3)'s gateway serves at
       2 layers: on the GPU the whole trace, whose scorecards must equal
       (i3)'s, and on both devices its first 0.2 virtual seconds, the same
-      streams and scorecards.
+      streams and scorecards; granite-moe cut to 2 layers: one packed
+      prefill's expert indices and drop masks (every layer), a paged
+      serve with recomputed continuations, a shared-prefix serve cache
+      off then on (hits caught up by forced tokens) and ``generate`` —
+      identical routing and greedy streams.
 
-Every path of (b), (d), (e), (f) and (j1)-(j3) runs on one engine that
+Every path of (b), (d), (e), (f), (j1)-(j3) and (k1)-(k3) runs on one
+engine that
 replays CUDA graphs per bucket (``repro_torch.serving.graphs``): a first
 graphed run meets the path's buckets and captures them, untimed; then the
 path runs timed in turns — eager (``graphs`` off), graphed, graphed,
@@ -138,14 +162,15 @@ eager — each with the launch counts at 0 just before it, and must give
 the first run's tokens, launch exactly the path's kernels (replays count)
 and capture nothing; for (b), (d), (e) and (f) one more run of each mode
 goes under ``torch.profiler`` for its device time, whose share of the
-mode's mean timed wall is the device's busy share.
+mode's mean timed wall is the device's busy share (and so for (k1)).
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
 its count over the first graphed turn of each main path of (b), (d), (e)
 and (f), plus the four serves of (g), the first graphed cache-on and
 speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
-serve, and (j)'s first graphed turns and its two pool serves; #5's entry
+serve, (j)'s and (k)'s first graphed turns and their pool serves; #5's
+entry
 carries whisper's cases under ``cases``), the card's name and power
 limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises
@@ -977,7 +1002,10 @@ def _profile(torch, run, top: int = 12):
     only: the host's is not read, and recording it doubles the time the
     trace takes to read back). Returns its result and the device time by
     kernel (the largest ``top``), the total, and the device's busy share
-    of the profiled run's wall time."""
+    of the profiled run's wall time. The kernels' times are summed from
+    the profiler's raw events: ``key_averages()`` builds an event object
+    for each of them first, ~18x slower (50,000 kernels on an H100 host:
+    9.3 s against 0.53 s)."""
     from torch.profiler import ProfilerActivity, profile
     t1 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -985,13 +1013,16 @@ def _profile(torch, run, top: int = 12):
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, port = [], {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        ms = getattr(e, "device_time_total", 0.0) / 1e3
-        kernels.append((ms, e.count, e.key[:90]))
-        symbol = re.search(r"(\w+)[<(]", e.key)
+        ms, count = totals.get(e.name(), (0.0, 0))
+        totals[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    kernels, port = [], {}
+    for key, (ms, count) in totals.items():
+        kernels.append((ms, count, key[:90]))
+        symbol = re.search(r"(\w+)[<(]", key)
         for name, symbols in PORT_SYMBOLS.items():
             if symbol and symbol.group(1) in symbols:
                 got = port.setdefault(name, {"ms": 0.0, "by_symbol": {}})
@@ -999,7 +1030,7 @@ def _profile(torch, run, top: int = 12):
                 sym = got["by_symbol"].setdefault(
                     symbol.group(1), {"ms": 0.0, "count": 0})
                 sym["ms"] += ms
-                sym["count"] += e.count
+                sym["count"] += count
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
     _log(f"profiled in {time.perf_counter() - t1:.1f} s")
@@ -1014,28 +1045,28 @@ def _profile(torch, run, top: int = 12):
 # phase (d): batch generate; phase (e): ring serve
 # --------------------------------------------------------------------------
 def _generate_turns(torch, eng, tokens, ran, phase, profile=False,
-                    frames=None):
+                    frames=None, n_new=64):
     """Batch ``generate`` of ``tokens`` (and an encoder model's
-    ``frames``) with 64 new tokens each, in turns (``_turns``), and the
-    padded prefill alone once more for the split of the wall time.
+    ``frames``) with ``n_new`` new tokens each, in turns (``_turns``), and
+    the padded prefill alone once more for the split of the wall time.
     Returns the run's report."""
     batch = {"tokens": tokens}
     if frames is not None:
         batch["enc_embeds"] = frames
 
     def run():
-        return eng.generate(batch, 64).cpu().tolist(), None
+        return eng.generate(batch, n_new).cpu().tolist(), None
 
     b, s = tokens.shape
-    out, warm, turns = _turns(torch, eng, run, b * 64, ran, phase)
-    assert np.shape(out) == (b, 64), np.shape(out)
+    out, warm, turns = _turns(torch, eng, run, b * n_new, ran, phase)
+    assert np.shape(out) == (b, n_new), np.shape(out)
     assert all(0 <= t < eng.cfg.vocab_size for row in out for t in row)
     t1 = time.perf_counter()
-    eng.prefill(batch, eng.bucket_len(s + 64))
+    eng.prefill(batch, eng.bucket_len(s + n_new))
     torch.cuda.synchronize()
     row = {"model": eng.cfg.name, "batch": b, "prompt_len": s,
-           "new_tokens": 64, "prefill_s": time.perf_counter() - t1,
-           "cache_len": eng.bucket_len(s + 64),
+           "new_tokens": n_new, "prefill_s": time.perf_counter() - t1,
+           "cache_len": eng.bucket_len(s + n_new),
            **{k: _by_mode(turns, k) for k in (
                "wall_s", "tokens_per_s", "peak_mem_bytes")},
            "graphs": _graph_report(eng, warm, turns),
@@ -1105,10 +1136,11 @@ def phase_e(torch, paged_streams=None):
 # --------------------------------------------------------------------------
 # phase (f): the Mamba2 family
 # --------------------------------------------------------------------------
-# phase (f) runs mamba2-1.3b at full width but half its depth: with the
-# prefix-cache and speculation phase added, the whole script kept to half
-# its time limit that way (every layer is the same shape)
-SSM_LAYERS = 24
+# phase (f) runs mamba2-1.3b at full width but a quarter of its depth:
+# with the later phases added, the whole script keeps inside its time
+# limit that way (every layer is the same shape; it ran 24 before the
+# experts' phase came)
+SSM_LAYERS = 12
 
 
 def phase_f(torch):
@@ -1386,9 +1418,11 @@ H1_REQUESTS, H1_NEW = 32, 32
 H2_REQUESTS, H2_PROMPT, H2_NEW, H2_SPEC_K = 8, 128, 128, 4
 
 
-def _shared_prefix_requests(vocab, n, new_tokens, templates, seed=0):
-    """``n`` requests, each one of ``templates`` [(length, probability)]
-    plus a random tail of 2-6 tokens, asking for ``new_tokens``."""
+def _shared_prefix_requests(vocab, n, new_tokens, templates, seed=0,
+                            model="olmo-1b"):
+    """``n`` requests to ``model``, each one of ``templates`` [(length,
+    probability)] plus a random tail of 2-6 tokens, asking for
+    ``new_tokens``."""
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(seed)
     temps = [rng.integers(1, vocab, size=s).astype(np.int32)
@@ -1400,7 +1434,7 @@ def _shared_prefix_requests(vocab, n, new_tokens, templates, seed=0):
         tail = rng.integers(1, vocab, size=int(rng.integers(2, 7))).astype(
             np.int32)
         prompts[i] = np.concatenate([t, tail])[None, :]
-        reqs.append(Request(arrival=0.0, rid=i, model="olmo-1b", slo=1e9,
+        reqs.append(Request(arrival=0.0, rid=i, model=model, slo=1e9,
                             n_tokens=new_tokens,
                             prompt_len=prompts[i].shape[1]))
     return reqs, prompts
@@ -2161,14 +2195,58 @@ def _encoder_share(torch, eng, batches, reps: int = 3):
             "encoder_share": e / a}
 
 
-def _build_full_pool(torch):
-    """bench_pool's four models at full width in bfloat16, (g)'s
-    geometry: 4 paged slots of 1024 per standby, 128-token prompts."""
+def _build_full_pool(torch, models=POOL_FULL_MODELS):
+    """``models`` (bench_pool's four by default) at full width in
+    bfloat16, (g)'s geometry: 4 paged slots of 1024 per standby,
+    128-token prompts."""
     from repro_torch.serving.pool import build_pool
-    return build_pool(POOL_FULL_MODELS, request_rate=POOL_RATE, base_slots=4,
+    return build_pool(models, request_rate=POOL_RATE, base_slots=4,
                       cache_len=1024, prompt_len=128, reduced=False,
                       page_size=16, warm=False, device="cuda",
                       dtype=torch.bfloat16)
+
+
+def _pool_phase(torch, phase, models, ran):
+    """``models``' pool built and warmed, then served under each of
+    ``POOL_FULL_POLICIES``: no capture after warm-up, exactly the kernels
+    of ``ran``, every model served, every grant a level. Returns the
+    report (the launches summed over the serves)."""
+    t0 = time.perf_counter()
+    pool = _build_full_pool(torch, models)
+    pool.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = pool.jit_cache_sizes()
+    hw = next(iter(pool.profiles.values())).hw
+    serves, launches = {}, {n: 0 for n in KERNEL_NAMES}
+    for policy in POOL_FULL_POLICIES:
+        _reset_launch_counts()
+        ctl, res, log = _pool_serve(pool, policy)
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        row = _pool_row(ctl, res, log)
+        row["launches"] = got
+        _log(json.dumps({f"{phase}/{policy}": row}))
+        _check_launches(got, ran, f"{phase}/{policy}")
+        assert pool.jit_cache_sizes() == warm, f"{phase}/{policy}: a capture"
+        assert not res.truncated and not ctl.oversubscribed, policy
+        assert {g for _, _, g, _, _ in log} <= set(hw.levels), log
+        for n, m in res.per_model.items():
+            assert m.completed > 0, f"{phase}: {n} starved under {policy}"
+        for n in KERNEL_NAMES:
+            launches[n] += got[n]
+        serves[policy] = row
+    engines = [e for h in pool.hosts.values() for e in h.engines()]
+    out = {"models": list(models), "hardware": hw.name,
+           "build_warm_s": warm_s, "captures": sum(warm.values()),
+           "graph_pool_bytes": sum(e.graph_pool_bytes() for e in engines),
+           "profiles": {n: {"knee_pct": p.knee_chips, "opt_pct": p.opt_chips,
+                            "opt_batch": p.opt_batch, "slo_ms": 1e3 * p.slo}
+                        for n, p in pool.profiles.items()},
+           "serves": serves, "launches": launches}
+    del pool, engines
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_j(torch):
@@ -2230,41 +2308,10 @@ def phase_j(torch):
     del eng
     torch.cuda.empty_cache()
     # (j4) the four-model pool under dstack and temporal
-    t0 = time.perf_counter()
-    pool = _build_full_pool(torch)
-    pool.warmup()
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    warm = pool.jit_cache_sizes()
-    serves = {}
-    for policy in POOL_FULL_POLICIES:
-        _reset_launch_counts()
-        ctl, res, log = _pool_serve(pool, policy)
-        torch.cuda.synchronize()
-        got = _launch_counts()
-        row = _pool_row(ctl, res, log)
-        row["launches"] = got
-        _log(json.dumps({f"j4/{policy}": row}))
-        _check_launches(got, POOL_FULL_PATH, f"j4/{policy}")
-        assert pool.jit_cache_sizes() == warm, f"j4/{policy}: a capture"
-        assert not res.truncated and not ctl.oversubscribed, policy
-        for n, m in res.per_model.items():
-            assert m.completed > 0, f"j4: {n} starved under {policy}"
-        add(got)
-        serves[policy] = row
-    engines = [e for h in pool.hosts.values() for e in h.engines()]
-    out["j4"] = {"models": list(POOL_FULL_MODELS), "build_warm_s": warm_s,
-                 "captures": sum(warm.values()),
-                 "graph_pool_bytes": sum(e.graph_pool_bytes()
-                                         for e in engines),
-                 "profiles": {n: {"knee_pct": p.knee_chips,
-                                  "opt_pct": p.opt_chips,
-                                  "opt_batch": p.opt_batch,
-                                  "slo_ms": 1e3 * p.slo}
-                              for n, p in pool.profiles.items()},
-                 "serves": serves}
-    del pool, engines
-    torch.cuda.empty_cache()
+    j4 = _pool_phase(torch, "j4", POOL_FULL_MODELS, POOL_FULL_PATH)
+    add(j4.pop("launches"))
+    out["j4"] = j4
+    serves = j4["serves"]
     out["launches"] = launches
     _emit({k: v for k, v in out.items() if k not in ("j1", "j2", "j4")}
           | {"j1": {k: j1[k] for k in ("tokens_per_s", "encoder_share",
@@ -2274,6 +2321,252 @@ def phase_j(torch):
              "j4": {p: {k: r[k] for k in ("served", "violated",
                                           "admissions")}
                     for p, r in serves.items()}})
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase (k): the mixture-of-experts family
+# --------------------------------------------------------------------------
+MOE = "granite-moe-3b-a800m"
+PHI_MOE = "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe at full width, 4 of its 32 layers: the whole model's 84 GB of
+# bfloat16 weights do not fit one card (4 layers: ~11 GB)
+PHI_LAYERS = 4
+# the experts' continuations recompute the prefix (not chunk_capable): #2
+# for admissions and continuations, #1 for decodes, never #3
+MOE_PAGED_PATH = ("paged_decode_attention", "segment_flash_attention")
+POOL_MOE_MODELS = POOL_MODELS + (MOE,)
+# the dispatch's stages, as ``repro_torch.models.moe`` splits them
+MOE_STAGES = ("route", "slots", "scatter", "experts", "combine")
+
+
+def _decode_floor_ms(cfg):
+    """The least time of a bfloat16 decode step: the weights it reads
+    (every parameter but the embedding table, of which it reads one row a
+    sequence — every expert's capacity rows run each step) over the card's
+    memory rate."""
+    return 2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model) \
+        / PEAK_BYTES * 1e3
+
+
+def _record_routes(run):
+    """``run()`` with ``transformer.apply_moe`` wrapped: returns its
+    result and, per call (one per layer), the aux and the routing —
+    expert indices ``gate_i`` and drop mask, on the host."""
+    from repro_torch.models import moe, transformer
+    calls, plain = [], transformer.apply_moe
+
+    def recorded(p, cfg, x, **kw):
+        _, aux = plain(p, cfg, x, aux=True)
+        _, _, gate_i, dropped = moe.dispatch(p, cfg, x)
+        calls.append({"aux": {k: float(v) for k, v in aux.items()},
+                      "gate_i": gate_i.cpu(), "dropped": dropped.cpu(),
+                      "experts": cfg.num_experts})
+        return plain(p, cfg, x, **kw)
+
+    transformer.apply_moe = recorded
+    try:
+        out = run()
+    finally:
+        transformer.apply_moe = plain
+    return out, calls
+
+
+def _routing_row(calls):
+    """Layer 0's dropped fraction, load-balance loss and kept choices per
+    expert, and both aux keys' mean over the layers."""
+    first = calls[0]
+    kept = first["gate_i"].reshape(-1)[~first["dropped"].reshape(-1)]
+    return {"layer0": dict(first["aux"], tokens_per_expert=np.bincount(
+                kept.numpy(), minlength=first["experts"]).tolist()),
+            "mean_over_layers": {k: sum(c["aux"][k] for c in calls)
+                                 / len(calls) for k in first["aux"]}}
+
+
+def _packed_admission(eng, prompts, lens):
+    """The packed batch of ``prompts`` cut to ``lens`` on ``eng``'s
+    device, and its row length."""
+    import torch
+    packed = eng._pack_prompts(
+        [{"tokens": p[:, :n]} for p, n in zip(prompts, lens)], lens)
+    return ({k: torch.from_numpy(np.asarray(v)).to(eng.device)
+             for k, v in packed.items()},
+            1 << max(0, max(lens) - 1).bit_length())
+
+
+def _moe_stages(torch, eng, tokens):
+    """Each stage of layer 0's dispatch over ``tokens`` tokens in one
+    group, timed alone (``_timings``) on seeded inputs at the model's
+    width: the ms of a layer, by stage."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import layer_params
+    cfg = eng.cfg
+    p = layer_params(eng.params["layers"], 0)["moe"]
+    e, k = cfg.num_experts, cfg.experts_per_token
+    gen = torch.Generator(device=eng.device).manual_seed(5)
+    x3 = torch.randn((1, tokens, cfg.d_model), generator=gen,
+                     device=eng.device).to(torch.bfloat16)
+    cap = moe.capacity_for(tokens, cfg)
+    probs, gate_w, gate_i = moe._route(p, x3, k)
+    slot, dest, dropped = moe._slots(gate_i, e, cap)
+    buf = moe._scatter(x3, k, dest, e * cap).view(e, cap, cfg.d_model)
+    out = moe._experts(p, buf)
+    flush = _l2_flush(torch, eng.device)
+    fns = {"route": lambda: moe._route(p, x3, k),
+           "slots": lambda: moe._slots(gate_i, e, cap),
+           "scatter": lambda: moe._scatter(x3, k, dest, e * cap),
+           "experts": lambda: moe._experts(p, buf),
+           "combine": lambda: moe._combine(out, slot, dropped, gate_w)}
+    rows = {name: _timings(fns[name], torch, flush) for name in MOE_STAGES}
+    del flush
+    layer = {key: sum(r[key] for r in rows.values())
+             for key in ("ms", "ms_cold_l2")}
+    # the expert matmuls' least time: their weights, the buffer in and
+    # the outputs out once, or their products at the bf16 peak
+    weights = 3 * e * cfg.d_model * cfg.d_ff
+    bound, by = _bound_ms(2 * (weights + 2 * e * cap * cfg.d_model),
+                          2 * cap * weights, "bfloat16")
+    return {"tokens": tokens, "capacity": cap, "stages": rows,
+            "layer_ms": layer["ms"], "layer_ms_cold_l2": layer["ms_cold_l2"],
+            "model_ms_cold_l2": cfg.num_layers * layer["ms_cold_l2"],
+            "experts_bound_ms": bound, "experts_bound_by": by}
+
+
+def _decode_step_ms(torch, eng, prompt, reps: int = 20):
+    """A decode step of 8 live slots, graphed and eager (host clock
+    around a synchronised step, median of ``reps``)."""
+    from repro_torch.serving.plan import PrefillChunk, StepPlan
+    out = {}
+    for mode in ("graphed", "eager"):
+        eng.graphs = mode == "graphed"
+        eng.release_all_slots()
+        n = int(prompt["tokens"].shape[1])
+        plan = StepPlan(admissions=[PrefillChunk(
+            rid=i, batch=prompt, start=0, length=n, final=True,
+            n_tokens=reps + 8) for i in range(eng.n_slots)])
+        slots = sorted(eng.execute(plan).admitted.values())
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.execute(StepPlan(decodes=slots))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[mode] = 1e3 * _median(walls)
+    eng.release_all_slots()
+    eng.graphs = True
+    return out
+
+
+def phase_k(torch):
+    """granite-moe-3b-a800m at full width (32 layers, d_model 1536, 24
+    query / 8 KV heads of 64, 40 experts top-8 of d_ff 512) and
+    phi3.5-moe-42b-a6.6b at full width cut to ``PHI_LAYERS`` layers, in
+    bfloat16 with seeded weights; then the quick trio and granite in one
+    pool."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    cfg = get_config(MOE)
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda").init_slots(8, page_size=16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    assert not eng.chunk_capable() and not eng.spec_capable()
+    out = {"phase": "k", "model": cfg.name, "dtype": "bfloat16",
+           "setup_s": setup_s}
+    launches = {n: 0 for n in KERNEL_NAMES}
+
+    def add(got):
+        for n in KERNEL_NAMES:
+            launches[n] += got[n]
+
+    # (k1) phase (b)'s 16 requests on 8 paged slots of 1024
+    reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0,
+                              cfg.name)
+    k1, _ = _serve_phase(torch, "k1", eng, reqs, prompts, MOE_PAGED_PATH)
+    st = eng.stats
+    assert st.incr_chunks == 0 and st.chunk_prefills > 0, st
+    floor = _decode_floor_ms(cfg)
+    k1.update(incr_chunks=st.incr_chunks,
+              recomputed_continuations=st.chunk_prefills,
+              decode_floor_ms=floor,
+              tick_p50_over_floor=_by_mode(k1["turns"], "tick_ms_p50")[
+                  "graphed"][0] / floor)
+    # routing of one packed admission (the first 8 requests' first
+    # chunks) and of forward over 8 x 512
+    lens = [min(r.prompt_len, 512) for r in reqs[:8]]
+    packed, row_len = _packed_admission(
+        eng, [prompts[r.rid] for r in reqs[:8]], lens)
+    _, calls = _record_routes(
+        lambda: eng.api.prefill_packed(eng.params, packed, row_len))
+    fwd_tokens = torch.from_numpy(np.random.default_rng(12).integers(
+        1, cfg.vocab_size, (8, 512)).astype(np.int32)).to(eng.device)
+    (_, fwd_aux), fcalls = _record_routes(
+        lambda: eng.api.forward(eng.params, {"tokens": fwd_tokens}))
+    routing = {"packed_admission": dict(_routing_row(calls),
+                                        tokens=int(packed["tokens"].shape[1]),
+                                        real_tokens=sum(lens)),
+               "forward_8x512": dict(_routing_row(fcalls), aux={
+                   k: float(v) for k, v in fwd_aux.items()})}
+    _log(json.dumps({"k/routing": routing}))
+    # the dispatch's stages at a decode step's 8 tokens and at the packed
+    # admission's tokens; a decode step of 8 live slots
+    stages = {"decode_8": _moe_stages(torch, eng, 8),
+              "admission": _moe_stages(
+                  torch, eng, int(packed["tokens"].shape[1]))}
+    step = _decode_step_ms(torch, eng, {"tokens": prompts[0][:, :128]})
+    stages["decode_step_ms"] = step
+    stages["dispatch_share_of_graphed_step"] = \
+        stages["decode_8"]["model_ms_cold_l2"] / step["graphed"]
+    _log(json.dumps({"k/stages": stages}))
+    k1.update(routing=routing, dispatch_stages=stages)
+    add(k1["launches"])
+    out["k1"] = k1
+    # (k2) batch generate 8 x 512 + 64
+    tokens = np.random.default_rng(13).integers(
+        1, cfg.vocab_size, (8, 512)).astype(np.int32)
+    k2 = _generate_turns(torch, eng, tokens, GENERATE_PATH, "k2")
+    add(k2["launches"])
+    out["k2"] = {k: v for k, v in k2.items() if k != "turns"}
+    del eng
+    torch.cuda.empty_cache()
+    # (k3) phi3.5-moe, PHI_LAYERS layers: batch generate 8 x 512 + 32
+    pcfg = dataclasses.replace(get_config(PHI_MOE), num_layers=PHI_LAYERS)
+    t0 = time.perf_counter()
+    peng = make_engine(pcfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                       device="cuda")
+    torch.cuda.synchronize()
+    tokens = np.random.default_rng(14).integers(
+        1, pcfg.vocab_size, (8, 512)).astype(np.int32)
+    k3 = _generate_turns(torch, peng, tokens, GENERATE_PATH, "k3",
+                         n_new=32)
+    k3.update(layers=PHI_LAYERS, setup_s=time.perf_counter() - t0,
+              params=pcfg.param_count(),
+              decode_floor_ms=_decode_floor_ms(pcfg))
+    add(k3["launches"])
+    out["k3"] = {k: v for k, v in k3.items() if k != "turns"}
+    del peng
+    torch.cuda.empty_cache()
+    # (k4) the quick trio and granite in one pool, dstack and temporal
+    k4 = _pool_phase(torch, "k4", POOL_MOE_MODELS, POOL_PATH)
+    add(k4.pop("launches"))
+    out["k4"] = k4
+    out["launches"] = launches
+    _emit({k: v for k, v in out.items() if k not in ("k1", "k2", "k3", "k4")}
+          | {"k1": {k: k1[k] for k in (
+              "tokens_per_s", "tick_ms_p50", "tick_ms_p99",
+              "decode_floor_ms", "busy_share", "ticks", "dispatches",
+              "recomputed_continuations", "incr_chunks")}
+             | {"dispatch_share_of_graphed_step": k1["dispatch_stages"][
+                 "dispatch_share_of_graphed_step"]},
+             "k2": {k: k2[k] for k in ("tokens_per_s", "prefill_s")},
+             "k3": {k: k3[k] for k in ("tokens_per_s", "prefill_s",
+                                       "decode_floor_ms")},
+             "k4": {p: {k: r[k] for k in ("served", "violated",
+                                          "admissions")}
+                    for p, r in k4["serves"].items()}
+             | {"granite_profile": k4["profiles"][MOE]}})
     return out
 
 
@@ -2535,6 +2828,92 @@ def phase_c(torch, i3=None):
           lambda e: e.prefill(wbatch)[0], batch=4, prompt_len=64,
           new_tokens=24)
 
+    # 7c. granite-moe at full width cut to 2 layers: a paged serve whose
+    # continuations recompute the prefix, a shared-prefix serve cache off
+    # then on (a hit caught up by forced tokens; the experts' streams of
+    # the two may differ, since the cache changes who shares a dispatch),
+    # batch generate; and one packed prefill's expert indices and drop
+    # masks, every layer, equal on both devices
+    gcfg = dataclasses.replace(get_config(MOE), num_layers=2,
+                               dtype="float32")
+    ggpu = make_engine(gcfg, seed=1, device="cuda").params
+    gparams = {"cuda": ggpu, "cpu": _to_cpu(ggpu)}
+    greqs, gprompts = _requests(8, (64, 301), (8, 17), gcfg.vocab_size, 11,
+                                gcfg.name)
+    glens = [r.prompt_len for r in greqs]
+    engines = [e.init_slots(4, page_size=16)
+               for e in pair(gcfg, 512, gparams)]
+
+    def groutes(eng):
+        batch, row_len = _packed_admission(
+            eng, [gprompts[r.rid] for r in greqs], glens)
+        return _record_routes(lambda: eng.api.prefill_packed(
+            eng.params, batch, row_len))
+
+    (glogits, gcalls), (clogits, ccalls) = (groutes(e) for e in engines)
+    # the real tokens' routes: the padding tokens after them hold what
+    # each device's packed attention leaves there (the kernel attends
+    # them as one more segment, the plain version copies a real row), and
+    # coming last they take no slot a real token could have had
+    n, k = sum(glens), gcfg.experts_per_token
+
+    def real(c):
+        return c["gate_i"][:, :n], c["dropped"][:, :n * k]
+
+    same_routes = len(gcalls) == len(ccalls) and all(
+        all(torch.equal(x, y) for x, y in zip(real(a), real(b)))
+        for a, b in zip(gcalls, ccalls))
+    checks["moe_routing"] = dict(
+        layers=len(gcalls), tokens=int(gcalls[0]["gate_i"].shape[1]),
+        real_tokens=n, routes_identical=same_routes,
+        dropped=[int(real(c)[1].sum()) for c in gcalls],
+        padding_routes_identical=all(
+            torch.equal(a["gate_i"], b["gate_i"])
+            for a, b in zip(gcalls, ccalls)),
+        logits_max_abs_diff=float((glogits[0].cpu() - clogits[0])
+                                  .abs().max()))
+    _log(json.dumps({"moe_routing": checks["moe_routing"]}))
+    assert same_routes, "moe: GPU and CPU expert indices or drops differ"
+
+    def gpacked_logits(eng):
+        batch, row_len = _packed_admission(
+            eng, [gprompts[r.rid] for r in greqs], glens)
+        return eng.api.prefill_packed(eng.params, batch, row_len)[0][
+            :len(greqs)]
+
+    got = check("moe_paged_serve", engines,
+                lambda e: _serve(e, greqs, gprompts, chunk_tokens=128)[0],
+                MOE_PAGED_PATH, gpacked_logits, requests=len(greqs))
+    assert engines[0].stats.chunk_prefills > 0, "no continuation ran"
+    assert engines[0].stats.incr_chunks == 0, engines[0].stats
+    checks["moe_paged_serve"]["tokens"] = sum(map(len, got.values()))
+    mpreqs, mpprompts = _shared_prefix_requests(
+        gcfg.vocab_size, 8, 12, ((203, 0.5), (76, 0.5)), seed=2,
+        model=gcfg.name)
+    for e in engines:
+        e.enable_prefix_cache()
+        e.warm_prefix_ops()
+
+    def moe_prefix_serves(eng):
+        off = _serve(eng, mpreqs, mpprompts, chunk_tokens=128)[0]
+        on = _serve(eng, mpreqs, mpprompts, chunk_tokens=128,
+                    prefix_cache=True)[0]
+        st = eng.stats
+        assert st.prefix_hits and st.forced_catchup_tokens, st
+        return off, on, dataclasses.asdict(st)
+
+    _, gon, gst = check("moe_prefix_cache", engines, moe_prefix_serves,
+                        MOE_PAGED_PATH, gpacked_logits,
+                        requests=len(mpreqs))
+    checks["moe_prefix_cache"]["prefix_hits"] = gst["prefix_hits"]
+    gtokens = np.random.default_rng(12).integers(
+        1, gcfg.vocab_size, (4, 300)).astype(np.int32)
+    check("moe_generate", pair(gcfg, 256, gparams),
+          lambda e: e.generate({"tokens": gtokens}, 24).cpu().tolist(),
+          GENERATE_PATH,
+          lambda e: e.prefill({"tokens": gtokens}, e.bucket_len(300 + 32))[0],
+          batch=4, prompt_len=300, new_tokens=24)
+
     # 8. the pool: bench_pool's four models (the quick trio and
     # whisper-small) at full width cut to 2 layers, under dstack on each
     # device — the same admissions and counts
@@ -2582,13 +2961,13 @@ def phase_c(torch, i3=None):
         "gateway: (i3)'s bf16 scorecards differ from the float32 ones"
 
     out = {"phase": "c",
-           "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b, whisper-small "
-                    "(2 layers)",
+           "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b, whisper-small, "
+                    "granite-moe-3b-a800m (2 layers)",
            "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff",
                "admissions_identical", "counts_identical",
-               "cards_equal_i3") if kk in v}
+               "cards_equal_i3", "routes_identical") if kk in v}
                for k, v in checks.items()}}
     _emit(out)
     return dict(out, checks=checks)
@@ -2642,9 +3021,9 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefghijc",
+    ap.add_argument("--phases", default="abdefghijkc",
                     help="which phases to run, of a, b, d, e, f, g, h, i, "
-                         "j, c (default: all)")
+                         "j, k, c (default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2712,13 +3091,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "j" in args.phases:
         report["j"] = timed("j", phase_j)
-    for phase in "bdefghij":
+    if "k" in args.phases:
+        report["k"] = timed("k", phase_k)
+    for phase in "bdefghijk":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c, report.get("i", {}).get("i3"))
     if summary:
-        if all(p in args.phases for p in "bdefghij"):
+        if all(p in args.phases for p in "bdefghijk"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

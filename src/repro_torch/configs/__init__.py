@@ -1,5 +1,6 @@
 """Architecture registry of the port: ``get_config`` resolves the ten
-configurations of the JAX package's zoo, in its order. The profiles and
+configurations of the JAX package's zoo, in its order, by name or by the
+JAX package's aliases. The profiles and
 the simulator plan over all ten; the model registry builds only the
 families ported so far (``repro_torch.models.registry``)."""
 from repro_torch.configs.base import ModelConfig
@@ -22,11 +23,27 @@ ARCHS = {
     ]
 }
 
+# convenience aliases (filesystem-safe ids)
+ALIASES = {
+    "olmo-1b": "olmo-1b",
+    "phi3.5-moe": "phi3.5-moe-42b-a6.6b",
+    "phi35-moe": "phi3.5-moe-42b-a6.6b",
+    "yi-9b": "yi-9b",
+    "zamba2-7b": "zamba2-7b",
+    "qwen2-0.5b": "qwen2-0.5b",
+    "deepseek-7b": "deepseek-7b",
+    "whisper-small": "whisper-small",
+    "granite-moe": "granite-moe-3b-a800m",
+    "chameleon-34b": "chameleon-34b",
+    "mamba2-1.3b": "mamba2-1.3b",
+}
+
 
 def get_config(name: str) -> ModelConfig:
-    if name not in ARCHS:
+    key = ALIASES.get(name, name)
+    if key not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    return ARCHS[name]
+    return ARCHS[key]
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config"]
+__all__ = ["ARCHS", "ALIASES", "ModelConfig", "get_config"]

@@ -13,10 +13,11 @@ on architecture:
 
 ``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device, plus
 ``enc_embeds`` (B, encoder_seq, d_model) for an encoder model (``packed``
-carries the per-segment stack). Four families are ported so far: the
-dense family (no experts) and chameleon's early-fusion ``vlm``, which is
-the same transformer, over ring (``init_cache``) and paged
-(``init_paged_cache``) caches; the Mamba2 family (``ssm``), whose
+carries the per-segment stack). Five families are ported so far: the
+dense family, the mixture-of-experts family (``moe``: granite-moe,
+phi3.5-moe) and chameleon's early-fusion ``vlm``, which are the same
+transformer, over ring (``init_cache``) and paged (``init_paged_cache``)
+caches; the Mamba2 family (``ssm``), whose
 per-sequence state has nothing to page; and the encoder-decoder family
 (``audio``, whisper-small), whose cross K/V is a per-slot leaf beside the
 paged self-attention K/V. Neither of the last two ships a
@@ -63,7 +64,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     """The API of ``cfg`` on ``device`` (default: the CUDA device; raises
     where there is none unless ``device="cpu"`` is passed)."""
     mod = weights.FAMILY_MODULES.get(cfg.family)
-    if mod is None or cfg.num_experts:
+    if mod is None:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
 

@@ -1,6 +1,8 @@
-"""Dense decoder-only transformer (olmo-1b, qwen2-0.5b, ...): the serving
-entry points of the JAX package's ``repro.models.transformer`` for the
-dense family without experts — the full-sequence ``forward``, the padded
+"""Decoder-only transformer: the dense family (olmo-1b, qwen2-0.5b, ...),
+the mixture-of-experts family (granite-moe, phi3.5-moe:
+``cfg.num_experts > 0``, ``repro_torch.models.moe``) and chameleon's
+early-fusion ``vlm``. The serving entry points of the JAX package's
+``repro.models.transformer``: the full-sequence ``forward``, the padded
 ``prefill`` into a ring/contiguous cache, the packed and chunked prefills
 of paged serving, and ``decode_step`` over either cache layout.
 
@@ -26,20 +28,23 @@ import torch
 
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
+from repro_torch.models.moe import apply_moe, moe_plan
 
 # cache leaves that live in the shared page pool
 PAGED_KEYS = ("k", "v")
 
 
 def layer_plan(cfg) -> dict:
-    if cfg.num_experts:
-        raise NotImplementedError("mixture-of-experts layers")
-    return {
+    p = {
         "ln1": L.norm_plan(cfg.d_model, cfg.norm),
         "attn": L.attn_plan(cfg),
         "ln2": L.norm_plan(cfg.d_model, cfg.norm),
-        "mlp": L.mlp_plan(cfg),
     }
+    if cfg.num_experts:
+        p["moe"] = moe_plan(cfg)
+    else:
+        p["mlp"] = L.mlp_plan(cfg)
+    return p
 
 
 def plan(cfg) -> dict:
@@ -50,21 +55,28 @@ def plan(cfg) -> dict:
     }
 
 
-def _block(cfg, lp, x, rope, attention):
-    """One pre-norm block; ``attention(q, k, v)`` mixes the sequence."""
+def _block(cfg, lp, x, rope, attention, aux: bool = False):
+    """One pre-norm block; ``attention(q, k, v)`` mixes the sequence.
+    Returns (x, k, v, aux): aux is the experts' auxiliary dict where
+    ``aux`` asks for it, else None."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     q, k, v = L.attn_qkv(lp["attn"], cfg, h, rope)
     x1 = x + L.attn_out(lp["attn"], x.dtype, attention(q, k, v))
     h2 = L.apply_norm(lp["ln2"], x1, cfg.norm)
-    return x1 + L.apply_mlp(lp["mlp"], h2), k, v
+    if cfg.num_experts:
+        y, aux = apply_moe(lp["moe"], cfg, h2, aux=aux)
+    else:
+        y, aux = L.apply_mlp(lp["mlp"], h2), None
+    return x1 + y, k, v, aux
 
 
 # --------------------------------------------------------------------------
 # full-sequence forward and padded prefill
 # --------------------------------------------------------------------------
 def forward(params, cfg, tokens):
-    """tokens: (B, S) int -> (logits (B, S, V), aux). The dense family has
-    no auxiliary losses: aux holds the JAX package's two keys at 0."""
+    """tokens: (B, S) int -> (logits (B, S, V), aux). aux holds the JAX
+    package's two keys: each the mean over layers of the experts' value,
+    0 for the dense family."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
@@ -74,13 +86,19 @@ def forward(params, cfg, tokens):
         return L.cp_attention(cfg, q, k, v, causal=True,
                               window=cfg.sliding_window)
 
+    auxes = []
     for i in range(cfg.num_layers):
-        x, _, _ = _block(cfg, L.layer_params(params["layers"], i), x, rope,
-                         attention)
+        x, _, _, aux = _block(cfg, L.layer_params(params["layers"], i), x,
+                              rope, attention, aux=True)
+        auxes.append(aux)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.unembed(params["embed"], x, cfg), {
-        "load_balance_loss": zero, "dropped_fraction": zero}
+    if cfg.num_experts:
+        aux = {key: torch.stack([a[key] for a in auxes]).mean()
+               for key in auxes[0]}
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"load_balance_loss": zero, "dropped_fraction": zero}
+    return L.unembed(params["embed"], x, cfg), aux
 
 
 def cache_plan(cfg, batch: int, cache_len: int) -> dict:
@@ -123,8 +141,8 @@ def prefill(params, cfg, tokens, cache_len: int):
                               window=cfg.sliding_window)
 
     for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, L.layer_params(params["layers"], i), x, rope,
-                         attention)
+        x, k, v, _ = _block(cfg, L.layer_params(params["layers"], i), x,
+                            rope, attention)
         cache["k"][i, :, :keep] = k[:, s - keep:]
         cache["v"][i, :, :keep] = v[:, s - keep:]
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg.norm)
@@ -175,8 +193,8 @@ def prefill_packed(params, cfg, packed, max_seg_len: int):
 
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, L.layer_params(params["layers"], i), x, rope,
-                         attention)
+        x, k, v, _ = _block(cfg, L.layer_params(params["layers"], i), x,
+                            rope, attention)
         ks.append(k[0])
         vs.append(v[0])
     last = torch.clamp(seg_starts + seg_lens - 1, 0, t - 1)
@@ -224,8 +242,8 @@ def prefill_chunk(params, cfg, packed, cache, max_seg_len: int):
 
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, L.layer_params(params["layers"], i), x, rope,
-                         functools.partial(attention, i))
+        x, k, v, _ = _block(cfg, L.layer_params(params["layers"], i), x,
+                            rope, functools.partial(attention, i))
         ks.append(k[0])
         vs.append(v[0])
     xl = L.apply_norm(params["final_norm"], x[0], cfg.norm)
@@ -258,8 +276,8 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
 
     h = x[:, None, :]
     for i in range(cfg.num_layers):
-        h, _, _ = _block(cfg, L.layer_params(params["layers"], i), h, rope,
-                         functools.partial(attention, i))
+        h, _, _, _ = _block(cfg, L.layer_params(params["layers"], i), h,
+                            rope, functools.partial(attention, i))
     h = L.apply_norm(params["final_norm"], h[:, 0], cfg.norm)
     logits = L.unembed(params["embed"], h, cfg)
     return logits, L.carry_cache_meta(

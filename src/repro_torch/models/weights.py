@@ -19,9 +19,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import encdec, ssm, transformer
 
 # family -> the module that holds its plan (the JAX registry's routing:
-# chameleon's early-fusion ``vlm`` is a dense transformer)
-FAMILY_MODULES = {"dense": transformer, "vlm": transformer, "ssm": ssm,
-                  "audio": encdec}
+# the experts' ``moe`` and chameleon's early-fusion ``vlm`` are the same
+# transformer as the dense family)
+FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                  "vlm": transformer, "ssm": ssm, "audio": encdec}
 
 
 def plan_of(cfg) -> dict:

@@ -964,3 +964,115 @@ def test_graphed_whisper_serve_equals_eager_and_cpu(cuda, paged):
     assert _whisper_serve(gpu) == first
     gpu.graphs = True
     assert _whisper_serve(cpu) == first
+
+
+# --------------------------------------------------------------------------
+# the mixture-of-experts family
+# --------------------------------------------------------------------------
+def _moe_cfg():
+    """Reduced granite-moe at granite's routing width: 40 experts, top-8
+    (float32)."""
+    return dataclasses.replace(get_config("granite-moe").reduced(),
+                               num_experts=40, experts_per_token=8)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.1])
+@pytest.mark.parametrize("shape", [(8, 1), (2, 16), (1, 300)],
+                         ids=["decode", "flat", "per_row"])
+def test_gpu_moe_dispatch_matches_cpu(cuda, shape, cf):
+    """The expert dispatch on the card and on the CPU, float32: the same
+    expert indices and drop masks, outputs within 2e-5."""
+    from repro_torch.models import moe
+    from repro_torch.models.weights import init_params
+    cfg = _moe_cfg()
+    lp = init_params(cfg, torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda)["layers"]["moe"]
+    p = {k: v[0] for k, v in lp.items()}
+    x = torch.randn(shape + (cfg.d_model,),
+                    generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    got = moe.dispatch(p, cfg, x, cf)
+    want = moe.dispatch(_cpu(p), cfg, x.cpu(), cf)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[3].cpu(), want[3])
+    torch.testing.assert_close(got[0].cpu(), want[0], **TOL["float32"])
+    if cf == 0.1 and shape != (8, 1):
+        assert bool(want[3].any())
+
+
+def _moe_serve(eng, spec, prompts, **planner_kw):
+    eng.release_all_slots()
+    eng.reset_stats()
+    reqs = [Request(arrival=0.0, rid=i, model=eng.cfg.name, slo=1e9,
+                    n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+    planner = StepPlanner(eng, RequestQueue(eng.cfg.name, slo=1e9),
+                          PlannerConfig(gen_len=4, **planner_kw))
+    srv = serve_ticks(planner, reqs, lambda r: {"tokens": prompts[r.rid]})
+    assert not srv.truncated
+    return planner.streams, dataclasses.asdict(eng.stats)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_graphed_moe_serve_equals_eager_and_cpu(cuda, paged):
+    """Reduced granite-moe at 40 experts top-8 (float32): a chunked serve
+    (continuations recompute the prefix) captures once, then replays; it
+    equals the same engine's eager serve and the CPU's, stream for stream
+    and counter for counter, through exactly #2 and #1 (paged) or #4
+    (ring) — never #3."""
+    cfg = _moe_cfg()
+    gpu = make_engine(cfg, seed=4, cache_len=64, device=cuda).init_slots(
+        4, paged=paged, page_size=8)
+    cpu = make_engine(cfg, cache_len=64, device="cpu").init_slots(
+        4, paged=paged, page_size=8)
+    cpu.params = _cpu(gpu.params)
+    rng = np.random.default_rng(5)
+    spec = [(i, int(rng.integers(3, 40)), int(rng.integers(2, 10)))
+            for i in range(6)]
+    prompts = {i: rng.integers(1, cfg.vocab_size, (1, p)).astype(np.int32)
+               for i, p, _ in spec}
+    first = _moe_serve(gpu, spec, prompts, chunk_tokens=16)
+    assert first[1]["chunk_prefills"] > 0 and first[1]["incr_chunks"] == 0
+    sizes = gpu.jit_cache_sizes()
+    ops.reset_launch_counts()
+    assert _moe_serve(gpu, spec, prompts, chunk_tokens=16) == first
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert gpu.jit_cache_sizes() == sizes, "a repeat captured again"
+    want = {"segment_flash_attention"} | (
+        {"paged_decode_attention"} if paged else {"decode_attention"})
+    assert {n for n, k in launches.items() if k} == want, launches
+    gpu.graphs = False
+    assert _moe_serve(gpu, spec, prompts, chunk_tokens=16) == first
+    gpu.graphs = True
+    assert _moe_serve(cpu, spec, prompts, chunk_tokens=16) == first
+
+
+def test_gpu_moe_prefix_cache_and_generate_match_cpu(cuda):
+    """Reduced granite-moe at 40 experts top-8 (float32) with the prompt
+    cache: the shared-prefix stream cache off and on (hits caught up by
+    forced tokens) under CUDA graphs equals the CPU's, streams and
+    counters; batch ``generate`` equals the CPU's token for token."""
+    cfg = _moe_cfg()
+    engines = []
+    for dev in (cuda, "cpu"):
+        eng = make_engine(cfg, seed=6, cache_len=32, device=dev).init_slots(
+            4, page_size=8)
+        if engines:
+            eng.params = _cpu(engines[0].params)
+        eng.enable_prefix_cache()
+        eng.warm_prefix_ops()
+        engines.append(eng)
+    spec, prompts = _shared_prefix_requests(cfg)
+    runs = [[_moe_serve(e, spec, prompts, **kw)
+             for kw in ({}, {"prefix_cache": True})] for e in engines]
+    assert runs[0] == runs[1], "GPU and CPU serves differ"
+    st = runs[0][1][1]
+    assert st["prefix_hits"] and st["forced_catchup_tokens"]
+    assert st["incr_chunks"] == 0
+    tokens = np.random.default_rng(7).integers(
+        1, cfg.vocab_size, (3, 21)).astype(np.int32)
+    gens = [make_engine(cfg, cache_len=32, device=d) for d in (cuda, "cpu")]
+    gens[0].params = engines[0].params
+    gens[1].params = engines[1].params
+    assert torch.equal(gens[0].generate({"tokens": tokens}, 9).cpu(),
+                       gens[1].generate({"tokens": tokens}, 9))

@@ -15,7 +15,11 @@ under the same keys as the CUDA graphs it would capture on a card:
 * the state a graphed step writes: streams equal to the JAX package's,
   the slot state after a serve and the logits read from it equal to
   1e-5 (float32 reduced configs);
-* the Mamba2 prepared weights: bit for bit what a step derives.
+* the Mamba2 prepared weights: bit for bit what a step derives;
+* the experts (granite-moe, phi3.5-moe reduced): no new kind of entry —
+  every dispatch shape is static inside a bucket, the capacity coming
+  from the bucket's token count — and the JAX engine's keys after the
+  same serves.
 """
 import dataclasses
 import math
@@ -48,6 +52,7 @@ from repro_torch.serving.graphs import (KINDS, PREFIX_KINDS,  # noqa
                                        SPEC_KINDS)
 
 SSM = "mamba2-1.3b"
+MOE = ["granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -232,6 +237,40 @@ def test_generate_keys_on_batch_and_cache_length(pairs, name):
     assert peng.jit_cache_sizes()["generate"] == before + 2
 
 
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "ring"])
+@pytest.mark.parametrize("name", MOE)
+def test_moe_keys_equal_jax_after_the_same_serves(name, paged):
+    """Chunked serves (chunk sizes 1-13) and a batch ``generate``: the
+    experts' continuations recompute the prefix, so the port keeps no
+    ``chunk_prefill`` entry, and its ``packed_prefill``, ``slot_step`` and
+    ``generate`` keys are the JAX engine's jit keys; a repeat serve adds
+    none."""
+    cfg, jeng, peng = _pair(name, 32, 4, paged)
+    rng = np.random.default_rng(2)
+    for trial in range(6):
+        ct = int(rng.integers(1, 14))
+        spec = _spec(trial, 3, prompt_range=(2, 24), budget_range=(1, 3))
+        prompts = _spec_prompts(cfg, spec)
+        a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=ct)
+        b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=ct)
+        assert b[0] == a[0]
+        assert peng.stats.incr_chunks == 0
+    toks = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (3, 9)).astype(np.int32)
+    np.testing.assert_array_equal(
+        peng.generate({"tokens": toks}, 5).numpy(),
+        np.asarray(jeng.generate({"tokens": jnp.asarray(toks)}, 5)))
+    assert set(peng._graphs.entries["packed_prefill"]) == set(
+        jeng._packed_prefill_jit)
+    assert set(peng._graphs.entries) <= set(KINDS)
+    sizes = peng.jit_cache_sizes()
+    assert sizes["chunk_prefill"] == 0 == len(jeng._chunk_prefill_jit)
+    assert sizes["slot_step"] == 1 == len(jeng._slot_step_jit)
+    assert sizes["generate"] == 1
+    _serve("port", cfg, peng, spec, prompts, chunk_tokens=ct)
+    assert peng.jit_cache_sizes() == sizes
+
+
 # --------------------------------------------------------------------------
 # no new executables: repeat serves, faults and recover
 # --------------------------------------------------------------------------
@@ -307,7 +346,7 @@ def _addresses(eng):
 @pytest.mark.parametrize("name,paged,chunk_tokens", [
     ("olmo-1b", True, 3), ("olmo-1b", False, 3), ("qwen2-0.5b", True, 0),
     (SSM, True, 3), ("deepseek-7b", True, 3), ("yi-9b", True, 3),
-    ("chameleon-34b", True, 3)])
+    ("chameleon-34b", True, 3), (MOE[0], True, 3), (MOE[1], False, 3)])
 def test_serve_keeps_every_slot_buffer_in_place_and_matches_jax(
         pairs, name, paged, chunk_tokens):
     """Across a serve (admissions, continuations, decodes, frees) every

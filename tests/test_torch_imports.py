@@ -43,7 +43,7 @@ def test_the_port_has_modules_to_check():
             "serving/pool.py", "serving/controller.py",
             "serving/prefix_cache.py", "launch/serve.py",
             "core/cluster.py", "models/encdec.py",
-            "serving/modality.py"} <= port
+            "serving/modality.py", "models/moe.py"} <= port
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -52,3 +52,11 @@ def test_no_jax_or_repro_import(path):
     bad = [(line, name) for line, name in _imported_modules(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_torch_compile(path):
+    """The port's kernels are hand-written; nothing goes through
+    ``torch.compile``."""
+    assert "torch.compile" not in path.read_text()

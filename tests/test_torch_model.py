@@ -1,9 +1,11 @@
-"""The port's dense model against the JAX package's on the CPU: the same
+"""The port's transformer against the JAX package's on the CPU: the same
 JAX-initialised weights (converted through numpy with
-``params_from_numpy``) and the same numpy inputs go through ``forward``,
-the padded ``prefill``, ``prefill_packed``, ``prefill_chunk`` and
-``decode_step`` (paged and ring) of both, for the dense configs (olmo-1b,
-qwen2-0.5b, deepseek-7b, yi-9b and chameleon-34b) reduced (float32).
+``params_from_numpy``) and the same numpy inputs go through ``forward``
+(with the experts' aux), the padded ``prefill``, ``prefill_packed``,
+``prefill_chunk`` and ``decode_step`` (paged and ring) of both, for the
+dense configs (olmo-1b, qwen2-0.5b, deepseek-7b, yi-9b and chameleon-34b)
+and the mixture-of-experts configs (granite-moe, phi3.5-moe) reduced
+(float32).
 Logits and written K/V must agree within atol/rtol 1e-5 — not bit for bit: the two frameworks reduce
 float32 matmuls in different orders (even the JAX package misses
 bit-equality across its own shapes). The Mamba2 family (mamba2-1.3b
@@ -34,9 +36,11 @@ from repro_torch.models.weights import (init_params,  # noqa: E402
 from repro_torch.serving.engine import make_engine  # noqa: E402
 
 # the dense configs: olmo-1b, qwen2-0.5b (GQA, qkv bias), deepseek-7b
-# (MHA), yi-9b (GQA) and chameleon-34b (early-fusion vlm, layernorm),
-# all reduced
-MODELS = ["olmo-1b", "qwen2-0.5b", "deepseek-7b", "yi-9b", "chameleon-34b"]
+# (MHA), yi-9b (GQA) and chameleon-34b (early-fusion vlm, layernorm), and
+# the experts: granite-moe and phi3.5-moe (layernorm), all reduced (4
+# experts, top-2)
+MODELS = ["olmo-1b", "qwen2-0.5b", "deepseek-7b", "yi-9b", "chameleon-34b",
+          "granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b"]
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -181,12 +185,17 @@ def test_forward_matches_jax(pair, name):
     tl, taux = api.forward(params, {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert sorted(taux) == sorted(jaux)
-    assert all(float(v) == 0.0 for v in taux.values())
+    for key, v in taux.items():
+        np.testing.assert_allclose(float(v), float(jaux[key]), **TOL)
+    if not cfg.num_experts:
+        assert all(float(v) == 0.0 for v in taux.values())
 
 
 @pytest.mark.parametrize("name,s,cache_len", [
     ("olmo-1b", 19, 32), ("qwen2-0.5b", 19, 32),
     ("olmo-1b", 20, 8),               # prompt longer than the cache: tail
+    ("granite-moe-3b-a800m", 19, 32), ("phi3.5-moe-42b-a6.6b", 19, 32),
+    ("granite-moe-3b-a800m", 260, 272),   # S >= 256: per-row dispatch
 ])
 def test_prefill_matches_jax(pair, name, s, cache_len):
     cfg, japi, jparams, api, params = pair(name)
@@ -368,7 +377,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 def test_unported_features_raise():
     cfg = get_config("olmo-1b").reduced()
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, num_experts=4), device="cpu")
+        build_model(get_config("zamba2-7b").reduced(), device="cpu")
     cache = transformer.init_paged_cache(cfg, 2, 5, 8, 2)
     pos = torch.zeros(2, dtype=torch.int32)
     _, attend, _ = TL.decode_index(pos, cache, "k")

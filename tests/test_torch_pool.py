@@ -75,15 +75,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def pools():
-    """(JAX pool, port pool): the JAX pool as ``tests/test_pool.py``
-    builds it; the port's hosts carry its weights and plan on a
-    ``Hardware`` with the v5e's field values."""
-    jpool = jax_build_pool(MODELS, request_rate=RATE, base_slots=2,
+def _pool_pair(models):
+    """(JAX pool, port pool) of ``models``: the JAX pool as
+    ``tests/test_pool.py`` builds it; the port's hosts carry its weights
+    and plan on a ``Hardware`` with the v5e's field values."""
+    jpool = jax_build_pool(models, request_rate=RATE, base_slots=2,
                            cache_len=32)
     hosts = {}
-    for i, name in enumerate(MODELS):
+    for i, name in enumerate(models):
         jhost = jpool.hosts[name]
         params = params_from_numpy(
             jhost.cfg, jax.tree.map(np.asarray, jhost.params), "cpu")
@@ -95,6 +94,11 @@ def pools():
     ppool = EnginePool(hosts)
     ppool.warmup()
     return jpool, ppool
+
+
+@pytest.fixture(scope="module")
+def pools():
+    return _pool_pair(MODELS)
 
 
 @pytest.fixture(scope="module")
@@ -488,8 +492,7 @@ def _recorded(pool):
     return log
 
 
-@pytest.mark.parametrize("policy", QUICK)
-def test_pool_admissions_equal_jax(pools, policy):
+def _assert_admissions_equal(pools, policy):
     jpool, ppool = pools
     logs = [_recorded(p) for p in pools]
     caches = [p.jit_cache_sizes() for p in pools]
@@ -509,3 +512,18 @@ def test_pool_admissions_equal_jax(pools, policy):
         assert got.completed > 0
     assert (pb.duration, pb.steps) == (ja.duration, ja.steps)
     assert [p.jit_cache_sizes() for p in pools] == caches
+
+
+@pytest.mark.parametrize("policy", QUICK)
+def test_pool_admissions_equal_jax(pools, policy):
+    _assert_admissions_equal(pools, policy)
+
+
+def test_moe_pool_admissions_equal_jax():
+    """The quick trio plus granite-moe reduced under ``dstack``: the same
+    admissions and per-model counts as the JAX pool, every model served,
+    and no new executable."""
+    pair = _pool_pair(MODELS + ["granite-moe-3b-a800m"])
+    host = pair[1].hosts["granite-moe-3b-a800m"]
+    assert not any(e.chunk_capable() for e in host.engines())
+    _assert_admissions_equal(pair, "dstack")

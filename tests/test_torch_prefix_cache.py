@@ -291,13 +291,13 @@ def test_random_tree_operations_equal_jax():
 # ---------------------------------------------------------------------------
 # serving tests: one warmed dense engine per package, cache on vs off
 # ---------------------------------------------------------------------------
-def _pair(pages=None, graphs_cache=True):
+def _pair(pages=None, graphs_cache=True, model=MODEL):
     """(cfg, JAX engine, port engine) on the same weights, both with a
     warmed prefix cache."""
-    jeng = jax_make_engine(jax_config(MODEL).reduced(),
+    jeng = jax_make_engine(jax_config(model).reduced(),
                            cache_len=CACHE_LEN).init_slots(
         N_SLOTS, paged=True, page_size=PAGE, total_pages=pages)
-    cfg = get_config(MODEL).reduced()
+    cfg = get_config(model).reduced()
     params = params_from_numpy(cfg, jax.tree.map(np.asarray, jeng.params),
                                device="cpu")
     peng = InferenceEngine(build_model(cfg, device="cpu"), params,
@@ -608,6 +608,24 @@ def test_shared_prefix_serve_equals_jax(engines, chunk_tokens):
     assert set(peng._graphs.entries["chunk_prefill"]) == set(
         jeng._chunk_prefill_jit)
     assert _placement(peng) == _placement(jeng)
+
+
+def test_moe_prefix_cache_serve_equals_jax():
+    """granite-moe reduced: the experts keep the prefix cache (pages plus
+    ``pos`` hold a row's whole state) and, not being ``chunk_capable``,
+    catch a hit up by forced tokens through the slot step. Cache off and
+    on, the port serves the JAX engine's streams, counters and hits."""
+    cfg, jeng, peng = _pair(model="granite-moe-3b-a800m")
+    assert not peng.chunk_capable()
+    reqs, prompts = _shared_workload(cfg, seed=3, n=10)
+    _assert_serves_equal(cfg, jeng, peng, reqs, prompts)
+    _, b = _assert_serves_equal(cfg, jeng, peng, reqs, prompts,
+                                prefix_cache=True)
+    st = b[1]
+    assert st.prefix_hits and st.forced_catchup_tokens
+    assert st.incr_chunks == 0
+    assert dataclasses.asdict(peng.prefix_cache.stats) == \
+        dataclasses.asdict(jeng.prefix_cache.stats)
 
 
 def test_eviction_and_dedup_serves_equal_jax(engines):

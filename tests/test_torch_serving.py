@@ -8,10 +8,12 @@ dispatches — for whole-prompt admission, chunked prefill (incremental on
 pages, prefix recompute on rings), a lazy tight pool that preempts, a
 seeded fault schedule and tiered admission; plus the engines' page
 bookkeeping call by call, batch ``generate``, and ring ≡ paged within
-the port. The Mamba2 family (mamba2-1.3b reduced) serves the same way on
-its per-slot state (paged slots fall back to it; continuations recompute
-the prefix), and the packed-segment scatter writes stacked per-segment
-leaves as the JAX scatter does.
+the port. The mixture-of-experts configs (granite-moe, phi3.5-moe
+reduced) serve the JAX streams on paged and ring slots, their
+continuations recomputing the prefix. The Mamba2 family (mamba2-1.3b
+reduced) serves the same way on its per-slot state (paged slots fall
+back to it; continuations recompute the prefix), and the packed-segment
+scatter writes stacked per-segment leaves as the JAX scatter does.
 """
 import dataclasses
 
@@ -45,6 +47,8 @@ N_SLOTS = 4
 PAGE = 8
 # the remaining dense configs: MHA, GQA and early-fusion vlm (layernorm)
 DENSE = ["deepseek-7b", "yi-9b", "chameleon-34b"]
+# the mixture-of-experts configs (4 experts, top-2 reduced)
+MOE = ["granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -187,6 +191,24 @@ def test_dense_config_serve_ticks_match_jax(engines, name):
     assert b[1].engine.stats.incr_chunks > 0
 
 
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "ring"])
+@pytest.mark.parametrize("name", MOE)
+def test_moe_serve_ticks_match_jax(engines, name, paged):
+    """The experts serve the JAX streams and counters with chunked
+    admission: the engine is not ``chunk_capable``, so every continuation
+    recomputes its prefix through a packed prefill (no incremental
+    chunk), on paged and ring slots alike."""
+    cfg, jeng, peng = engines(name, paged=paged)
+    assert not peng.chunk_capable() and not peng.spec_capable()
+    spec, prompts = _workload(cfg, seed=5, n=6, prompt_range=(6, 20))
+    a = _serve("jax", cfg, jeng, spec, prompts, chunk_tokens=3)
+    b = _serve("port", cfg, peng, spec, prompts, chunk_tokens=3)
+    assert all(len(t) for t in b[0].values())
+    _assert_same(a, b)
+    st = b[1].engine.stats
+    assert st.incr_chunks == 0 and st.chunk_prefills > 0
+
+
 @pytest.mark.parametrize("chunk_tokens", [0, 3, 8])
 def test_ring_serve_ticks_streams_match_jax(engines, chunk_tokens):
     """Ring slots: admissions are packed prefills, continuations recompute
@@ -207,7 +229,7 @@ def test_ring_serve_ticks_streams_match_jax(engines, chunk_tokens):
                           prompts, chunk_tokens=chunk_tokens)[0]
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"] + DENSE)
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"] + DENSE + MOE)
 def test_generate_matches_jax(engines, name):
     """Batch ``generate`` (bucketed prefill + decode loop) and
     ``generate_eager`` give the JAX engine's tokens and counters."""
@@ -253,7 +275,7 @@ def _insert_step_stream(eng, prompts, budgets, n_steps):
     return out
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"] + DENSE)
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2-0.5b"] + DENSE + MOE)
 def test_paged_matches_ring_greedy_mixed_lengths(name):
     """``tests/test_paged_kv.py``'s acceptance bar inside the port: paged
     decode equals ring-slot decode on a mixed-length continuous-batching

@@ -287,12 +287,12 @@ def test_speculative_compile_gate(target):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("family", sorted(INCAPABLE))
 def test_incapable_family_refuses_draft(family):
-    """The SSM and encoder-decoder families build and refuse a draft, as
-    the reference test has them do; the port does not build the hybrid
-    and MoE families yet (``build_model`` raises), so neither can reach
+    """The SSM, encoder-decoder and MoE families build and refuse a
+    draft, as the reference test has them do; the port does not build the
+    hybrid family yet (``build_model`` raises), so it cannot reach
     ``attach_draft``."""
     cfg = get_config(INCAPABLE[family]).reduced()
-    if family in ("hybrid", "moe"):
+    if family == "hybrid":
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(cfg, device="cpu")
         return
