@@ -10,9 +10,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases i   # sampling, telemetry, the gateway
     python3 chip_smoke.py --phases aj  # kernels and whisper-small
     python3 chip_smoke.py --phases ak  # kernels and the experts
+    python3 chip_smoke.py --phases al  # kernels and the hybrid family
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs eleven phases, each printing one JSON line:
+with ``nvcc`` and runs twelve phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the six hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -30,7 +31,10 @@ with ``nvcc`` and runs eleven phases, each printing one JSON line:
       whisper-small's cases (12 heads of 64): #5's cross-attention of 8
       rows of 64 and of 224 queries over 1536 encoder frames and its
       encoder self-attention (8 x 1536, non-causal), #4's cross-attention
-      decode (8 rows of 1536); times every case's kernel, plain
+      decode (8 rows of 1536); #1, #2, #4 and #5 at zamba2-7b's 32 heads
+      of 112 (#1 also at its split edges) and #6 at its SSD heads (112
+      heads, P 64, N 64, chunk 128; the dt = 0 tails too); times every
+      case's kernel, plain
       version and, where one PyTorch call computes the same function, that
       call (``scaled_dot_product_attention``, a yardstick the port never
       calls; no single call computes the SSD scan), beside the least time
@@ -129,6 +133,20 @@ with ``nvcc`` and runs eleven phases, each printing one JSON line:
       8 x 512 + 32: #5, #4. (k4) the quick trio and granite in one pool
       at (g)'s geometry under ``dstack`` and ``temporal``: every model
       served, every grant a level, no capture after warm-up, #1, #2, #6;
+  (l) the hybrid family, bfloat16, seeded weights: zamba2-7b at full
+      width (d_model 3584, 32 heads of 112, d_ff 14336, 112 SSD heads of
+      64, N 64). (l1) 12 of its 81 layers (two invocations of the shared
+      block): phase (b)'s 16 requests on 8 paged slots of 1024 (pages of
+      16), ``chunk_tokens=512``, then on 8 ring slots: continuations
+      recompute the prefix — #2, #6 and #1 (paged) or #4 (ring) launch,
+      #3 never; graphed and eager in turns, profiled, the tick beside the
+      decode step's weight floor; (l2) ``generate`` 8 x 512 + 64: #5, #4,
+      #6; (l3) all 81 layers, graphed only: one capturing ``generate`` 8
+      x 512 + 32, two timed runs, a decode step of 8 live paged slots
+      graphed and eager beside its floor, the peak allocation; (l4) the
+      quick trio and zamba2 in one pool under ``dstack`` and
+      ``temporal``: every model served, no capture after warm-up, #1,
+      #2, #6, zamba2's knee and optimum on the card's ``Hardware``;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -151,10 +169,13 @@ with ``nvcc`` and runs eleven phases, each printing one JSON line:
       prefill's expert indices and drop masks (every layer), a paged
       serve with recomputed continuations, a shared-prefix serve cache
       off then on (hits caught up by forced tokens) and ``generate`` —
-      identical routing and greedy streams.
+      identical routing and greedy streams; zamba2-7b cut to 12 layers:
+      one packed prefill's logits, SSM states and packed K/V within 1e-3
+      of each leaf's scale, a paged serve with recomputed continuations
+      and ``generate`` — identical greedy streams.
 
-Every path of (b), (d), (e), (f), (j1)-(j3) and (k1)-(k3) runs on one
-engine that
+Every path of (b), (d), (e), (f), (j1)-(j3), (k1)-(k3) and (l1)-(l2)
+runs on one engine that
 replays CUDA graphs per bucket (``repro_torch.serving.graphs``): a first
 graphed run meets the path's buckets and captures them, untimed; then the
 path runs timed in turns — eager (``graphs`` off), graphed, graphed,
@@ -162,16 +183,17 @@ eager — each with the launch counts at 0 just before it, and must give
 the first run's tokens, launch exactly the path's kernels (replays count)
 and capture nothing; for (b), (d), (e) and (f) one more run of each mode
 goes under ``torch.profiler`` for its device time, whose share of the
-mode's mean timed wall is the device's busy share (and so for (k1)).
+mode's mean timed wall is the device's busy share (and so for (k1) and (l1)).
 
 Then it prints the ``kernels`` summary line (each kernel's launches are
 its count over the first graphed turn of each main path of (b), (d), (e)
 and (f), plus the four serves of (g), the first graphed cache-on and
 speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
-serve, (j)'s and (k)'s first graphed turns and their pool serves; #5's
-entry
-carries whisper's cases under ``cases``), the card's name and power
+serve, (j)'s, (k)'s and (l)'s first graphed turns, (l3)'s first timed
+``generate`` and their pool serves; #1, #2, #4, #5 and #6 carry
+zamba2's cases and #5 whisper's under ``cases``), the card's name and
+power
 limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; so does a machine without a CUDA device, or a
@@ -182,6 +204,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -220,8 +243,18 @@ TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
 # the SSD scan in float32: max |kernel - plain| <= this * max(1, max |plain|)
 # (its chunk sums reassociate terms as large as the output)
 SSD_F32_TOL = 1e-4
-# mamba2-1.3b's SSD heads: H, P, N, chunk
-SSD_HEADS = (64, 64, 128, 128)
+# (c)'s packed prefill of zamba2-7b at 12 layers, float32, GPU against
+# CPU: the same bound at the scale of each leaf (12 layers of full-width
+# matmuls and scans, each summed in another order)
+HYBRID_F32_TOL = 1e-3
+# the SSD heads (H, P, N, chunk) of mamba2-1.3b and of zamba2-7b
+SSD_HEADS = {"mamba2-1.3b": (64, 64, 128, 128),
+             "zamba2-7b": (112, 64, 64, 128)}
+# zamba2-7b's shared attention: #1, #2, #4 and #5 at 32 heads of 112 (#1
+# also at its split edges)
+ZAMBA_HEADS = (32, 32, 112)
+ZAMBA_SHAPES = {"paged_decode_attention": [
+    ("main", {}), ("split edges", dict(lengths="split edges"))]}
 # the device functions each of the port's kernels launches
 PORT_SYMBOLS = {
     "paged_decode_attention": ("paged_split_kernel", "paged_combine_splits"),
@@ -231,11 +264,13 @@ PORT_SYMBOLS = {
     "flash_attention": ("flash_kernel", "flash_tc_kernel"),
     "ssd_scan": ("ssd_kernel", "ssd_tc_kernel")}
 # the bf16 kernels that must run on the tensor cores (wgmma: HGMMA in their
-# SASS): library -> (name fragment, instantiations)
+# SASS): library -> (name fragment, instantiations): #2 and #5 at D 64,
+# 128 and 112, #3 at D 64 and 128, #6 at chunk tiles of 64 and 128 rows
+# for N 128 and 64
 TENSOR_CORE_KERNELS = {
-    "flash_attention": (("flash_tc_kernel", 2), ("segment_tc_kernel", 2)),
+    "flash_attention": (("flash_tc_kernel", 3), ("segment_tc_kernel", 3)),
     "chunk_attention": (("chunk_tc_kernel", 2),),
-    "ssd_scan": (("ssd_tc_kernel", 2),)}
+    "ssd_scan": (("ssd_tc_kernel", 4),)}
 # device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
 # longer than the host takes to queue its runs
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -292,6 +327,14 @@ def _timings(fn, torch, flush, key: str = "ms") -> dict:
     return {key: _time_ms(fn, torch),
             f"{key}_host_paced": _time_ms(fn, torch, sleep=False),
             f"{key}_cold_l2": _time_ms(fn, torch, flush=flush)}
+
+
+def _release(torch):
+    """Free what a finished path dropped: an engine and its captured
+    graphs reference each other, so only the cycle collector frees them,
+    and their memory then goes back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _l2_flush(torch, dev):
@@ -597,6 +640,8 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
         if name in DENSE_KERNELS:
             runs += [(name, model, heads, [("main", {})])
                      for model, heads in DENSE_HEADS.items()]
+            runs.append((name, "zamba2-7b", ZAMBA_HEADS,
+                         ZAMBA_SHAPES.get(name, [("main", {})])))
         if name in WHISPER_CASES:
             runs.append((name, "whisper-small", WHISPER_HEADS,
                          list(WHISPER_CASES[name].items())))
@@ -659,10 +704,25 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                     # whisper's cases ride on the kernel's entry
                     summary[name].setdefault("cases", {})[label] = {
                         "shape": kw, "max_abs_err": err, **timed}
+                elif model == "zamba2-7b" and dname == "bfloat16":
+                    # so do zamba2's, at head_dim 112
+                    summary[name].setdefault("cases", {})[
+                        f"zamba2-7b {label}"] = {
+                        "heads": ZAMBA_HEADS, "shape": kw,
+                        "max_abs_err": err, **timed}
                 _log(json.dumps(row))
                 del case, kout, pout
-    ssd_rows, summary["ssd_scan"] = _ssd_cases(torch, gen, dev, flush)
-    rows += ssd_rows
+    for model in SSD_HEADS:
+        ssd_rows, timed = _ssd_cases(torch, gen, dev, flush, model)
+        rows += ssd_rows
+        if model == "mamba2-1.3b":
+            summary["ssd_scan"] = {
+                "name": "ssd_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                "replaces": "src/repro/kernels/ssd_scan.py:28", **timed}
+        else:
+            summary["ssd_scan"].setdefault("cases", {})[f"{model} main"] = {
+                "heads": SSD_HEADS[model], **timed}
     bad = [r for r in rows if not r["ok"]]
     _emit({"phase": "a", "cases": len(rows), "failed": len(bad),
            "max_abs_err": {
@@ -692,14 +752,14 @@ def _ssd_bound(b, lens, h, p, n, cl, dname):
     return _bound_ms(nbytes, flops, dname)
 
 
-def _ssd_cases(torch, gen, dev, flush):
-    """The SSD scan against its plain version at mamba2-1.3b heads, in
-    float32 and bfloat16: the main shape (B 8, L 2048), a ragged L, L <
-    chunk, and packed rows whose tails carry dt = 0, whose final states
-    must equal their unpadded runs' bit for bit. Returns the rows and the
-    kernel's summary entry (the main shape in bfloat16)."""
+def _ssd_cases(torch, gen, dev, flush, model):
+    """The SSD scan against its plain version at ``model``'s heads
+    (``SSD_HEADS``), in float32 and bfloat16: the main shape (B 8, L
+    2048), a ragged L, L < chunk, and packed rows whose tails carry dt =
+    0, whose final states must equal their unpadded runs' bit for bit.
+    Returns the rows and the main bfloat16 row's error and times."""
     from repro_torch.kernels import ssd_scan
-    h, p, n, chunk = SSD_HEADS
+    h, p, n, chunk = SSD_HEADS[model]
     rows, summary = [], None
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -730,7 +790,7 @@ def _ssd_cases(torch, gen, dev, flush):
                     ok &= bool(torch.allclose(got, want,
                                               atol=TOL[kind][0],
                                               rtol=TOL[kind][1]))
-            row = {"kernel": "ssd_scan", "model": "mamba2-1.3b",
+            row = {"kernel": "ssd_scan", "model": model,
                    "dtype": dname, "shape": shape,
                    "max_abs_err": max(errs),
                    "plain_max_abs": float(py.float().abs().max()), "ok": ok}
@@ -745,9 +805,6 @@ def _ssd_cases(torch, gen, dev, flush):
                 row["library_ms"] = None
                 if dname == "bfloat16":
                     summary = {
-                        "name": "ssd_scan", "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                        "replaces": "src/repro/kernels/ssd_scan.py:28",
                         "max_abs_err": row["max_abs_err"],
                         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}}
@@ -773,7 +830,7 @@ def _ssd_cases(torch, gen, dev, flush):
             same.append(bool(torch.equal(
                 ks[i:i + 1], ssd_scan.ssd_scan_cuda(*one, chunk)[1])))
         torch.cuda.synchronize()
-        rows.append({"kernel": "ssd_scan", "model": "mamba2-1.3b",
+        rows.append({"kernel": "ssd_scan", "model": model,
                      "dtype": dname, "shape": f"packed {lens} dt=0 tails",
                      "max_abs_err": 0.0, "states_bit_identical": same,
                      "ok": all(same)})
@@ -2570,6 +2627,212 @@ def phase_k(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase (l): the hybrid family
+# --------------------------------------------------------------------------
+HYBRID = "zamba2-7b"
+# (l1), (l2) and (c) run zamba2-7b at full width cut to 12 of its 81
+# layers: two invocations of the shared block, and turns that fit the
+# script's time; (l3) runs all 81 layers, graphed only
+HYBRID_LAYERS = 12
+# continuations recompute the prefix (not chunk_capable): #2 for
+# admissions and continuations, #1 or #4 for decodes, #6 for every mamba
+# layer of every prefill, never #3
+HYBRID_PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
+                     "ssd_scan")
+HYBRID_RING_PATH = ("segment_flash_attention", "decode_attention",
+                    "ssd_scan")
+HYBRID_GENERATE_PATH = ("flash_attention", "decode_attention", "ssd_scan")
+POOL_HYBRID_MODELS = POOL_MODELS + (HYBRID,)
+
+
+def _hybrid_floor_ms(cfg):
+    """The least time of a bfloat16 decode step of the hybrid family: the
+    weights it reads over the card's memory rate — every mamba layer,
+    the shared block once per invocation (its 411 MB at full width do
+    not stay in the 50 MB L2 between invocations), the final norm and
+    the LM head (one embedding row a sequence is not counted)."""
+    from repro_torch.models import hybrid
+
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return float(np.prod(tree.shape))
+
+    plan = hybrid.plan(cfg)
+    head = plan["embed"].get("lm_head", plan["embed"]["embedding"])
+    n = (count(plan["layers"]) + count(plan["final_norm"]) + count(head)
+         + hybrid.n_attn_blocks(cfg) * count(plan["shared_attn"]))
+    return 2 * n / PEAK_BYTES * 1e3
+
+
+def _hybrid_serves(torch, eng, reqs, prompts, floor):
+    """(l1): ``reqs`` on ``eng``'s 8 paged slots, then on 8 ring slots of
+    the same weights, each in turns and profiled; every prefill dispatch
+    scans each mamba layer through #6."""
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = eng.cfg
+    out, streams = {}, {}
+    ring = InferenceEngine(eng.api, eng.params,
+                           cache_len=eng.slot_len).init_slots(8, paged=False)
+    for name, e, ran in (("paged", eng, HYBRID_PAGED_PATH),
+                         ("ring", ring, HYBRID_RING_PATH)):
+        row, streams[name] = _serve_phase(torch, f"l1/{name}", e, reqs,
+                                          prompts, ran)
+        st = e.stats
+        assert st.incr_chunks == 0 and st.chunk_prefills > 0, st
+        assert row["launches"]["ssd_scan"] == cfg.num_layers * st.prefills, \
+            (row["launches"], st)
+        row.update(recomputed_continuations=st.chunk_prefills,
+                   decode_floor_ms=floor,
+                   tick_p50_over_floor=_by_mode(row["turns"], "tick_ms_p50")[
+                       "graphed"][0] / floor)
+        out[name] = row
+    out["ring"]["streams_equal_to_paged"] = sum(
+        streams["ring"][r] == streams["paged"][r] for r in streams["paged"])
+    del ring
+    return out
+
+
+def _hybrid_full_depth(torch, rng):
+    """(l3): zamba2-7b with all 81 layers, graphed only: one capturing
+    ``generate`` 8 x 512 + 32, then two timed runs that must give its
+    tokens, capture nothing and launch exactly #5, #4 and #6; then a
+    decode step of 8 live paged slots, graphed and eager, beside the
+    step's weight floor; the peak allocation over it all."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    cfg = get_config(HYBRID)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda")
+    torch.cuda.synchronize()
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(),
+           "setup_s": time.perf_counter() - t0}
+    tokens = rng.integers(1, cfg.vocab_size, (8, 512)).astype(np.int32)
+    batch, n_new = {"tokens": tokens}, 32
+    t0 = time.perf_counter()
+    want = eng.generate(batch, n_new).cpu().tolist()
+    torch.cuda.synchronize()
+    out["first_run"] = {"s": time.perf_counter() - t0,
+                        "captures": _captures(eng)}
+    runs = []
+    for _ in range(2):
+        c0 = _captures(eng)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        got = eng.generate(batch, n_new).cpu().tolist()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        assert got == want, "l3: a graphed generate changed tokens"
+        assert _captures(eng) == c0, "l3: a timed generate captured"
+        _check_launches(launches, HYBRID_GENERATE_PATH, "l3")
+        assert launches["ssd_scan"] == cfg.num_layers, launches
+        runs.append({"wall_s": wall, "tokens_per_s": 8 * n_new / wall,
+                     "launches": launches})
+    assert all(0 <= t < cfg.vocab_size for row in want for t in row)
+    out["generate"] = runs
+    out["launches"] = runs[0]["launches"]
+    eng.init_slots(8, page_size=16)
+    floor = _hybrid_floor_ms(cfg)
+    out["decode_step_ms"] = _decode_step_ms(
+        torch, eng, {"tokens": tokens[:1, :128]})
+    out.update(decode_floor_ms=floor,
+               graphed_step_over_floor=out["decode_step_ms"]["graphed"]
+               / floor,
+               graph_pool_bytes=eng.graph_pool_bytes(),
+               kv_cache_bytes=eng.kv_cache_bytes(),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    _log(json.dumps({"l3": {k: v for k, v in out.items()
+                            if k != "generate"}}))
+    del eng
+    _release(torch)
+    return out
+
+
+def phase_l(torch):
+    """zamba2-7b at full width (d_model 3584, 32 heads of 112, d_ff
+    14336, 112 SSD heads of 64, N 64), bfloat16, seeded weights: (l1) and
+    (l2) at ``HYBRID_LAYERS`` of its 81 layers, (l3) at all 81, (l4) the
+    quick trio and zamba2 in one pool."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import make_engine
+    cfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS)
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, seed=0, cache_len=1024, dtype=torch.bfloat16,
+                      device="cuda").init_slots(8, page_size=16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    assert eng.paged and not eng.chunk_capable()
+    assert not eng.spec_capable() and not eng.prefix_cache_capable()
+    out = {"phase": "l", "model": cfg.name, "dtype": "bfloat16",
+           "layers": cfg.num_layers, "setup_s": setup_s}
+    launches = {n: 0 for n in KERNEL_NAMES}
+
+    def add(got):
+        for n in KERNEL_NAMES:
+            launches[n] += got[n]
+
+    # (l1) phase (b)'s 16 requests on 8 paged slots of 1024, then on 8
+    # ring slots
+    reqs, prompts = _requests(16, (64, 901), (16, 65), cfg.vocab_size, 0,
+                              cfg.name)
+    l1 = _hybrid_serves(torch, eng, reqs, prompts, _hybrid_floor_ms(cfg))
+    for row in l1.values():
+        add(row["launches"])
+    out["l1"] = l1
+    # (l2) batch generate 8 x 512 + 64
+    rng = np.random.default_rng(15)
+    tokens = rng.integers(1, cfg.vocab_size, (8, 512)).astype(np.int32)
+    l2 = _generate_turns(torch, eng, tokens, HYBRID_GENERATE_PATH, "l2")
+    assert all(t["launches"]["ssd_scan"] == cfg.num_layers
+               for t in l2["turns"]), l2["turns"]
+    add(l2["launches"])
+    out["l2"] = {k: v for k, v in l2.items() if k != "turns"}
+    del eng
+    _release(torch)
+    # (l3) all 81 layers, graphed
+    l3 = _hybrid_full_depth(torch, rng)
+    add(l3["launches"])
+    out["l3"] = l3
+    # (l4) the quick trio and zamba2 in one pool, dstack and temporal
+    torch.cuda.reset_peak_memory_stats()
+    l4 = _pool_phase(torch, "l4", POOL_HYBRID_MODELS, POOL_PATH)
+    l4["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    add(l4.pop("launches"))
+    out["l4"] = l4
+    out["launches"] = launches
+    serve_keys = ("tokens_per_s", "tick_ms_p50", "tick_ms_p99",
+                  "decode_floor_ms", "tick_p50_over_floor", "busy_share",
+                  "ticks", "dispatches", "recomputed_continuations",
+                  "peak_mem_bytes")
+    _emit({k: v for k, v in out.items() if k not in ("l1", "l2", "l3",
+                                                      "l4")}
+          | {"l1": {n: {k: r[k] for k in serve_keys}
+                    for n, r in l1.items()}
+             | {"ring_streams_equal_to_paged":
+                l1["ring"]["streams_equal_to_paged"]},
+             "l2": {k: l2[k] for k in ("tokens_per_s", "prefill_s",
+                                       "peak_mem_bytes")},
+             "l3": {k: l3[k] for k in (
+                 "layers", "decode_step_ms", "decode_floor_ms",
+                 "graphed_step_over_floor", "peak_mem_bytes",
+                 "graph_pool_bytes")}
+             | {"tokens_per_s": [r["tokens_per_s"]
+                                 for r in l3["generate"]]},
+             "l4": {p: {k: r[k] for k in ("served", "violated",
+                                          "admissions")}
+                    for p, r in l4["serves"].items()}
+             | {"captures": l4["captures"],
+                "graph_pool_bytes": l4["graph_pool_bytes"],
+                "peak_mem_bytes": l4["peak_mem_bytes"],
+                "zamba2_profile": l4["profiles"][HYBRID]}})
+    return out
+
+
 def _insert_step_serve(eng, prompts, budgets):
     """Continuous batching through ``insert``/``step``/``free``: requests
     enter free slots in order, every active slot steps, done slots free.
@@ -2914,6 +3177,63 @@ def phase_c(torch, i3=None):
           lambda e: e.prefill({"tokens": gtokens}, e.bucket_len(300 + 32))[0],
           batch=4, prompt_len=300, new_tokens=24)
 
+    # 7d. zamba2-7b at full width cut to HYBRID_LAYERS (two invocations
+    # of the shared block, head_dim 112, SSD N 64): one packed prefill's
+    # logits, SSM states and packed K/V close on both devices, then a
+    # short paged serve (continuations recompute the prefix) and
+    # generate with identical streams
+    hcfg = dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS,
+                               dtype="float32")
+    hgpu = make_engine(hcfg, seed=1, device="cuda").params
+    hparams = {"cuda": hgpu, "cpu": _to_cpu(hgpu)}
+    hreqs, hprompts = _requests(4, (20, 161), (6, 13), hcfg.vocab_size, 13,
+                                hcfg.name)
+    hlens = [r.prompt_len for r in hreqs]
+    engines = [e.init_slots(4, page_size=16)
+               for e in pair(hcfg, 256, hparams)]
+
+    def hpacked(eng):
+        batch, row_len = _packed_admission(
+            eng, [hprompts[r.rid] for r in hreqs], hlens)
+        return eng.api.prefill_packed(eng.params, batch, row_len)
+
+    (glog, gcache), (clog, ccache) = (hpacked(e) for e in engines)
+    n_seg, n_tok = len(hreqs), sum(hlens)
+    cuts = {"logits": (glog[:n_seg], clog[:n_seg]),
+            "ssm": (gcache["ssm"][:, :n_seg], ccache["ssm"][:, :n_seg]),
+            "attn_k": (gcache["attn_k"][:, :n_tok],
+                       ccache["attn_k"][:, :n_tok]),
+            "attn_v": (gcache["attn_v"][:, :n_tok],
+                       ccache["attn_v"][:, :n_tok])}
+    errs = {k: (float((g.cpu() - c).abs().max()),
+                float(c.abs().max())) for k, (g, c) in cuts.items()}
+    checks["hybrid_packed_prefill"] = dict(
+        segments=n_seg, tokens=n_tok, max_abs_diff={
+            k: e for k, (e, _) in errs.items()},
+        close=all(e <= HYBRID_F32_TOL * max(1.0, m)
+                  for e, m in errs.values()))
+    _log(json.dumps({"hybrid_packed_prefill":
+                     checks["hybrid_packed_prefill"]}))
+    assert checks["hybrid_packed_prefill"]["close"], errs
+    del glog, gcache, clog, ccache, cuts
+
+    def hlogits(eng):
+        return hpacked(eng)[0][:len(hreqs)]
+
+    got = check("hybrid_paged_serve", engines,
+                lambda e: _serve(e, hreqs, hprompts, chunk_tokens=64)[0],
+                HYBRID_PAGED_PATH, hlogits, requests=len(hreqs))
+    assert engines[0].stats.chunk_prefills > 0, "no continuation ran"
+    checks["hybrid_paged_serve"]["tokens"] = sum(map(len, got.values()))
+    htokens = np.random.default_rng(16).integers(
+        1, hcfg.vocab_size, (2, 160)).astype(np.int32)
+    check("hybrid_generate", pair(hcfg, 256, hparams),
+          lambda e: e.generate({"tokens": htokens}, 12).cpu().tolist(),
+          HYBRID_GENERATE_PATH,
+          lambda e: e.prefill({"tokens": htokens})[0],
+          batch=2, prompt_len=160, new_tokens=12)
+    del engines, hparams, hgpu
+
     # 8. the pool: bench_pool's four models (the quick trio and
     # whisper-small) at full width cut to 2 layers, under dstack on each
     # device — the same admissions and counts
@@ -2962,12 +3282,13 @@ def phase_c(torch, i3=None):
 
     out = {"phase": "c",
            "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b, whisper-small, "
-                    "granite-moe-3b-a800m (2 layers)",
+                    "granite-moe-3b-a800m (2 layers), zamba2-7b "
+                    f"({HYBRID_LAYERS} layers)",
            "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff",
                "admissions_identical", "counts_identical",
-               "cards_equal_i3", "routes_identical") if kk in v}
+               "cards_equal_i3", "routes_identical", "close") if kk in v}
                for k, v in checks.items()}}
     _emit(out)
     return dict(out, checks=checks)
@@ -3021,9 +3342,9 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefghijkc",
+    ap.add_argument("--phases", default="abdefghijklc",
                     help="which phases to run, of a, b, d, e, f, g, h, i, "
-                         "j, k, c (default: all)")
+                         "j, k, l, c (default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3065,6 +3386,7 @@ def main(argv=None) -> int:
     def timed(phase, fn, *a):
         t = time.perf_counter()
         out = fn(torch, *a)
+        _release(torch)
         seconds[phase] = time.perf_counter() - t
         _log(f"phase {phase} took {seconds[phase]:.1f} s")
         return out
@@ -3093,13 +3415,15 @@ def main(argv=None) -> int:
         report["j"] = timed("j", phase_j)
     if "k" in args.phases:
         report["k"] = timed("k", phase_k)
-    for phase in "bdefghijk":
+    if "l" in args.phases:
+        report["l"] = timed("l", phase_l)
+    for phase in "bdefghijkl":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c, report.get("i", {}).get("i3"))
     if summary:
-        if all(p in args.phases for p in "bdefghijk"):
+        if all(p in args.phases for p in "bdefghijkl"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

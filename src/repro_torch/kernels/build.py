@@ -166,10 +166,18 @@ def dtype_code(dtype) -> int:
     return codes[dtype]
 
 
-def check_operands(entry: str, head_dim: Optional[int], **tensors) -> None:
+# the head dims each attention source dispatches (its extern "C" entry):
+# 112 is zamba2-7b's shared attention; the chunk kernel is not on that
+# family's path (it has no ``prefill_chunk``)
+HEAD_DIMS = (64, 128, 112)
+CHUNK_HEAD_DIMS = (64, 128)
+
+
+def check_operands(entry: str, head_dim: Optional[int], *,
+                   head_dims=HEAD_DIMS, **tensors) -> None:
     """Raise unless every operand is a contiguous tensor on one CUDA device
-    and the head dimension (``None``: no attention heads) is one the
-    attention kernels are built for."""
+    and the head dimension (``None``: no attention heads) is one of
+    ``head_dims``, those the entry's kernel is built for."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{entry}: operands must share one CUDA device, "
@@ -177,9 +185,9 @@ def check_operands(entry: str, head_dim: Optional[int], **tensors) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{entry}: {name} must be contiguous")
-    if head_dim is not None and head_dim not in (64, 128):
+    if head_dim is not None and head_dim not in head_dims:
         raise ValueError(f"{entry}: head_dim {head_dim} not built "
-                         f"(64 or 128)")
+                         f"{tuple(head_dims)}")
 
 
 def check_aligned(entry: str, **tensors) -> None:

@@ -84,10 +84,11 @@ def paged_chunk_attention_cuda(q, k_pages, v_pages, k_rows, v_rows,
     s, r_len, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     max_pages = block_tables.shape[1]
-    build.check_operands("paged_chunk_attention", d, q=q, k_pages=k_pages,
-                         v_pages=v_pages, k_rows=k_rows, v_rows=v_rows,
-                         block_tables=block_tables, hist_lens=hist_lens,
-                         seg_lens=seg_lens)
+    build.check_operands("paged_chunk_attention", d,
+                         head_dims=build.CHUNK_HEAD_DIMS, q=q,
+                         k_pages=k_pages, v_pages=v_pages, k_rows=k_rows,
+                         v_rows=v_rows, block_tables=block_tables,
+                         hist_lens=hist_lens, seg_lens=seg_lens)
     build.check_aligned("paged_chunk_attention", q=q, k_pages=k_pages,
                         v_pages=v_pages, k_rows=k_rows, v_rows=v_rows)
     if page_size % 8:

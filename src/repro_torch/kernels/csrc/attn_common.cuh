@@ -19,8 +19,10 @@
 //   * for one row, lane t scores key t of the tile (a dot product over D
 //     read from shared memory: the query row is a broadcast, key rows are
 //     padded to D+1 floats so the 32 lanes hit 32 banks), the warp reduces
-//     the row max and sum with shuffles, and each lane accumulates D/32
-//     output dimensions of P·V in registers;
+//     the row max and sum with shuffles, and each lane accumulates
+//     padded_dim<D>()/32 output dimensions of P·V in registers (a head dim
+//     that is no multiple of 32, zamba2's 112, runs at the next multiple:
+//     the value tile's extra columns are zeros and are never stored);
 //   * the running max m, sum l and accumulator stay in f32 registers for
 //     the whole key loop; the output is acc / max(l, 1e-30), so a row that
 //     saw no visible key is written as exact zeros.
@@ -67,13 +69,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// D rounded up to whole 32-lane rows: the output dimensions a warp's
+// lanes hold for one row
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 31) / 32 * 32;
+}
+
 // Shared memory of one block; above 48 KB for D = 128, so it is dynamic
-// shared memory and the launcher raises the kernel's limit first.
+// shared memory and the launcher raises the kernel's limit first. Value
+// columns [D, padded_dim<D>()) hold zeros.
 template <int D>
 struct Smem {
   float q[kBQ][D];
   float k[kBK][D + 1];
-  float v[kBK][D];
+  float v[kBK][padded_dim<D>()];
   long long koff[kBK];  // element offset of each key row; -1 = no key
 };
 
@@ -91,7 +101,7 @@ __device__ __forceinline__ Smem<D>& smem() {
 // Online-softmax state of the kRowsPerWarp rows a warp owns.
 template <int D>
 struct RowState {
-  static constexpr int kDPL = D / 32;  // output dimensions per lane
+  static constexpr int kDPL = padded_dim<D>() / 32;  // dims per lane
   float m[kRowsPerWarp];
   float l[kRowsPerWarp];
   float acc[kRowsPerWarp][kDPL];
@@ -130,11 +140,13 @@ __device__ __forceinline__ void load_kv(Smem<D>& sm, const T* __restrict__ k,
   __syncthreads();
   if (threadIdx.x < kBK) sm.koff[threadIdx.x] = koff(threadIdx.x);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
-    const int t = idx / D, d = idx % D;
+  constexpr int kDP = padded_dim<D>();
+  for (int idx = threadIdx.x; idx < kBK * kDP; idx += kThreads) {
+    const int t = idx / kDP, d = idx % kDP;
     const long long off = sm.koff[t];
-    sm.k[t][d] = off >= 0 ? to_f(k[off + d]) : 0.f;
-    sm.v[t][d] = off >= 0 ? to_f(v[off + d]) : 0.f;
+    const bool ok = off >= 0 && d < D;
+    if (d < D) sm.k[t][d] = ok ? to_f(k[off + d]) : 0.f;
+    sm.v[t][d] = ok ? to_f(v[off + d]) : 0.f;
   }
   __syncthreads();
 }
@@ -144,7 +156,7 @@ __device__ __forceinline__ void load_kv(Smem<D>& sm, const T* __restrict__ k,
 template <int D, class Visible>
 __device__ __forceinline__ void fold_tile(Smem<D>& sm, RowState<D>& st,
                                           float scale, Visible visible) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = padded_dim<D>() / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // fully unrolled: the row state must stay in registers
@@ -184,7 +196,7 @@ __device__ __forceinline__ void fold_tile(Smem<D>& sm, RowState<D>& st,
 template <typename T, int D, class OOff>
 __device__ __forceinline__ void store_rows(const RowState<D>& st,
                                            T* __restrict__ out, OOff ooff) {
-  constexpr int kDPL = D / 32;
+  constexpr int kDPL = padded_dim<D>() / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -193,8 +205,10 @@ __device__ __forceinline__ void store_rows(const RowState<D>& st,
     if (off < 0) continue;
     const float denom = fmaxf(st.l[rr], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < kDPL; ++i)
-      out[off + lane + 32 * i] = from_f<T>(st.acc[rr][i] / denom);
+    for (int i = 0; i < kDPL; ++i) {
+      const int d = lane + 32 * i;
+      if (D % 32 == 0 || d < D) out[off + d] = from_f<T>(st.acc[rr][i] / denom);
+    }
   }
 }
 

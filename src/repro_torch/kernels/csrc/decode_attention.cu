@@ -112,5 +112,11 @@ extern "C" int decode_attention(void* out, const void* q, const void* k,
   if (D == 128 && dtype == 1)
     return run_rep<__nv_bfloat16, 128>(out, q, k, v, lengths, scratch, B, H,
                                        KV, C, splits, split_len, scale, s);
+  if (D == 112 && dtype == 0)
+    return run_rep<float, 112>(out, q, k, v, lengths, scratch, B, H, KV, C,
+                               splits, split_len, scale, s);
+  if (D == 112 && dtype == 1)
+    return run_rep<__nv_bfloat16, 112>(out, q, k, v, lengths, scratch, B, H,
+                                       KV, C, splits, split_len, scale, s);
   return cudaErrorInvalidValue;
 }

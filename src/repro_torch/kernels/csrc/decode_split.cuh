@@ -10,8 +10,10 @@
 // log-sum-exp rule.
 //
 // Inside a block, lanes split D into 16-byte vectors (8 bf16 or 4 f32), so
-// a key row takes D / kVec lanes and a warp reads 32 / (D / kVec) keys per
-// step; warps and lane groups take different keys. Each lane group keeps
+// a key row takes D / kVec lanes, rounded up to a power of two (zamba2's
+// D 112: 16 lanes in bf16, 32 in f32, whose last lanes read nothing and
+// hold zeros), and a warp reads 32 / that many keys per step; warps and
+// lane groups take different keys. Each lane group keeps
 // its own online softmax over its keys (partial dot products reduce by
 // shuffles inside the group), and the block merges its groups through
 // shared memory. q sits in registers in f32. The body does not know where
@@ -36,6 +38,11 @@ template <typename T>
 struct Vec {
   static constexpr int kN = 16 / sizeof(T);  // elements per 16 bytes
 };
+
+// the least power of two >= n: lanes of a key row's group
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
 
 __device__ __forceinline__ void unpack(const uint4& raw, float (&x)[4]) {
   x[0] = __uint_as_float(raw.x);
@@ -79,19 +86,22 @@ __device__ __forceinline__ void split_decode(float* __restrict__ part,
                                              int start, int end, float scale,
                                              KeyOff key_off) {
   constexpr int kVec = Vec<T>::kN;
-  constexpr int kLpk = D / kVec;          // lanes per key row
+  constexpr int kLpk = pow2_at_least(D / kVec);  // lanes per key row
+  constexpr int kDP = kLpk * kVec;        // D padded to the lane group
   constexpr int kKpw = 32 / kLpk;         // keys per warp step
   constexpr int kSlots = kWarps * kKpw;   // lane groups per block
   constexpr int kUnroll = R >= 8 ? 2 : 4; // keys per group per step
   constexpr int kStep = kSlots * kUnroll; // keys per block step
-  static_assert(kLpk <= 32 && 32 % kLpk == 0, "D / kVec must divide 32");
+  static_assert(D % kVec == 0 && kLpk <= 32, "D: whole vectors, one warp");
   __shared__ float sm_m[kSlots][R], sm_l[kSlots][R];
-  __shared__ __align__(16) float sm_acc[kSlots][R][D];
+  __shared__ __align__(16) float sm_acc[kSlots][R][kDP];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % kLpk;
   const int slot = warp * kKpw + lane / kLpk;
   const int nbh = B * H;
+  // a lane past D (kDP > D) reads nothing and holds zeros
+  const bool in_d = kDP == D || sub * kVec < D;
 
   if (start >= end) {
     for (int r = threadIdx.x; r < rep; r += kThreads) {
@@ -107,7 +117,7 @@ __device__ __forceinline__ void split_decode(float* __restrict__ part,
     float qr[R][kVec];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r < nr) {
+      if (r < nr && in_d) {
         const T* src = q + ((long long)b * H + g * rep + r0 + r) * D +
                        sub * kVec;
         float x[kVec];
@@ -136,7 +146,7 @@ __device__ __forceinline__ void split_decode(float* __restrict__ part,
       for (int u = 0; u < kUnroll; ++u) {
         const int p = base + u * kSlots + slot;
         ok[u] = p < end;
-        if (ok[u]) {
+        if (ok[u] && in_d) {
           const long long off = key_off(p) + sub * kVec;
           kraw[u] = __ldg(reinterpret_cast<const uint4*>(k + off));
           vraw[u] = __ldg(reinterpret_cast<const uint4*>(v + off));

@@ -39,6 +39,11 @@
 // key tile. Both read their keys through tc::StridedKeys. float32 inputs
 // (the parity dtype) stay on the f32 FMA tiles of attn_common.cuh
 // (fold_tile), whose error stays within 2e-5 where TF32 would not.
+//
+// Head dims: 64, 128 and 112 (zamba2-7b's shared attention), in both
+// types. At 112 both bodies run at a padded width on chip (32-lane rows
+// in f32, 64-column slabs in bf16) and read and write only the 112
+// columns in device memory, so their bytes stay those of D 112.
 #include <cstdint>
 
 #include "attn_common.cuh"
@@ -188,6 +193,12 @@ extern "C" int flash_attention(void* out, const void* q, const void* k,
   if (D == 128 && dtype == 1)
     return run_dense_tc<128>(out, q, k, v, B, S, Sk, H, KV, causal, window,
                              scale, s);
+  if (D == 112 && dtype == 0)
+    return run_dense<float, 112>(out, q, k, v, B, S, Sk, H, KV, causal,
+                                 window, scale, s);
+  if (D == 112 && dtype == 1)
+    return run_dense_tc<112>(out, q, k, v, B, S, Sk, H, KV, causal, window,
+                             scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -318,6 +329,11 @@ extern "C" int segment_flash_attention(void* out, const void* q,
     return run<float, 128>(out, q, k, v, seg, B, T_, H, KV, window, scale, s);
   if (D == 128 && dtype == 1)
     return run_segment_tc<128>(out, q, k, v, seg, B, T_, H, KV, window,
+                               scale, s);
+  if (D == 112 && dtype == 0)
+    return run<float, 112>(out, q, k, v, seg, B, T_, H, KV, window, scale, s);
+  if (D == 112 && dtype == 1)
+    return run_segment_tc<112>(out, q, k, v, seg, B, T_, H, KV, window,
                                scale, s);
   return cudaErrorInvalidValue;
 }

@@ -9,7 +9,8 @@
 // shared page pool (P, page_size, KV, D). Grouped-query attention: query
 // head h reads KV head h / (H / KV). A row of length 0 (a vacant slot
 // parked on the null page) is written as exact zeros. Lengths are clamped
-// to [0, max_pages * page_size].
+// to [0, max_pages * page_size]. D is 64, 128 or 112 (zamba2-7b's shared
+// attention; decode_split.cuh pads its lane groups).
 //
 // What bounds it on this card: bytes. Each live K/V element is read once
 // and used by only the H/KV query heads of its group (2 flops per byte in
@@ -127,6 +128,8 @@ extern "C" int paged_decode_attention(void* out, const void* q,
   if (D == 64 && dtype == 1) PAGED_RUN(__nv_bfloat16, 64);
   if (D == 128 && dtype == 0) PAGED_RUN(float, 128);
   if (D == 128 && dtype == 1) PAGED_RUN(__nv_bfloat16, 128);
+  if (D == 112 && dtype == 0) PAGED_RUN(float, 112);
+  if (D == 112 && dtype == 1) PAGED_RUN(__nv_bfloat16, 112);
 #undef PAGED_RUN
   return cudaErrorInvalidValue;
 }

@@ -15,6 +15,8 @@
 // they read no memory and store no y, and the state freezes exactly, so a
 // row whose tail carries dt = 0 ends with the state of its unpadded run.
 //
+// Built for P 64 at N 128 (mamba2-1.3b) and N 64 (zamba2-7b), both types.
+//
 // What bounds it on this card: at mamba2-1.3b shapes (H 64, P 64, N 128,
 // cl 128) it does ~10.5 MFLOP per chunk and head against ~2 bytes per
 // flop of input, so in bf16 the tensor-core bound and the byte bound are
@@ -334,19 +336,24 @@ using namespace wg;
 constexpr int kHG = 2;              // heads per block: one warpgroup each
 constexpr int kWG = 128;            // threads of a warpgroup
 constexpr int kThreadsTC = kHG * kWG;
-constexpr int kN = 128, kP = 64;    // the (N, P) the body is written for
+constexpr int kP = 64;              // the head dim P the body is written for
 constexpr int kSlabTC = kMaxCL * 64;  // elements per slab of a 128-row tile
 constexpr int kSbo = 8 * 128;         // 8 rows of 128 bytes
 
-// One block's shared memory (217 KB with the alignment slack): every
-// bf16 tile has kMaxCL rows in the 128-byte-swizzled slabs of wgmma.cuh
-// (1024-byte aligned: each tile's size is a multiple of 1024 bytes).
+// One block's shared memory (217 KB with the alignment slack at N 128,
+// 145 KB at N 64): every bf16 tile has kMaxCL rows in the
+// 128-byte-swizzled slabs of wgmma.cuh (1024-byte aligned: each tile's
+// size is a multiple of 1024 bytes). N (128: mamba2-1.3b; 64: zamba2-7b)
+// is a multiple of 64: whole slabs of c and b, whole 64-row blocks of
+// the state.
+template <int N>
 struct Smem {
-  bf16 c[kMaxCL * kN];         // c rows (A of C·B^T and of c·S)
-  bf16 b[kMaxCL * kN];         // b rows (B of C·B^T; read for b·dt·w)
+  static_assert(N % 64 == 0 && N <= kMaxCL, "state rows: whole 64-row blocks");
+  bf16 c[kMaxCL * N];          // c rows (A of C·B^T and of c·S)
+  bf16 b[kMaxCL * N];          // b rows (B of C·B^T; read for b·dt·w)
   bf16 x[kHG][kMaxCL * kP];    // x rows of each head (B of both x products)
-  bf16 s_hi[kHG][kN * kP];     // each head's state, rows n, as hi + lo
-  bf16 s_lo[kHG][kN * kP];
+  bf16 s_hi[kHG][N * kP];      // each head's state, rows n, as hi + lo
+  bf16 s_lo[kHG][N * kP];
   float4 cb0[8][kWG];          // C·B^T rows 0..63, columns 0..63 and
   float4 cb1[16][kWG];         // rows 64..127, columns 0..127, in the
                                // accumulator order of the thread reading
@@ -427,8 +434,9 @@ __device__ __forceinline__ void times_x(float (&acc)[8][4],
   }
 }
 
-// CP: the chunk's rows padded to whole 64-row tiles (64 or 128)
-template <int CP>
+// N: the state's rows (64 or 128); CP: the chunk's rows padded to whole
+// 64-row tiles (64 or 128)
+template <int N, int CP>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
               const bf16* __restrict__ x, const float* __restrict__ dt,
@@ -436,10 +444,11 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
               const bf16* __restrict__ cm, const float* __restrict__ init,
               int L, int H, int cl) {
   constexpr int kT = CP / 64;  // 64-row tiles of a chunk
+  constexpr int kM = N / 64;   // 64-row blocks of the state
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const unsigned base = (unsigned)__cvta_generic_to_shared(smem_raw);
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw +
-                                      ((1024 - (base & 1023)) & 1023));
+  Smem<N>& sm = *reinterpret_cast<Smem<N>*>(
+      smem_raw + ((1024 - (base & 1023)) & 1023));
   const int w = threadIdx.x / kWG, tw = threadIdx.x % kWG;
   const int lane = tw & 31, warp = tw >> 5;
   const int bi = blockIdx.y, h = blockIdx.x * kHG + w;
@@ -450,16 +459,16 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
   const bf16* xb = x + (long long)bi * L * xrow + (long long)hh * kP;
   bf16* yb = y + (long long)bi * L * xrow + (long long)hh * kP;
   const float* dtb = dt + (long long)bi * L * H + hh;
-  const bf16* bb = bm + (long long)bi * L * kN;
-  const bf16* cb = cm + (long long)bi * L * kN;
-  const long long sbase = ((long long)bi * H + hh) * kN * kP;
+  const bf16* bb = bm + (long long)bi * L * N;
+  const bf16* cb = cm + (long long)bi * L * N;
+  const long long sbase = ((long long)bi * H + hh) * N * kP;
   // this lane's accumulator rows (and + 8) and first column of each tile
   const int row_lo = warp * 16 + (lane >> 2), col = (lane & 3) * 2;
 
   // the state, rows n = 64 mt + row_lo (+ 8), columns p = 8 j + col (+ 1)
-  float st[2][8][4];
+  float st[kM][8][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < kM; ++mt)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -476,10 +485,10 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
 
     // ---- copies: c and b by the block, x by each head's warpgroup; rows
     // past the real ones are zeros
-    for (int idx = threadIdx.x; idx < CP * (kN / 8); idx += kThreadsTC) {
-      const int r = idx / (kN / 8), ch = idx % (kN / 8);
+    for (int idx = threadIdx.x; idx < CP * (N / 8); idx += kThreadsTC) {
+      const int r = idx / (N / 8), ch = idx % (N / 8);
       const bool ok = r < rows;
-      const long long off = (long long)(t0 + (ok ? r : 0)) * kN + ch * 8;
+      const long long off = (long long)(t0 + (ok ? r : 0)) * N + ch * 8;
       cp_async16(sm.c + swz<kMaxCL>(r, ch), cb + off, ok);
       cp_async16(sm.b + swz<kMaxCL>(r, ch), bb + off, ok);
     }
@@ -516,7 +525,7 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
     // ---- the state entering the chunk, as bf16 hi + lo, rows n
     if (live) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < kM; ++mt)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -541,7 +550,7 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
       for (int j = 0; j < 8; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks) {
+      for (int ks = 0; ks < N / 16; ++ks) {
         const int off = (ks >> 2) * kSlabTC + (ks & 3) * 16;
         wgmma_ss_n64<0>(g, smem_desc(sm.c + off, 16, kSbo),
                         smem_desc(sm.b + off, 16, kSbo));
@@ -557,7 +566,7 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
       for (int j = 0; j < 16; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks) {
+      for (int ks = 0; ks < N / 16; ++ks) {
         const int off = (ks >> 2) * kSlabTC + (ks & 3) * 16;
         wgmma_ss_n128(g, smem_desc(sm.c + 64 * 64 + off, 16, kSbo),
                       smem_desc(sm.b + off, 16, kSbo));
@@ -576,24 +585,24 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
     uint32_t hi[2][4][4], lo[2][4][4];  // two A fragments in flight
     if (live) {
       // ---- state carry: S <- S exp(acs_last) + (b_j dt_j w_j)^T · x over
-      // 2 x kT blocks (64 state rows, 64 chunk rows); each block's A
+      // kM x kT blocks (64 state rows, 64 chunk rows); each block's A
       // fragment (rows n, columns j) forms from the b tile while the
       // previous block's products run
       const float dec = expf(alast);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < kM; ++mt)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) st[mt][j][e] *= dec;
       bw_fragment(hi[0], lo[0], sm.b, 0, col, row_lo, dtw_s);
 #pragma unroll
-      for (int blk = 0; blk < 2 * kT; ++blk) {
+      for (int blk = 0; blk < kM * kT; ++blk) {
         const int mt = blk / kT, kb = blk % kT;
         wgmma_fence();
         times_x(st[mt], hi[blk & 1], lo[blk & 1], xs, kb);
         wgmma_commit();
-        if (blk + 1 < 2 * kT) {
+        if (blk + 1 < kM * kT) {
           wgmma_wait<1>();  // the products that read the other fragment
           bw_fragment(hi[(blk + 1) & 1], lo[(blk + 1) & 1], sm.b,
                       (blk + 1) % kT, col, 64 * ((blk + 1) / kT) + row_lo,
@@ -601,8 +610,8 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
         }
       }
       wgmma_wait<0>();
-      fence_regs(st[0]);
-      fence_regs(st[1]);
+#pragma unroll
+      for (int mt = 0; mt < kM; ++mt) fence_regs(st[mt]);
     }
     __syncthreads();  // C·B^T of both warpgroups is in shared memory
 
@@ -622,7 +631,7 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
         }
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kN / 16; ++ks) {
+        for (int ks = 0; ks < N / 16; ++ks) {
           const uint64_t da = smem_desc(
               sm.c + (ks >> 2) * kSlabTC + m * 64 * 64 + (ks & 3) * 16, 16,
               kSbo);
@@ -665,7 +674,7 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
 
   if (live) {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < kM; ++mt)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -678,17 +687,17 @@ ssd_tc_kernel(bf16* __restrict__ y, float* __restrict__ state_out,
   }
 }
 
-template <int CP>
+template <int N, int CP>
 cudaError_t run(void* y, void* state, const void* x, const void* dt,
                 const void* a, const void* b, const void* c, const void* init,
                 int B, int L, int H, int cl, cudaStream_t stream) {
-  const size_t smem = sizeof(Smem) + 1024;  // slack to align to 1024 bytes
+  const size_t smem = sizeof(Smem<N>) + 1024;  // slack to align to 1024 B
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_tc_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_tc_kernel<N, CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_tc_kernel<CP><<<dim3((H + kHG - 1) / kHG, B), kThreadsTC, smem,
-                       stream>>>(
+  ssd_tc_kernel<N, CP><<<dim3((H + kHG - 1) / kHG, B), kThreadsTC, smem,
+                          stream>>>(
       (bf16*)y, (float*)state, (const bf16*)x, (const float*)dt,
       (const float*)a, (const bf16*)b, (const bf16*)c, (const float*)init, L,
       H, cl);
@@ -713,8 +722,16 @@ extern "C" int ssd_scan(void* y, void* state, const void* x, const void* dt,
   if (N == 128 && P == 64 && dtype == 0)
     return run<128, 64>(y, state, x, dt, a, b, c, init, B, L, H, cl, s);
   if (N == 128 && P == 64 && dtype == 1)
-    return cl <= 64
-               ? tc::run<64>(y, state, x, dt, a, b, c, init, B, L, H, cl, s)
-               : tc::run<128>(y, state, x, dt, a, b, c, init, B, L, H, cl, s);
+    return cl <= 64 ? tc::run<128, 64>(y, state, x, dt, a, b, c, init, B, L,
+                                       H, cl, s)
+                    : tc::run<128, 128>(y, state, x, dt, a, b, c, init, B, L,
+                                        H, cl, s);
+  if (N == 64 && P == 64 && dtype == 0)
+    return run<64, 64>(y, state, x, dt, a, b, c, init, B, L, H, cl, s);
+  if (N == 64 && P == 64 && dtype == 1)
+    return cl <= 64 ? tc::run<64, 64>(y, state, x, dt, a, b, c, init, B, L, H,
+                                      cl, s)
+                    : tc::run<64, 128>(y, state, x, dt, a, b, c, init, B, L,
+                                       H, cl, s);
   return cudaErrorInvalidValue;
 }

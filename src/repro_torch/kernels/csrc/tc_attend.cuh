@@ -28,7 +28,11 @@
 // one included, is a cp.async, so one proxy fence before each barrier that
 // precedes a wgmma read covers them all. The building blocks (swizzle,
 // cp.async, descriptors, wgmma) live in wgmma.cuh, shared with the SSD
-// scan. Not yet done (later work): TMA loads with multicast, warp
+// scan. A head dim that is no multiple of 64 (zamba2's 112) runs at the
+// next one (tile_dim): the copies read only its D columns from device
+// memory and fill the rest with zeros, which add nothing to Q·K^T (whose
+// last zero step is skipped) and give output columns that are never
+// stored. Not yet done (later work): TMA loads with multicast, warp
 // specialisation (a producer warp, consumer warpgroups that overlap one's
 // softmax with another's products, setmaxnreg) and a persistent schedule:
 // within one warpgroup S, the softmax and P·V still run one after another.
@@ -51,14 +55,21 @@ static_assert(kBQ == kBK, "Q and K tiles share their slab offsets");
 
 using namespace wg;
 
+// D rounded up to whole 64-column slabs: the width of the tiles in
+// shared memory and of the P·V product
+template <int D>
+__host__ __device__ constexpr int tile_dim() {
+  return (D + 63) / 64 * 64;
+}
+
 // One block's shared memory: the query tile and one K and one V tile
 // (48 KB at D = 128, so three blocks share an SM), each in the swizzled
-// slabs of wgmma.cuh.
+// slabs of wgmma.cuh, tile_dim<D>() columns wide.
 template <int D>
 struct Smem {
-  bf16 q[kBQ * D];
-  bf16 k[kBK * D];
-  bf16 v[kBK * D];
+  bf16 q[kBQ * tile_dim<D>()];
+  bf16 k[kBK * tile_dim<D>()];
+  bf16 v[kBK * tile_dim<D>()];
 };
 
 template <int D>
@@ -83,15 +94,16 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[16][4],
   wgmma_rs_n128(o, a, db);
 }
 
-// Start copying ROWS rows of D bf16 into a swizzled tile: tile row r is
-// src + r * stride for r < nvalid, zeros past it (nothing is read there).
+// Start copying ROWS rows of D bf16 into a swizzled tile of tile_dim<D>()
+// columns: tile row r is src + r * stride for r < nvalid, zeros past it
+// and in the columns past D (nothing is read there).
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int nvalid) {
-  constexpr int kCh = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kCh; idx += kThreads) {
-    const int r = idx / kCh, c = idx % kCh;
-    const bool ok = r < nvalid;
+  constexpr int kCh = D / 8, kChT = tile_dim<D>() / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kChT; idx += kThreads) {
+    const int r = idx / kChT, c = idx % kChT;
+    const bool ok = r < nvalid && (kCh == kChT || c < kCh);
     cp_async16(dst + swz<ROWS>(r, c), ok ? src + r * stride + c * 8 : src,
                ok);
   }
@@ -103,6 +115,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int D, int ROWS, class Row>
 __device__ __forceinline__ void load_rows(bf16* dst, Row row,
                                           const bf16* any) {
+  static_assert(D % 64 == 0, "load_rows fills whole slabs");
   constexpr int kCh = D / 8;
   for (int idx = threadIdx.x; idx < ROWS * kCh; idx += kThreads) {
     const int r = idx / kCh, c = idx % kCh;
@@ -147,9 +160,11 @@ __device__ __forceinline__ void tc_attend(bf16* __restrict__ out,
   const unsigned base = (unsigned)__cvta_generic_to_shared(tc_smem);
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(tc_smem +
                                             ((1024 - (base & 1023)) & 1023));
+  constexpr int kDW = tile_dim<D>();  // columns of the tiles and of O
+  static_assert(D % 16 == 0 && (kDW == 64 || kDW == 128), "head dim");
   constexpr int kNT = kBK / 8;  // 8-key column tiles of S
-  constexpr int kDT = D / 8;    // 8-wide column tiles of O
-  constexpr int kKS = D / 16;   // 16-deep steps of Q·K^T
+  constexpr int kDT = kDW / 8;  // 8-wide column tiles of O
+  constexpr int kKS = D / 16;   // 16-deep steps of Q·K^T (zeros past D)
   constexpr int kSbo = 8 * 128;                // 8 rows of 128 bytes
   constexpr int kSlabK = kBK * 64;             // elements per K/V slab
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -266,7 +281,8 @@ __device__ __forceinline__ void tc_attend(bf16* __restrict__ out,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNT / 2; ++kk)
-      wgmma_pv<D>(o, pf[kk], smem_desc(sm.v + kk * 16 * 64, kSlabK * 2, kSbo));
+      wgmma_pv<kDW>(o, pf[kk],
+                    smem_desc(sm.v + kk * 16 * 64, kSlabK * 2, kSbo));
     wgmma_commit_wait();
     fence_regs(o);
     __syncthreads();  // every warp is done with V(kt)
@@ -283,7 +299,7 @@ __device__ __forceinline__ void tc_attend(bf16* __restrict__ out,
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
     bf16* dst = out + r * q_stride + (lane & 3) * 2;
 #pragma unroll
-    for (int t = 0; t < kDT; ++t)
+    for (int t = 0; t < D / 8; ++t)  // O's columns past D are not stored
       *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) =
           __floats2bfloat162_rn(o[t][2 * h] * inv, o[t][2 * h + 1] * inv);
   }

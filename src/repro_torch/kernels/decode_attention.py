@@ -129,7 +129,7 @@ def decode_attention_split_plain(q, k_cache, v_cache, lengths, splits: int,
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """Launch the CUDA kernels (the splits, then their merge). q:
     (B, H, D); caches: (B, C, KV, D); lengths: (B,) int32 (clamped to
-    [0, C] by the kernel); head_dim 64 or 128."""
+    [0, C] by the kernel); head_dim 64, 128 or 112."""
     global launches
     b, h, d = q.shape
     _, c, kvh, _ = k_cache.shape

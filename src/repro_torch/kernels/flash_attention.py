@@ -120,7 +120,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the dense CUDA kernel. q: (B, S, H, D); k, v: (B, Sk, KV, D);
-    head_dim 64 or 128; any S and Sk, Sk != S only non-causal without a
+    head_dim 64, 128 or 112; any S and Sk, Sk != S only non-causal without a
     window."""
     global flash_launches
     b, s, h, d = q.shape

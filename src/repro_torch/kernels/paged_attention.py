@@ -75,8 +75,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables,
     """Launch the CUDA kernels (the splits, then their merge). q:
     (B, H, D); pages: (P, page_size, KV, D); block_tables: (B, max_pages)
     int32; lengths: (B,) int32 (clamped to [0, max_pages * page_size] by
-    the kernel). page_size must be a multiple of 8 and head_dim 64 or
-    128."""
+    the kernel). page_size must be a multiple of 8 and head_dim 64, 128
+    or 112."""
     global launches
     b, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape

@@ -40,9 +40,9 @@ from repro_torch.kernels import build
 # that its path went through the kernel
 launches = 0
 
-# (N, P) pairs the kernel is built for, and the longest chunk it holds on
-# chip (csrc/ssd_scan.cu: kMaxCL)
-BUILT_SHAPES = ((128, 64),)
+# (N, P) pairs the kernel is built for (mamba2-1.3b's, zamba2-7b's), and
+# the longest chunk it holds on chip (csrc/ssd_scan.cu: kMaxCL)
+BUILT_SHAPES = ((128, 64), (64, 64))
 MAX_CHUNK = 128
 
 

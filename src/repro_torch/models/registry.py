@@ -13,16 +13,17 @@ on architecture:
 
 ``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device, plus
 ``enc_embeds`` (B, encoder_seq, d_model) for an encoder model (``packed``
-carries the per-segment stack). Five families are ported so far: the
-dense family, the mixture-of-experts family (``moe``: granite-moe,
-phi3.5-moe) and chameleon's early-fusion ``vlm``, which are the same
-transformer, over ring (``init_cache``) and paged (``init_paged_cache``)
-caches; the Mamba2 family (``ssm``), whose
-per-sequence state has nothing to page; and the encoder-decoder family
-(``audio``, whisper-small), whose cross K/V is a per-slot leaf beside the
-paged self-attention K/V. Neither of the last two ships a
-``prefill_chunk``: the engine runs their continuations by prefix
-recompute.
+carries the per-segment stack). Every family of the JAX package is
+ported: the dense family, the mixture-of-experts family (``moe``:
+granite-moe, phi3.5-moe) and chameleon's early-fusion ``vlm``, which are
+the same transformer, over ring (``init_cache``) and paged
+(``init_paged_cache``) caches; the Mamba2 family (``ssm``), whose
+per-sequence state has nothing to page; the hybrid family (``hybrid``,
+zamba2-7b), whose shared attention block's K/V is paged beside the
+per-slot Mamba state; and the encoder-decoder family (``audio``,
+whisper-small), whose cross K/V is a per-slot leaf beside the paged
+self-attention K/V. None of the last three ships a ``prefill_chunk``:
+the engine runs their continuations by prefix recompute.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@
 Both return the JAX package's dictionary layout (``embed``, ``layers`` with
 every leaf stacked on a leading layer axis, ``final_norm``; the
 encoder-decoder family adds ``enc_pos``, ``dec_pos``, ``enc_layers`` and
-``enc_final``), so a leaf's path and shape are the same in both
-packages.
+``enc_final``; the hybrid family adds ``shared_attn``), so a leaf's path
+and shape are the same in both packages.
 """
 from __future__ import annotations
 
@@ -16,13 +16,14 @@ import torch
 
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import encdec, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 # family -> the module that holds its plan (the JAX registry's routing:
 # the experts' ``moe`` and chameleon's early-fusion ``vlm`` are the same
 # transformer as the dense family)
 FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                  "vlm": transformer, "ssm": ssm, "audio": encdec}
+                  "vlm": transformer, "ssm": ssm, "hybrid": hybrid,
+                  "audio": encdec}
 
 
 def plan_of(cfg) -> dict:

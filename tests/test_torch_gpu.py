@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, and the serving paths through them against the CPU's. Every test is marked ``gpu`` and skips (with its reason) where no
+card (#1, #2, #4 and #5 also at zamba2-7b's head_dim 112, #6 also at its
+state N 64), and the serving paths through them against the CPU's. Every test is marked ``gpu`` and skips (with its reason) where no
 CUDA device is present — the decision is taken inside the ``cuda``
 fixture, so every worker collects the same tests. Run them on the GPU
 machine from the repository root:
@@ -39,6 +40,8 @@ from repro_torch.serving.request import Request, RequestQueue  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 HEADS = [(16, 16, 128), (14, 2, 64)]          # olmo-1b, qwen2-0.5b
+# #1, #2, #4 and #5 also at zamba2-7b's shared attention: 32 heads of 112
+HEADS_112 = HEADS + [(32, 32, 112)]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(atol=2e-5, rtol=0.0),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -83,7 +86,7 @@ def _split_edges(kv, c, dev):
     return [n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, c - 1, 0]
 
 
-@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("h,kv,d", HEADS_112)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ps,max_pages,lengths", [
     (16, 8, [0, 1, 16, 17, 100, 128, 0, 65]),   # empty, page edges, full
@@ -114,7 +117,7 @@ def test_paged_decode_kernel_matches_plain(cuda, h, kv, d, dtype, ps,
             assert (got[i] == 0).all()
 
 
-@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("h,kv,d", HEADS_112)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,lengths", [
     (256, [0, 1, 31, 32, 33, 200, 256, 0]),     # empty, tile edges, full
@@ -142,7 +145,7 @@ def test_decode_kernel_matches_plain(cuda, h, kv, d, dtype, c, lengths):
             assert (got[i] == 0).all()
 
 
-@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("h,kv,d", HEADS_112)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,causal,window", [
     (100, True, 0),                 # ragged last tile
@@ -175,15 +178,16 @@ def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
 
 def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     """The built bf16 kernels hold Hopper's warpgroup tensor-core
-    instructions (HGMMA, from wgmma): the dense, the segment flash and the
-    paged chunk kernels in the SASS of both head dims, and the SSD scan
-    for both chunk tiles (64 and 128 rows); their float32 bodies hold
-    none."""
+    instructions (HGMMA, from wgmma): the dense and the segment flash
+    kernels in the SASS of all three head dims (64, 128, 112), the paged
+    chunk kernel of both of its own (64, 128), and the SSD scan for both
+    chunk tiles (64 and 128 rows) at both state sizes (N 128, 64); their
+    float32 bodies hold none."""
     from repro_torch.kernels import build
     counts = build.sass_count("flash_attention", "HGMMA")
     for name in ("flash_tc_kernel", "segment_tc_kernel"):
         tc = {k: n for k, n in counts.items() if name in k}
-        assert len(tc) == 2 and all(n > 0 for n in tc.values()), counts
+        assert len(tc) == 3 and all(n > 0 for n in tc.values()), counts
     assert all(n == 0 for k, n in counts.items()
                if k.startswith("_Z12flash_kernel")
                or "segment_flash_kernel" in k), counts
@@ -194,11 +198,11 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
                if "paged_chunk_kernel" in k), chunk
     ssd = build.sass_count("ssd_scan", "HGMMA")
     tc = {k: n for k, n in ssd.items() if "ssd_tc_kernel" in k}
-    assert len(tc) == 2 and all(n > 0 for n in tc.values()), ssd
+    assert len(tc) == 4 and all(n > 0 for n in tc.values()), ssd
     assert all(n == 0 for k, n in ssd.items() if "ssd_kernel" in k), ssd
 
 
-@pytest.mark.parametrize("h,kv,d", HEADS)
+@pytest.mark.parametrize("h,kv,d", HEADS_112)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,lens,window", [
     (96, (40, 17, 30), 0),          # 3·2^5 bucket, ragged last tile
@@ -291,6 +295,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         FA.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="int32"):
         DA.decode_attention_cuda(q, pages[:2], pages[:2], lens.long())
+    with pytest.raises(ValueError, match="head_dim 112 not built"):
+        x = torch.zeros(1, 8, 2, 112, device=cuda)        # #3: 64 and 128
+        p112 = torch.zeros(5, 8, 2, 112, device=cuda)
+        CA.paged_chunk_attention_cuda(
+            x, p112, p112, x, x, tables, lens, lens)
 
 
 def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
@@ -497,6 +506,7 @@ def _ssd_close(got, want, dtype):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("n", [128, 64])          # mamba2-1.3b, zamba2-7b
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,l,h,chunk,with_state", [
     (2, 300, 4, 128, False),        # ragged last chunk
@@ -507,10 +517,11 @@ def _ssd_close(got, want, dtype):
     (2, 300, 5, 128, True),         # a ragged head group, a carried state
     (1, 1000, 3, 100, False),       # chunk 100 < L, a ragged head group
 ])
-def test_ssd_kernel_matches_plain(cuda, dtype, b, l, h, chunk, with_state):
+def test_ssd_kernel_matches_plain(cuda, dtype, b, l, h, chunk, with_state,
+                                  n):
     gen = torch.Generator(device=cuda).manual_seed(l)
-    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, b, l, h)
-    s0 = (torch.randn(b, h, 128, 64, generator=gen, device=cuda)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, b, l, h, n=n)
+    s0 = (torch.randn(b, h, n, 64, generator=gen, device=cuda)
           if with_state else None)
     before = SSD.launches
     y, s = SSD.ssd_scan_cuda(x, dt, a, bb, cc, chunk, initial_state=s0)
@@ -523,13 +534,15 @@ def test_ssd_kernel_matches_plain(cuda, dtype, b, l, h, chunk, with_state):
     _ssd_close(s, ws, "float32")
 
 
+@pytest.mark.parametrize("n", [128, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_ssd_kernel_dt_zero_tail_freezes_the_state(cuda, dtype):
+def test_ssd_kernel_dt_zero_tail_freezes_the_state(cuda, dtype, n):
     """Packed rows whose tails carry dt = 0 (x, b, c there are not zero)
     end with the state of their unpadded runs, bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     lens, row_len = (300, 512, 129), 512
-    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, len(lens), row_len, 4)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, dtype, len(lens), row_len, 4,
+                                   n=n)
     for i, n in enumerate(lens):
         dt[i, n:] = 0.0
     y, s = SSD.ssd_scan_cuda(x, dt, a, bb, cc, 128)
@@ -559,7 +572,7 @@ def test_ssd_kernel_does_not_depend_on_the_batch(cuda, dtype):
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, "float32", 1, 8, 2, n=64)
+    x, dt, a, bb, cc = _ssd_inputs(gen, cuda, "float32", 1, 8, 2, n=32)
     with pytest.raises(ValueError, match="not built"):
         SSD.ssd_scan_cuda(x, dt, a, bb, cc, 128)
     x, dt, a, bb, cc = _ssd_inputs(gen, cuda, "float32", 1, 300, 2)
@@ -577,6 +590,51 @@ def _ssm_cfg():
     return dataclasses.replace(get_config("mamba2-1.3b").reduced(),
                                ssm_state=128, ssm_head_dim=64,
                                ssm_chunk=128)
+
+
+def _hybrid_cfg():
+    """zamba2-7b reduced to d_model 256 and 12 layers (two invocations of
+    the shared block), with the full model's head_dim 112 and SSD heads
+    (N 64, P 64, chunk 128): the shapes the kernels are built for."""
+    return dataclasses.replace(get_config("zamba2-7b").reduced(),
+                               num_layers=12, attn_every=6, head_dim=112,
+                               ssm_state=64, ssm_head_dim=64, ssm_chunk=128)
+
+
+def test_gpu_hybrid_paged_serve_matches_cpu(cuda):
+    """The hybrid family on the card, float32: a paged ``serve_ticks``
+    with recomputed continuations equals the CPU's plain run token for
+    token, through #6 (every mamba layer of every prefill), #2 and #1,
+    never #3."""
+    cfg = _hybrid_cfg()
+    gpu = make_engine(cfg, seed=3, cache_len=256, device=cuda).init_slots(
+        4, page_size=16)
+    cpu = make_engine(cfg, cache_len=256, device="cpu").init_slots(
+        4, page_size=16)
+    cpu.params = _cpu(gpu.params)
+    assert gpu.paged and not gpu.chunk_capable()
+    rng = np.random.default_rng(1)
+    spec = [(i, int(rng.integers(3, 200)), int(rng.integers(2, 10)))
+            for i in range(6)]
+    prompts = {i: rng.integers(1, cfg.vocab_size, (1, p)).astype(np.int32)
+               for i, p, _ in spec}
+    before = ops.launch_counts()
+    streams = []
+    for eng in (gpu, cpu):
+        reqs = [Request(arrival=0.0, rid=i, model=cfg.name, slo=1e9,
+                        n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+        planner = StepPlanner(eng, RequestQueue(cfg.name, slo=1e9),
+                              PlannerConfig(chunk_tokens=64))
+        srv = serve_ticks(planner, reqs, lambda r: {"tokens": prompts[r.rid]})
+        assert not srv.truncated
+        streams.append(planner.streams)
+    assert streams[0] == streams[1]
+    assert gpu.stats.chunk_prefills > 0
+    ran = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert ran["ssd_scan"] == cfg.num_layers * gpu.stats.prefills, ran
+    assert ran["segment_flash_attention"] > 0
+    assert ran["paged_decode_attention"] > 0
+    assert ran["paged_chunk_attention"] == 0
 
 
 def test_gpu_ssm_serving_and_generate_match_cpu(cuda):

@@ -19,7 +19,9 @@ under the same keys as the CUDA graphs it would capture on a card:
 * the experts (granite-moe, phi3.5-moe reduced): no new kind of entry —
   every dispatch shape is static inside a bucket, the capacity coming
   from the bucket's token count — and the JAX engine's keys after the
-  same serves.
+  same serves; so the hybrid family (zamba2-7b reduced), whose slot
+  state (stacked over mamba layers and over attention invocations) is
+  held against the JAX engine's leaf by leaf.
 """
 import dataclasses
 import math
@@ -53,6 +55,7 @@ from repro_torch.serving.graphs import (KINDS, PREFIX_KINDS,  # noqa
 
 SSM = "mamba2-1.3b"
 MOE = ["granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b"]
+HYBRID = "zamba2-7b"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -238,13 +241,13 @@ def test_generate_keys_on_batch_and_cache_length(pairs, name):
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "ring"])
-@pytest.mark.parametrize("name", MOE)
+@pytest.mark.parametrize("name", MOE + [HYBRID])
 def test_moe_keys_equal_jax_after_the_same_serves(name, paged):
     """Chunked serves (chunk sizes 1-13) and a batch ``generate``: the
-    experts' continuations recompute the prefix, so the port keeps no
-    ``chunk_prefill`` entry, and its ``packed_prefill``, ``slot_step`` and
-    ``generate`` keys are the JAX engine's jit keys; a repeat serve adds
-    none."""
+    continuations of the experts and of the hybrid family recompute the
+    prefix, so the port keeps no ``chunk_prefill`` entry, and its
+    ``packed_prefill``, ``slot_step`` and ``generate`` keys are the JAX
+    engine's jit keys; a repeat serve adds none."""
     cfg, jeng, peng = _pair(name, 32, 4, paged)
     rng = np.random.default_rng(2)
     for trial in range(6):
@@ -346,7 +349,8 @@ def _addresses(eng):
 @pytest.mark.parametrize("name,paged,chunk_tokens", [
     ("olmo-1b", True, 3), ("olmo-1b", False, 3), ("qwen2-0.5b", True, 0),
     (SSM, True, 3), ("deepseek-7b", True, 3), ("yi-9b", True, 3),
-    ("chameleon-34b", True, 3), (MOE[0], True, 3), (MOE[1], False, 3)])
+    ("chameleon-34b", True, 3), (MOE[0], True, 3), (MOE[1], False, 3),
+    (HYBRID, True, 3), (HYBRID, False, 3)])
 def test_serve_keeps_every_slot_buffer_in_place_and_matches_jax(
         pairs, name, paged, chunk_tokens):
     """Across a serve (admissions, continuations, decodes, frees) every

@@ -519,6 +519,17 @@ def test_pool_admissions_equal_jax(pools, policy):
     _assert_admissions_equal(pools, policy)
 
 
+def test_hybrid_pool_admissions_equal_jax():
+    """The quick trio plus zamba2-7b reduced under ``dstack``: the same
+    admissions and per-model counts as the JAX pool, every model served,
+    and no new executable; zamba2's engines recompute their
+    continuations."""
+    pair = _pool_pair(MODELS + ["zamba2-7b"])
+    host = pair[1].hosts["zamba2-7b"]
+    assert not any(e.chunk_capable() for e in host.engines())
+    _assert_admissions_equal(pair, "dstack")
+
+
 def test_moe_pool_admissions_equal_jax():
     """The quick trio plus granite-moe reduced under ``dstack``: the same
     admissions and per-model counts as the JAX pool, every model served,

@@ -287,15 +287,9 @@ def test_speculative_compile_gate(target):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("family", sorted(INCAPABLE))
 def test_incapable_family_refuses_draft(family):
-    """The SSM, encoder-decoder and MoE families build and refuse a
-    draft, as the reference test has them do; the port does not build the
-    hybrid family yet (``build_model`` raises), so it cannot reach
-    ``attach_draft``."""
+    """The SSM, hybrid, encoder-decoder and MoE families build and refuse
+    a draft, as the reference test has them do."""
     cfg = get_config(INCAPABLE[family]).reduced()
-    if family == "hybrid":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(cfg, device="cpu")
-        return
     eng = make_engine(cfg, cache_len=CACHE_LEN, device="cpu").init_slots(
         2, paged=bool(build_model(cfg, device="cpu").paged_keys),
         page_size=PAGE)
