@@ -11,11 +11,12 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases aj  # kernels and whisper-small
     python3 chip_smoke.py --phases ak  # kernels and the experts
     python3 chip_smoke.py --phases al  # kernels and the hybrid family
+    python3 chip_smoke.py --phases am  # kernels and training
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs twelve phases, each printing one JSON line:
+with ``nvcc`` and runs thirteen phases, each printing one JSON line:
 
-  (a) kernels vs plain: each of the six hand-written kernels against its
+  (a) kernels vs plain: each of the seven hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
       (olmo-1b: 16 heads of 128; qwen2-0.5b: 14 query / 2 KV heads of 64;
       mamba2-1.3b's SSD: 64 heads, P 64, N 128, chunk 128), in float32
@@ -33,7 +34,13 @@ with ``nvcc`` and runs twelve phases, each printing one JSON line:
       encoder self-attention (8 x 1536, non-causal), #4's cross-attention
       decode (8 rows of 1536); #1, #2, #4 and #5 at zamba2-7b's 32 heads
       of 112 (#1 also at its split edges) and #6 at its SSD heads (112
-      heads, P 64, N 64, chunk 128; the dt = 0 tails too); times every
+      heads, P 64, N 64, chunk 128; the dt = 0 tails too); the flash
+      backward ``flash_attention_bwd`` (training) from #5's output and
+      log-sum-exp against the plain backward (dq, dk, dv) and #5's lse
+      against the plain forward's, at qwen2-0.5b's heads (8 x 2048
+      causal), olmo-1b's (4 x 2048 causal), a ragged S 1000, a window
+      of 512 and whisper's cross shape (8 x 224 queries over 1536
+      keys), plus short ragged edges; times every
       case's kernel, plain
       version and, where one PyTorch call computes the same function, that
       call (``scaled_dot_product_attention``, a yardstick the port never
@@ -147,6 +154,18 @@ with ``nvcc`` and runs twelve phases, each printing one JSON line:
       quick trio and zamba2 in one pool under ``dstack`` and
       ``temporal``: every model served, no capture after warm-up, #1,
       #2, #6, zamba2's knee and optimum on the card's ``Hardware``;
+  (m) training through ``repro_torch.launch.train.main``, bfloat16
+      compute over float32 parameters, remat on, seeded weights: (m1)
+      qwen2-0.5b whole (24 layers, d_model 896, 14 / 2 heads of 64,
+      vocabulary 151,936) on 30 steps of 8 x 2048 of the pipeline's
+      stream; every loss finite, the mean of the last 5 at least 1.0 nat
+      below the first; s/step, tokens/s, peak allocation, the model-FLOPs
+      share of the step; every step launches exactly #5 and the backward,
+      each at least once a layer (#5 twice: remat runs the forward again);
+      (m3) ``training/checkpoint`` on the card: (m1)'s parameters saved,
+      loaded back bit for bit, ``eval_step``'s loss the same before and
+      after, then one more step profiled; (m2) olmo-1b whole (16 layers,
+      16 heads of 128) on 10 steps of 4 x 2048, the same gates;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -172,7 +191,12 @@ with ``nvcc`` and runs twelve phases, each printing one JSON line:
       identical routing and greedy streams; zamba2-7b cut to 12 layers:
       one packed prefill's logits, SSM states and packed K/V within 1e-3
       of each leaf's scale, a paged serve with recomputed continuations
-      and ``generate`` — identical greedy streams.
+      and ``generate`` — identical greedy streams; training: one step's
+      loss and gradients (``loss_and_grads``, remat on) of qwen2-0.5b and
+      granite-moe (its aux loss included) at full width cut to 2 layers,
+      B 2 x S 1536 (the CPU runs the plain flash VJP), the loss within
+      1e-5 relative and every gradient leaf within 1e-4 of its max
+      |value|.
 
 Every path of (b), (d), (e), (f), (j1)-(j3), (k1)-(k3) and (l1)-(l2)
 runs on one engine that
@@ -191,8 +215,10 @@ and (f), plus the four serves of (g), the first graphed cache-on and
 speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
 serve, (j)'s, (k)'s and (l)'s first graphed turns, (l3)'s first timed
-``generate`` and their pool serves; #1, #2, #4, #5 and #6 carry
-zamba2's cases and #5 whisper's under ``cases``), the card's name and
+``generate`` and their pool serves, and (m1)'s and (m2)'s training steps;
+#1, #2, #4, #5 and #6 carry
+zamba2's cases, #5 whisper's and the backward its further shapes under
+``cases``), the card's name and
 power
 limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises
@@ -238,7 +264,7 @@ WHISPER_CASES = {
     "decode_attention": {"cross": dict(c=1536, lengths=(1536,) * 8)}}
 KERNEL_NAMES = ("paged_decode_attention", "segment_flash_attention",
                 "paged_chunk_attention", "decode_attention",
-                "flash_attention", "ssd_scan")
+                "flash_attention", "ssd_scan", "flash_attention_bwd")
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
 # the SSD scan in float32: max |kernel - plain| <= this * max(1, max |plain|)
 # (its chunk sums reassociate terms as large as the output)
@@ -262,13 +288,14 @@ PORT_SYMBOLS = {
     "paged_chunk_attention": ("paged_chunk_kernel", "chunk_tc_kernel"),
     "decode_attention": ("decode_split_kernel", "combine_splits"),
     "flash_attention": ("flash_kernel", "flash_tc_kernel"),
-    "ssd_scan": ("ssd_kernel", "ssd_tc_kernel")}
+    "ssd_scan": ("ssd_kernel", "ssd_tc_kernel"),
+    "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel")}
 # the bf16 kernels that must run on the tensor cores (wgmma: HGMMA in their
 # SASS): library -> (name fragment, instantiations): #2 and #5 at D 64,
-# 128 and 112, #3 at D 64 and 128, #6 at chunk tiles of 64 and 128 rows
-# for N 128 and 64
+# 128 and 112 (#5 with and without its lse store), #3 at D 64 and 128, #6
+# at chunk tiles of 64 and 128 rows for N 128 and 64
 TENSOR_CORE_KERNELS = {
-    "flash_attention": (("flash_tc_kernel", 3), ("segment_tc_kernel", 3)),
+    "flash_attention": (("flash_tc_kernel", 6), ("segment_tc_kernel", 3)),
     "chunk_attention": (("chunk_tc_kernel", 2),),
     "ssd_scan": (("ssd_tc_kernel", 4),)}
 # device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
@@ -723,15 +750,144 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
         else:
             summary["ssd_scan"].setdefault("cases", {})[f"{model} main"] = {
                 "heads": SSD_HEADS[model], **timed}
+    bwd_rows, summary["flash_attention_bwd"] = _bwd_cases(torch, gen, dev,
+                                                          flush)
+    rows += bwd_rows
     bad = [r for r in rows if not r["ok"]]
     _emit({"phase": "a", "cases": len(rows), "failed": len(bad),
            "max_abs_err": {
                f"{r['kernel']}/{r['model']}/{r['dtype']}" + (
                    "" if r["shape"] == "main" else f"/{r['shape']}"):
                r["max_abs_err"] for r in rows
-               if r["shape"] == "main" or r["model"] == "whisper-small"}})
+               if r["shape"] == "main" or r["model"] == "whisper-small"}
+           | {f"flash_attention_bwd/{r['model']}/{r['dtype']}": r["errs"]
+              for r in bwd_rows}})
     assert not bad, f"kernel disagrees with its plain version: {bad}"
     return rows, summary
+
+
+# --------------------------------------------------------------------------
+# phase (a): the flash backward (training) against its plain version
+# --------------------------------------------------------------------------
+# (label, heads (H, KV, D), B, S, Sk, causal, window): qwen2-0.5b and
+# olmo-1b at a training step's shape, a ragged S, a window, whisper's
+# cross shape; then correctness-only ragged edges
+BWD_CASES = [
+    ("qwen2-0.5b main", HEADS["qwen2-0.5b"], 8, 2048, 2048, True, 0),
+    ("olmo-1b main", HEADS["olmo-1b"], 4, 2048, 2048, True, 0),
+    ("ragged 1000", HEADS["qwen2-0.5b"], 8, 1000, 1000, True, 0),
+    ("window 512", HEADS["olmo-1b"], 4, 2048, 2048, True, 512),
+    ("whisper cross", WHISPER_HEADS, 8, 224, 1536, False, 0)]
+BWD_EDGES = [(f"S {s}", HEADS["qwen2-0.5b"], 2, s, s, True, 0)
+             for s in (1, 63, 65, 129)] + [
+    ("cross S 70 Sk 130", HEADS["olmo-1b"], 2, 70, 130, False, 0)]
+# max |kernel - plain| <= this * max(1, max |plain|), per gradient; the lse
+# within a tenth of it (float32: sums of up to S terms in another order;
+# bfloat16: both widen the same bf16 inputs, sum in float32 and round each
+# gradient once)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_TIMED = "olmo-1b main"       # the kernels line's headline case
+
+
+def _bwd_case(torch, gen, dev, dtype, h, kv, d, b, s, sk, causal, window):
+    """Inputs of one backward case, #5's output and lse on them, and the
+    case's bytes, operations and SDPA backward."""
+    from repro_torch.kernels import flash_attention
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, kv, d, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, lse=True, **kw)
+    i = np.arange(s)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(i, sk - 1) if causal else np.full_like(i, sk - 1)
+    pairs = int((hi - lo + 1).sum()) * b * h        # visible (i, j, head)
+    elt = q.element_size()
+    # read q, k, v, out, dout and lse once, write dq, dk and dv once
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
+    # 2.5 times the forward's 4 * pairs * D
+    flops = 2.5 * 4.0 * pairs * d
+
+    def library():
+        import torch.nn.functional as F
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        extra = {"enable_gqa": True} if kv != h else {}
+        if window:
+            ii = torch.arange(s, device=dev)
+            mask = ii[:, None] - ii[None, :] < window
+            if causal:
+                mask &= ii[None, :] <= ii[:, None]
+            extra["attn_mask"] = mask
+        else:
+            extra["is_causal"] = causal
+        o = F.scaled_dot_product_attention(qt, kt, vt, **extra)
+        go = dout.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                           retain_graph=True)
+
+    return dict(q=q, k=k, v=v, out=out, dout=dout, lse=lse, kw=kw,
+                nbytes=nbytes, flops=flops, library=library)
+
+
+def _bwd_cases(torch, gen, dev, flush):
+    """Each backward case in float32 and bf16: #5's lse against the plain
+    forward's, the kernel's dq, dk, dv against the plain backward's from
+    the same output and lse; the main cases timed beside their bound, the
+    plain version and SDPA's backward. Returns (rows, the kernels line's
+    entry)."""
+    from repro_torch.kernels import flash_vjp
+    rows, timed = [], {}
+    for label, (h, kv, d), b, s, sk, causal, window in BWD_CASES + BWD_EDGES:
+        for dname in ("float32", "bfloat16"):
+            c = _bwd_case(torch, gen, dev, getattr(torch, dname), h, kv, d,
+                          b, s, sk, causal, window)
+            args = (c["q"], c["k"], c["v"], c["out"], c["dout"], c["lse"])
+            got = flash_vjp.flash_attention_bwd_cuda(*args, **c["kw"])
+            want = flash_vjp.flash_bwd_plain(*args, **c["kw"])
+            _, lse_plain = flash_vjp.flash_fwd_plain(
+                c["q"], c["k"], c["v"], **c["kw"])
+            torch.cuda.synchronize()
+            tol = BWD_TOL[dname]
+            errs, ok = {}, True
+            for name, g, w, t in (("dq", got[0], want[0], tol),
+                                  ("dk", got[1], want[1], tol),
+                                  ("dv", got[2], want[2], tol),
+                                  ("lse", c["lse"], lse_plain, tol / 10)):
+                g, w = g.float(), w.float()
+                errs[name] = float((g - w).abs().max())
+                ok &= bool(torch.isfinite(g).all()) and errs[name] <= t * max(
+                    1.0, float(w.abs().max()))
+            row = {"kernel": "flash_attention_bwd", "model": label,
+                   "dtype": dname, "shape": dict(b=b, s=s, sk=sk, heads=(
+                       h, kv, d), causal=causal, window=window),
+                   "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
+                   "errs": errs, "ok": ok}
+            rows.append(row)
+            if (label, (h, kv, d)) in [(x[0], x[1]) for x in BWD_CASES]:
+                row.update(_timings(lambda: flash_vjp.flash_attention_bwd_cuda(
+                    *args, **c["kw"]), torch, flush))
+                row["plain_ms"] = _time_ms(lambda: flash_vjp.flash_bwd_plain(
+                    *args, **c["kw"]), torch, iters=3)
+                row["bound_ms"], row["bound_by"] = _bound_ms(
+                    c["nbytes"], c["flops"], dname)
+                row.update(_timings(c["library"](), torch, flush,
+                                    "library_ms"))
+                if dname == "bfloat16":
+                    timed[label] = {"shape": row["shape"],
+                                    "max_abs_err": row["max_abs_err"],
+                                    **{k: row[k] for k in (
+                                        "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}}
+            _log(json.dumps(row))
+            del c, got, want
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_backward.cu",
+             "replaces": "src/repro/kernels/flash_vjp.py:101 (_bwd_impl, "
+                         "plain jnp: no Pallas kernel)",
+             **timed.pop(BWD_TIMED), "cases": timed}
+    return rows, entry
 
 
 def _ssd_bound(b, lens, h, p, n, cl, dname):
@@ -2833,6 +2989,214 @@ def phase_l(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase (m): training through the normal entry point
+# --------------------------------------------------------------------------
+# (m1) and (m2): model, batch, sequence, steps, at full width and depth
+TRAIN_RUNS = {"m1": ("qwen2-0.5b", 8, 2048, 30),
+              "m2": ("olmo-1b", 4, 2048, 10)}
+TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
+TRAIN_DROP = 1.0     # nats the mean of the last 5 losses must fall by
+
+
+def _model_flops(cfg, n_params, b, s):
+    """Model FLOPs of one training step: 6 * N * tokens for the matmuls,
+    plus 3 times the causal attention's forward (4 * pairs * D per head
+    and layer); the forward that remat runs again is not counted."""
+    pairs = s * (s + 1) // 2
+    attn = 4.0 * pairs * cfg.resolved_head_dim * cfg.num_heads * b
+    return 6.0 * n_params * b * s + 3.0 * attn * cfg.num_layers
+
+
+def _train_run(torch, phase, model, b, s, steps):
+    """``launch.train.main`` at full width in bf16 with remat: the losses,
+    each step's wall and launches, and the last parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = get_config(model)
+    steps_s, launches, kept = [], [], {}
+
+    def on_step(i, params, metrics, step_s):
+        steps_s.append(step_s)
+        launches.append(_launch_counts())
+        _reset_launch_counts()
+        kept["params"] = params
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train.main(
+        ["--arch", model, "--full-size", "--steps", str(steps),
+         "--batch", str(b), "--seq", str(s), "--dtype", "bfloat16",
+         "--log-every", str(max(1, steps // 3))], on_step=on_step)
+    wall = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(kept["params"]))
+    step_s = float(np.median(steps_s[1:]))
+    flops = _model_flops(cfg, n_params, b, s)
+    total = {n: sum(c[n] for c in launches) for n in KERNEL_NAMES}
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    out = {"model": model, "layers": cfg.num_layers, "batch": b, "seq": s,
+           "steps": steps, "params": n_params, "losses": losses,
+           "first_loss": first, "last5_mean": last5,
+           "first_step_s": steps_s[0], "s_per_step": step_s,
+           "tokens_per_s": b * s / step_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "model_flops_per_step": flops,
+           "model_flops_share": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "launches_per_step": launches[-1], "launches": total,
+           "wall_s": wall}
+    _log(json.dumps({phase: {k: v for k, v in out.items()
+                             if k != "losses"}}))
+    assert all(np.isfinite(losses)), f"{phase}: a loss is not finite"
+    assert last5 <= first - TRAIN_DROP, \
+        f"{phase}: loss {first} -> {last5} (mean of the last 5)"
+    for i, c in enumerate(launches):
+        _check_launches(c, TRAIN_PATH, f"{phase}/step {i}")
+        assert c["flash_attention"] >= cfg.num_layers \
+            and c["flash_attention_bwd"] >= cfg.num_layers, (phase, i, c)
+    return out, kept["params"], cfg
+
+
+def _checkpoint_round_trip(torch, cfg, params):
+    """(m3): ``training/checkpoint`` on the card: save (m1)'s parameters,
+    load them back bit for bit, and ``eval_step``'s loss before and after
+    on one eval batch."""
+    import tempfile
+    from repro_torch.data.pipeline import eval_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import make_eval_step
+    api = build_model(cfg, "cuda")
+    eval_step = make_eval_step(api)
+    batch = eval_batch(cfg, 4, 2048, device="cuda")
+    before = float(eval_step(params, batch)["loss"])
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "m1.msgpack")
+        t0 = time.perf_counter()
+        checkpoint.save(path, params)
+        save_s = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        loaded = checkpoint.load(path, params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                  tree_leaves(loaded)))
+    after = float(eval_step(loaded, batch)["loss"])
+    out = {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+           "bit_equal": equal, "eval_loss_before": before,
+           "eval_loss_after": after}
+    _log(json.dumps({"m3": out}))
+    assert equal, "m3: the loaded parameters differ"
+    assert after == before, f"m3: eval loss {before} -> {after}"
+    return out
+
+
+def _profile_step(torch, cfg, params, b, s):
+    """One more training step of (m1)'s model under the profiler: the
+    device time by kernel and the device's busy share of the step."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step
+    api = build_model(dataclasses.replace(cfg, dtype="bfloat16"), "cuda")
+    opt = AdamW(lr=1e-4)
+    step = make_train_step(api, opt)
+    state = opt.init(params)
+    batch = next(iter(TokenPipeline(api.cfg, DataConfig(b, s, seed=5),
+                                    "cuda")))
+    step(params, state, batch)                   # warm
+    _, prof = _profile(torch, lambda: step(params, state, batch))
+    return prof
+
+
+def phase_m(torch):
+    """Training: (m1) qwen2-0.5b whole, (m3) its parameters' checkpoint
+    round trip and one profiled step, (m2) olmo-1b whole (head_dim 128)."""
+    out = {"phase": "m"}
+    out["m1"], params, cfg = _train_run(torch, "m1", *TRAIN_RUNS["m1"])
+    out["m3"] = _checkpoint_round_trip(torch, cfg, params)
+    prof = _profile_step(torch, cfg, params, *TRAIN_RUNS["m1"][1:3])
+    out["m1"]["profile"] = prof
+    out["m1"]["device_busy_share"] = prof["device_busy_share"]
+    del params
+    _release(torch)
+    out["m2"], params, _ = _train_run(torch, "m2", *TRAIN_RUNS["m2"])
+    del params
+    out["launches"] = {n: out["m1"]["launches"][n] + out["m2"]["launches"][n]
+                       for n in KERNEL_NAMES}
+    keys = ("s_per_step", "tokens_per_s", "peak_mem_bytes",
+            "model_flops_share", "first_loss", "last5_mean",
+            "launches_per_step")
+    _emit({"phase": "m", **{r: {k: out[r][k] for k in keys}
+                            for r in ("m1", "m2")},
+           "m1_busy_share": out["m1"]["device_busy_share"],
+           "m1_profiled_step_ms": {
+               "device": prof["device_ms"], "wall": prof["wall_ms"],
+               **{n: k["ms"] for n, k in prof["port_kernels"].items()}},
+           "m3": {k: out["m3"][k] for k in ("bit_equal", "eval_loss_before",
+                                            "eval_loss_after")}})
+    return out
+
+
+# (c)'s training check: full width cut to 2 layers, float32, B 2 x S 1536
+# (past 1024: the CPU takes the plain flash VJP, chunks of 512); the loss
+# within this relative error, every gradient leaf within GRAD_TOL of its
+# max |value|
+TRAIN_C = dict(layers=2, batch=2, seq=1536)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+
+
+def _train_pair(torch, name):
+    """One training step's loss and gradients (``loss_and_grads``, remat
+    on, the experts' aux loss included) on the GPU (the kernels) and on
+    the CPU (the plain versions) from the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config(name), num_layers=TRAIN_C["layers"],
+                              dtype="float32")
+    weights = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(3))
+    res, launches, secs = {}, None, {}
+    for dev in ("cuda", "cpu"):
+        api = build_model(cfg, dev)
+        params = {"cuda": weights, "cpu": _to_cpu(weights)}[dev]
+        params = _tree_map(params, lambda t: t.detach().requires_grad_(True))
+        batch = next(iter(TokenPipeline(cfg, DataConfig(
+            TRAIN_C["batch"], TRAIN_C["seq"], seed=4), dev)))
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res[dev] = loss_and_grads(api, params, batch, remat=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+        secs[dev] = time.perf_counter() - t0
+    (mg, gg), (mc, gc_) = res["cuda"], res["cpu"]
+    loss_err = abs(float(mg["loss"]) - float(mc["loss"])) / abs(
+        float(mc["loss"]))
+    worst = 0.0
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc_)):
+        scale = float(b.abs().max())
+        worst = max(worst, float((a.cpu() - b).abs().max())
+                    / max(scale, 1e-30))
+    out = dict(loss_gpu=float(mg["loss"]), loss_cpu=float(mc["loss"]),
+               loss_rel_err=loss_err, aux_loss=float(mg["aux_loss"]),
+               grad_worst_rel_err=worst, launches=launches,
+               gpu_s=secs["cuda"], cpu_s=secs["cpu"],
+               close=loss_err <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL)
+    _log(json.dumps({f"train {name}": out}))
+    assert out["close"], f"train {name}: GPU and CPU differ: {out}"
+    _check_launches(launches, TRAIN_PATH, f"c/train {name}")
+    return out
+
+
 def _insert_step_serve(eng, prompts, budgets):
     """Continuous batching through ``insert``/``step``/``free``: requests
     enter free slots in order, every active slot steps, done slots free.
@@ -3280,6 +3644,11 @@ def phase_c(torch, i3=None):
     assert checks["gateway"]["cards_equal_i3"] in (None, True), \
         "gateway: (i3)'s bf16 scorecards differ from the float32 ones"
 
+    # 10. training: one step's loss and gradients, GPU against CPU, for
+    # the dense family and the experts
+    for name in ("qwen2-0.5b", MOE):
+        checks[f"train_{name}"] = _train_pair(torch, name)
+
     out = {"phase": "c",
            "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b, whisper-small, "
                     "granite-moe-3b-a800m (2 layers), zamba2-7b "
@@ -3288,7 +3657,8 @@ def phase_c(torch, i3=None):
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff",
                "admissions_identical", "counts_identical",
-               "cards_equal_i3", "routes_identical", "close") if kk in v}
+               "cards_equal_i3", "routes_identical", "close",
+               "loss_rel_err", "grad_worst_rel_err") if kk in v}
                for k, v in checks.items()}}
     _emit(out)
     return dict(out, checks=checks)
@@ -3342,9 +3712,9 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefghijklc",
+    ap.add_argument("--phases", default="abdefghijklmc",
                     help="which phases to run, of a, b, d, e, f, g, h, i, "
-                         "j, k, l, c (default: all)")
+                         "j, k, l, m, c (default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3417,13 +3787,15 @@ def main(argv=None) -> int:
         report["k"] = timed("k", phase_k)
     if "l" in args.phases:
         report["l"] = timed("l", phase_l)
-    for phase in "bdefghijkl":
+    if "m" in args.phases:
+        report["m"] = timed("m", phase_m)
+    for phase in "bdefghijklm":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c, report.get("i", {}).get("i3"))
     if summary:
-        if all(p in args.phases for p in "bdefghijkl"):
+        if all(p in args.phases for p in "bdefghijklm"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "flash_attention", "chunk_attention",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "flash_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -46,9 +46,11 @@ SIGNATURES = {
     "decode_attention":
         (_P,) * 6 + (_I,) * 8 + (_F, _P),
     "flash_attention":
-        (_P,) * 4 + (_I,) * 9 + (_F, _P),
+        (_P,) * 5 + (_I,) * 9 + (_F, _P),
     "ssd_scan":
         (_P,) * 8 + (_I,) * 7 + (_P,),
+    "flash_attention_bwd":
+        (_P,) * 10 + (_I,) * 9 + (_F, _P),
 }
 ENTRY_LIBRARY = {
     "paged_decode_attention": "paged_attention",
@@ -57,6 +59,7 @@ ENTRY_LIBRARY = {
     "decode_attention": "decode_attention",
     "flash_attention": "flash_attention",
     "ssd_scan": "ssd_scan",
+    "flash_attention_bwd": "flash_backward",
 }
 
 
@@ -171,13 +174,34 @@ def dtype_code(dtype) -> int:
 # family's path (it has no ``prefill_chunk``)
 HEAD_DIMS = (64, 128, 112)
 CHUNK_HEAD_DIMS = (64, 128)
+# the flash backward (training): 64 and 128 only
+BWD_HEAD_DIMS = (64, 128)
+
+
+def check_no_grad(entry: str, **tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad: a kernel
+    writes a fresh tensor through a raw pointer, so its output would carry
+    no ``grad_fn`` and the operands' gradients would be lost without a
+    word. The training path's attention goes through
+    ``flash_vjp.flash_attention_vjp``, whose autograd Function launches
+    the kernels with grad mode off."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors.values()):
+        raise RuntimeError(
+            f"{entry}: an operand requires grad, and the kernel's output "
+            f"would carry no gradient; run it under torch.no_grad(), or "
+            f"train through repro_torch.kernels.flash_vjp."
+            f"flash_attention_vjp")
 
 
 def check_operands(entry: str, head_dim: Optional[int], *,
                    head_dims=HEAD_DIMS, **tensors) -> None:
     """Raise unless every operand is a contiguous tensor on one CUDA device
     and the head dimension (``None``: no attention heads) is one of
-    ``head_dims``, those the entry's kernel is built for."""
+    ``head_dims``, those the entry's kernel is built for, and unless no
+    operand would lose its gradient (``check_no_grad``)."""
+    check_no_grad(entry, **tensors)
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{entry}: operands must share one CUDA device, "

@@ -51,11 +51,30 @@
 
 using namespace attn;
 
-template <typename T, int D>
+// Row i's log-sum-exp of its scaled scores, m + log l, at lse[i] for the
+// rows of the query tile at q0 below S (-1e30 for a row that saw no key):
+// the training path's forward saves it for the backward.
+template <int D>
+__device__ __forceinline__ void store_lse(const RowState<D>& st,
+                                          float* __restrict__ lse, int q0,
+                                          int S) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane != 0) return;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int i = q0 + warp * kRowsPerWarp + rr;
+    if (i < S) lse[i] = st.l[rr] > 0.f ? st.m[rr] + logf(st.l[rr]) : -1e30f;
+  }
+}
+
+// kLse: the training path's instantiation, which also stores each row's
+// log-sum-exp; serving runs the one without, whose code has no trace of it
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(T* __restrict__ out, const T* __restrict__ q,
-             const T* __restrict__ k, const T* __restrict__ v, int S,
-             int Sk, int H, int KV, int causal, int window, float scale) {
+flash_kernel(T* __restrict__ out, float* __restrict__ lse,
+             const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, int S, int Sk, int H, int KV,
+             int causal, int window, float scale) {
   Smem<D>& sm = smem<D>();
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h * KV / H;
@@ -85,6 +104,8 @@ flash_kernel(T* __restrict__ out, const T* __restrict__ q,
     });
   }
   store_rows<T, D>(st, out, qoff);
+  if constexpr (kLse)
+    store_lse<D>(st, lse + ((long long)b * H + h) * S, q0, S);
 }
 
 namespace tc {
@@ -124,9 +145,9 @@ struct SegMask {
 
 }  // namespace tc
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 3)
-flash_tc_kernel(__nv_bfloat16* __restrict__ out,
+flash_tc_kernel(__nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                 const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, int S, int Sk, int H,
@@ -145,59 +166,64 @@ flash_tc_kernel(__nv_bfloat16* __restrict__ out,
   tc::tc_attend<D>(out + qo, q + qo, q_stride, S - q0,
                    tc::StridedKeys<D>{k + ko, v + ko, kv_stride, Sk}, q0,
                    first / tc::kBK, last / tc::kBK, scale,
-                   tc::DenseMask{q0, q_last, Sk, causal, window});
+                   tc::DenseMask{q0, q_last, Sk, causal, window},
+                   kLse ? lse + ((long long)b * H + h) * S + q0 : nullptr);
 }
 
 template <int D>
-static cudaError_t run_dense_tc(void* out, const void* q, const void* k,
-                                const void* v, int B, int S, int Sk, int H,
-                                int KV, int causal, int window, float scale,
-                                cudaStream_t stream) {
+static cudaError_t run_dense_tc(void* out, void* lse, const void* q,
+                                const void* k, const void* v, int B, int S,
+                                int Sk, int H, int KV, int causal, int window,
+                                float scale, cudaStream_t stream) {
   const dim3 grid((S + tc::kBQ - 1) / tc::kBQ, H, B);
-  return launch(flash_tc_kernel<D>, grid, tc::smem_bytes<D>(), stream,
-                (__nv_bfloat16*)out, (const __nv_bfloat16*)q,
+  return launch(lse ? flash_tc_kernel<D, true> : flash_tc_kernel<D, false>,
+                grid, tc::smem_bytes<D>(), stream,
+                (__nv_bfloat16*)out, (float*)lse, (const __nv_bfloat16*)q,
                 (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, S, Sk, H,
                 KV, causal, window, scale);
 }
 
 template <typename T, int D>
-static cudaError_t run_dense(void* out, const void* q, const void* k,
-                             const void* v, int B, int S, int Sk, int H,
-                             int KV, int causal, int window, float scale,
-                             cudaStream_t stream) {
+static cudaError_t run_dense(void* out, void* lse, const void* q,
+                             const void* k, const void* v, int B, int S,
+                             int Sk, int H, int KV, int causal, int window,
+                             float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  return launch(flash_kernel<T, D>, grid, smem_bytes<D>(), stream, (T*)out,
-                (const T*)q, (const T*)k, (const T*)v, S, Sk, H, KV, causal,
-                window, scale);
+  return launch(lse ? flash_kernel<T, D, true> : flash_kernel<T, D, false>,
+                grid, smem_bytes<D>(), stream, (T*)out,
+                (float*)lse, (const T*)q, (const T*)k, (const T*)v, S, Sk, H,
+                KV, causal, window, scale);
 }
 
-// q, out: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous. causal: 0/1;
-// window: 0 = none; Sk != S only with neither. dtype: 0 = float32, 1 =
-// bfloat16. Returns cudaGetLastError().
-extern "C" int flash_attention(void* out, const void* q, const void* k,
-                               const void* v, int B, int S, int Sk, int H,
-                               int KV, int D, int causal, int window,
-                               int dtype, float scale, void* stream) {
+// q, out: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous. lse: null,
+// or (B, H, S) float32 for each row's log-sum-exp (the training path).
+// causal: 0/1; window: 0 = none; Sk != S only with neither. dtype: 0 =
+// float32, 1 = bfloat16. Returns cudaGetLastError().
+extern "C" int flash_attention(void* out, void* lse, const void* q,
+                               const void* k, const void* v, int B, int S,
+                               int Sk, int H, int KV, int D, int causal,
+                               int window, int dtype, float scale,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || S == 0) return cudaSuccess;
   if (Sk != S && (causal || window > 0)) return cudaErrorInvalidValue;
   if (D == 64 && dtype == 0)
-    return run_dense<float, 64>(out, q, k, v, B, S, Sk, H, KV, causal,
+    return run_dense<float, 64>(out, lse, q, k, v, B, S, Sk, H, KV, causal,
                                 window, scale, s);
   if (D == 64 && dtype == 1)
-    return run_dense_tc<64>(out, q, k, v, B, S, Sk, H, KV, causal, window,
+    return run_dense_tc<64>(out, lse, q, k, v, B, S, Sk, H, KV, causal, window,
                             scale, s);
   if (D == 128 && dtype == 0)
-    return run_dense<float, 128>(out, q, k, v, B, S, Sk, H, KV, causal,
+    return run_dense<float, 128>(out, lse, q, k, v, B, S, Sk, H, KV, causal,
                                  window, scale, s);
   if (D == 128 && dtype == 1)
-    return run_dense_tc<128>(out, q, k, v, B, S, Sk, H, KV, causal, window,
+    return run_dense_tc<128>(out, lse, q, k, v, B, S, Sk, H, KV, causal, window,
                              scale, s);
   if (D == 112 && dtype == 0)
-    return run_dense<float, 112>(out, q, k, v, B, S, Sk, H, KV, causal,
+    return run_dense<float, 112>(out, lse, q, k, v, B, S, Sk, H, KV, causal,
                                  window, scale, s);
   if (D == 112 && dtype == 1)
-    return run_dense_tc<112>(out, q, k, v, B, S, Sk, H, KV, causal, window,
+    return run_dense_tc<112>(out, lse, q, k, v, B, S, Sk, H, KV, causal, window,
                              scale, s);
   return cudaErrorInvalidValue;
 }

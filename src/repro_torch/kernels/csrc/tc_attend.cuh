@@ -148,14 +148,17 @@ struct StridedKeys {
 // exist). mask.full(k0) says that every pair of the query tile and the
 // key tile at k0 is visible; otherwise mask.visible(i, j) decides each
 // pair of query r = i - q0 and key j. Rows that see no key are written as
-// exact zeros; rows r >= nq are not written. scale is 1/sqrt(D).
+// exact zeros; rows r >= nq are not written. scale is 1/sqrt(D). lse, when
+// not null, takes row r's log-sum-exp of its scaled scores at lse[r], in
+// natural-log units (-1e30 for a row that sees no key).
 template <int D, class Keys, class Mask>
 __device__ __forceinline__ void tc_attend(bf16* __restrict__ out,
                                           const bf16* __restrict__ q,
                                           long long q_stride, int nq,
                                           const Keys& keys, int q0,
                                           int kt_begin, int kt_end,
-                                          float scale, Mask mask) {
+                                          float scale, Mask mask,
+                                          float* __restrict__ lse = nullptr) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const unsigned base = (unsigned)__cvta_generic_to_shared(tc_smem);
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(tc_smem +
@@ -296,6 +299,10 @@ __device__ __forceinline__ void tc_attend(bf16* __restrict__ out,
     l[h] += __shfl_xor_sync(kFull, l[h], 2);
     const int r = row_lo + h * 8;
     if (r >= nq) continue;
+    // m and l are in the log2 domain: the natural lse is (m + log2 l) ln 2
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[r] = l[h] > 0.f ? (m[h] + log2f(l[h])) * 0.6931471805599453f
+                          : -1e30f;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
     bf16* dst = out + r * q_stride + (lane & 3) * 2;
 #pragma unroll

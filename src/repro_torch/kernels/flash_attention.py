@@ -118,10 +118,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         lse: bool = False):
     """Launch the dense CUDA kernel. q: (B, S, H, D); k, v: (B, Sk, KV, D);
     head_dim 64, 128 or 112; any S and Sk, Sk != S only non-causal without a
-    window."""
+    window. ``lse``: also return each row's log-sum-exp of its scaled
+    scores, (B, H, S) float32 (the training path's forward,
+    ``flash_vjp``; a row that sees no key gets -1e30); serving passes no
+    lse pointer and the kernel stores none."""
     global flash_launches
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -138,14 +142,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
     out = torch.empty_like(q)
+    lse_out = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+               if lse else None)
     fn = build.function("flash_attention")
-    err = fn(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s,
-             sk, h, kvh, d, int(bool(causal)), int(window),
-             build.dtype_code(q.dtype), 1.0 / math.sqrt(d),
-             build.stream_of(q))
+    err = fn(out.data_ptr(), lse_out.data_ptr() if lse else None,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, sk, h, kvh, d,
+             int(bool(causal)), int(window), build.dtype_code(q.dtype),
+             1.0 / math.sqrt(d), build.stream_of(q))
     build.check(err, "flash_attention")
     flash_launches += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 def segment_flash_attention_plain(q, k, v, seg_ids, positions, seg_starts,

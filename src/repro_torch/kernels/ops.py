@@ -17,6 +17,7 @@ from typing import Dict
 from repro_torch.kernels import chunk_attention as _chunk
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_vjp as _vjp
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -29,6 +30,7 @@ _COUNTERS = {
     "decode_attention": (_decode, "launches"),
     "flash_attention": (_flash, "flash_launches"),
     "ssd_scan": (_ssd, "launches"),
+    "flash_attention_bwd": (_vjp, "bwd_launches"),
 }
 
 

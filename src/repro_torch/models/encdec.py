@@ -138,9 +138,12 @@ def _cross_dense(q, k, v):
     return L.big_attention(q, k, v, causal=False)
 
 
-def forward(params, cfg, tokens, enc_embeds):
+def forward(params, cfg, tokens, enc_embeds, *,
+            remat: bool = False):
     """tokens: (B, S) int; enc_embeds: (B, S_enc, d) -> (logits (B, S, V),
     aux with the JAX package's two keys at 0)."""
+    L.refuse_training("encoder-decoder", params, remat,
+                      "its encoder's and cross-attention's training path")
     dtype = dtype_of(cfg.dtype)
     enc_out = encode(params, cfg, enc_embeds)
     s = tokens.shape[1]

@@ -97,9 +97,11 @@ def _rope(cfg, positions):
     return L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, *, remat: bool = False):
     """tokens: (B, S) int -> (logits (B, S, V), aux); aux holds the JAX
     package's two auxiliary losses at 0."""
+    L.refuse_training("hybrid", params, remat,
+                      "a backward of the SSD scan (#6 has none)")
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
     rope = _rope(cfg, torch.arange(tokens.shape[1],

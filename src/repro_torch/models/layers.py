@@ -27,9 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (attention_dense, repeat_kv,
-                                                 rows_to_segments,
+from repro_torch.kernels import flash_vjp, ops
+from repro_torch.kernels.flash_attention import (attention_dense,
+                                                 repeat_kv, rows_to_segments,
                                                  segments_to_rows)
 
 __all__ = [
@@ -37,7 +37,8 @@ __all__ = [
     "embed_plan", "layer_params", "apply_norm", "rope_tables", "apply_rope",
     "attn_qkv", "attn_out", "apply_mlp", "embed_tokens", "unembed",
     "repeat_kv",
-    "attention_dense", "big_attention", "cp_attention", "packed_positions",
+    "attention_dense", "big_attention", "requires_training",
+    "refuse_training", "cp_attention", "packed_positions",
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
     "packed_cross_attention", "cache_row_update", "paged_cache_update",
     "decode_attention", "paged_decode_attention", "paged_chunk_attention",
@@ -215,6 +216,26 @@ def unembed(p, x, cfg):
 # --------------------------------------------------------------------------
 # padded (dense) attention
 # --------------------------------------------------------------------------
+def requires_training(params) -> bool:
+    """Whether a forward over ``params`` would be differentiated: grad
+    mode on and a leaf that requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(params, dict):
+        return any(requires_training(v) for v in params.values())
+    return isinstance(params, torch.Tensor) and params.requires_grad
+
+
+def refuse_training(family: str, params, remat: bool, missing: str) -> None:
+    """Raise ``NotImplementedError`` when a forward of ``family`` is asked
+    to run under autograd or with ``remat``: ``missing`` names the backward
+    the port lacks."""
+    if remat or requires_training(params):
+        raise NotImplementedError(
+            f"training the {family} family is not ported: it needs "
+            f"{missing}")
+
+
 def big_attention(q, k, v, *, causal: bool, window: int = 0):
     """Attention of a padded batch. q: (B, S, H, D); k, v: (B, Sk, KV, D),
     Sk != S only for non-causal attention without a window (an encoder's
@@ -222,7 +243,21 @@ def big_attention(q, k, v, *, causal: bool, window: int = 0):
     the flash kernel (it masks the ragged edges, so there is no
     tile-multiple gate); on the CPU the plain version runs
     ``attention_dense`` under the causal/window mask, as the JAX CPU path
-    does."""
+    does.
+
+    Under autograd (grad mode on and q, k or v requiring grad) it is the
+    training path's ``flash_vjp.flash_attention_vjp``: on a GPU the flash
+    kernel with its lse and the hand-written backward; on the CPU, as the
+    JAX CPU path, ``attention_dense`` under autograd up to 1024 tokens and
+    the plain flash VJP (chunks of 512 where they divide) beyond."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        s, sk = q.shape[1], k.shape[1]
+        if q.device.type == "cuda" or max(s, sk) > 1024:
+            return flash_vjp.flash_attention_vjp(
+                q, k, v, causal=causal, window=window,
+                chunk_q=512 if s % 512 == 0 else s,
+                chunk_k=512 if sk % 512 == 0 else sk)
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -2,7 +2,7 @@
 fields carry the JAX package's names, so the serving engine never branches
 on architecture:
 
-  forward(params, batch)                         -> (logits (B, S, V), aux)
+  forward(params, batch, remat=False)            -> (logits (B, S, V), aux)
   prefill(params, batch, cache_len)              -> (last logits (B, V), cache)
   prefill_packed(params, packed, row_len)        -> (seg_logits, packed cache)
   prefill_chunk(params, packed, cache, row_len)  -> (seg_logits, argmax, cache)
@@ -10,6 +10,12 @@ on architecture:
   prepare(params)                                -> params (what an engine
                                                     keeps: derived weights
                                                     made once)
+
+``forward`` is differentiable for the transformer family (dense, experts,
+``vlm``): ``repro_torch.training`` trains through it, ``remat`` running
+each layer under activation checkpointing. The other families' forwards
+raise under autograd or with ``remat``: their backwards (the SSD scan's,
+the encoder-decoder's) are not ported.
 
 ``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device, plus
 ``enc_embeds`` (B, encoder_seq, d_model) for an encoder model (``packed``
@@ -95,8 +101,9 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         device=dev,
         plan=mod.plan(cfg),
         init=init,
-        forward=lambda params, batch: mod.forward(
-            params, cfg, batch["tokens"], *[batch[k] for k in extra]),
+        forward=lambda params, batch, remat=False: mod.forward(
+            params, cfg, batch["tokens"], *[batch[k] for k in extra],
+            remat=remat),
         prefill=lambda params, batch, cache_len: mod.prefill(
             params, cfg, batch["tokens"], cache_len,
             *[batch[k] for k in extra]),

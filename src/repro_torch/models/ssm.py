@@ -233,9 +233,11 @@ def mamba_block_packed(lp, cfg, h, seg_ids, pos, seg_starts, seg_lens,
 # --------------------------------------------------------------------------
 # model-level API
 # --------------------------------------------------------------------------
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, *, remat: bool = False):
     """tokens: (B, S) int -> (logits (B, S, V), aux); aux holds the JAX
     package's two auxiliary losses at 0."""
+    L.refuse_training("ssm", params, remat,
+                      "a backward of the SSD scan (#6 has none)")
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
     for i in range(cfg.num_layers):

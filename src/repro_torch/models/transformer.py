@@ -25,6 +25,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
@@ -73,10 +74,14 @@ def _block(cfg, lp, x, rope, attention, aux: bool = False):
 # --------------------------------------------------------------------------
 # full-sequence forward and padded prefill
 # --------------------------------------------------------------------------
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, *, remat: bool = False):
     """tokens: (B, S) int -> (logits (B, S, V), aux). aux holds the JAX
     package's two keys: each the mean over layers of the experts' value,
-    0 for the dense family."""
+    0 for the dense family. ``remat``: each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    layer's input for the backward and runs the layer again there, as the
+    JAX package wraps its scanned layer in ``jax.checkpoint``. Under
+    autograd the attention is ``flash_vjp``'s (``L.big_attention``)."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
@@ -86,10 +91,18 @@ def forward(params, cfg, tokens):
         return L.cp_attention(cfg, q, k, v, causal=True,
                               window=cfg.sliding_window)
 
+    def layer(lp, x):
+        x, _, _, aux = _block(cfg, lp, x, rope, attention, aux=True)
+        return x, aux
+
     auxes = []
     for i in range(cfg.num_layers):
-        x, _, _, aux = _block(cfg, L.layer_params(params["layers"], i), x,
-                              rope, attention, aux=True)
+        lp = L.layer_params(params["layers"], i)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer, lp, x, use_reentrant=False)
+        else:
+            x, aux = layer(lp, x)
         auxes.append(aux)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.num_experts:

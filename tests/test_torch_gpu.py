@@ -179,15 +179,16 @@ def test_flash_kernel_matches_plain(cuda, h, kv, d, dtype, s, causal,
 def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     """The built bf16 kernels hold Hopper's warpgroup tensor-core
     instructions (HGMMA, from wgmma): the dense and the segment flash
-    kernels in the SASS of all three head dims (64, 128, 112), the paged
+    kernels in the SASS of all three head dims (64, 128, 112), the dense
+    one with and without its lse store (the training path's), the paged
     chunk kernel of both of its own (64, 128), and the SSD scan for both
     chunk tiles (64 and 128 rows) at both state sizes (N 128, 64); their
     float32 bodies hold none."""
     from repro_torch.kernels import build
     counts = build.sass_count("flash_attention", "HGMMA")
-    for name in ("flash_tc_kernel", "segment_tc_kernel"):
+    for name, want in (("flash_tc_kernel", 6), ("segment_tc_kernel", 3)):
         tc = {k: n for k, n in counts.items() if name in k}
-        assert len(tc) == 3 and all(n > 0 for n in tc.values()), counts
+        assert len(tc) == want and all(n > 0 for n in tc.values()), counts
     assert all(n == 0 for k, n in counts.items()
                if k.startswith("_Z12flash_kernel")
                or "segment_flash_kernel" in k), counts
@@ -1134,3 +1135,162 @@ def test_gpu_moe_prefix_cache_and_generate_match_cpu(cuda):
     gens[1].params = engines[1].params
     assert torch.equal(gens[0].generate({"tokens": tokens}, 9).cpu(),
                        gens[1].generate({"tokens": tokens}, 9))
+
+
+# ---------------------------------------------------------------------------
+# training: #5's lse and the flash backward (flash_attention_bwd)
+# ---------------------------------------------------------------------------
+# the backward against its plain version: max |kernel - plain| <= this
+# times max(1, max |plain|), per gradient (float32: sums of up to S terms
+# in another order; bfloat16: both widen the same inputs and sum in
+# float32, each rounds its gradients once)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BWD_CASES = [
+    # (b, s, sk, h, kv, d, causal, window)
+    (2, 300, 300, 14, 2, 64, True, 0),        # qwen2-0.5b heads, ragged
+    (1, 257, 257, 16, 16, 128, True, 0),      # olmo-1b heads
+    (2, 200, 200, 4, 2, 64, True, 50),        # window
+    (2, 100, 260, 4, 4, 128, False, 0),       # cross: Sk != S
+    (1, 1, 1, 2, 1, 64, True, 0),
+    (1, 65, 65, 2, 2, 128, True, 0),
+]
+
+
+def _bwd_inputs(cuda, dtype, b, s, sk, h, kv, d):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = _randn(gen, (b, s, h, d), dtype, cuda)
+    k = _randn(gen, (b, sk, kv, d), dtype, cuda)
+    v = _randn(gen, (b, sk, kv, d), dtype, cuda)
+    dout = _randn(gen, (b, s, h, d), dtype, cuda)
+    return q, k, v, dout
+
+
+def _close(got, want, tol):
+    scale = max(1.0, float(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,sk,h,kv,d,causal,window", BWD_CASES)
+def test_flash_lse_and_backward_match_plain(cuda, dtype, b, s, sk, h, kv, d,
+                                            causal, window):
+    """#5's lse equals the plain forward's, and ``flash_attention_bwd``
+    from #5's output and lse equals ``flash_bwd_plain`` from the same
+    inputs, gradient by gradient."""
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, dtype, b, s, sk, h, kv, d)
+    kw = dict(causal=causal, window=window)
+    out, lse = FA.flash_attention_cuda(q, k, v, lse=True, **kw)
+    _, lse_plain = FV.flash_fwd_plain(q, k, v, **kw)
+    assert _close(lse, lse_plain, BWD_TOL[dtype] / 10)
+    got = FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    want = FV.flash_bwd_plain(q, k, v, out, dout, lse, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        assert _close(g, w, BWD_TOL[dtype])
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """No float atomics: two float32 runs give the same bits."""
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, "float32", 2, 300, 300, 14, 2, 64)
+    out, lse = FA.flash_attention_cuda(q, k, v, lse=True)
+    a = FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    b = FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_vjp_on_the_card_matches_the_plain_route(cuda, dtype):
+    """``flash_attention_vjp`` on CUDA tensors (#5 with its lse, then the
+    backward) gives the plain route's output and gradients, launching each
+    kernel once."""
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 300, 300, 14, 2, 64)
+    grads = {}
+    for route in ("cuda", "cpu"):
+        xs = [x.detach().to(route).requires_grad_(True) for x in (q, k, v)]
+        ops.reset_launch_counts()
+        out = FV.flash_attention_vjp(*xs, causal=True)
+        out.backward(dout.to(route))
+        if route == "cuda":
+            counts = ops.launch_counts()
+            assert counts["flash_attention"] == 1
+            assert counts["flash_attention_bwd"] == 1
+        grads[route] = [out.detach()] + [x.grad for x in xs]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert _close(g.cpu(), w, BWD_TOL[dtype])
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """A kernel's output would carry no gradient: every wrapper raises
+    under grad mode when an operand requires grad, and runs under
+    ``torch.no_grad()``."""
+    q, k, v, _ = _bwd_inputs(cuda, "float32", 1, 64, 64, 2, 2, 64)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="gradient"):
+        FA.flash_attention_cuda(q, k, v)
+    with torch.no_grad():
+        FA.flash_attention_cuda(q, k, v)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="gradient"):
+        DA.decode_attention_cuda(q[:, 0], k, v, lengths)
+
+
+def test_flash_backward_without_queries_gives_zero_key_grads(cuda):
+    """Non-causal, no query over 64 keys: dk and dv are zeros."""
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, "float32", 2, 0, 64, 4, 2, 64)
+    lse = torch.empty((2, 4, 0), dtype=torch.float32, device=cuda)
+    dq, dk, dv = FV.flash_attention_bwd_cuda(q, k, v, torch.zeros_like(q),
+                                             dout, lse, causal=False)
+    assert dq.shape == q.shape
+    assert not dk.any() and not dv.any()
+
+
+def test_flash_backward_refuses_head_dim_112(cuda):
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, "float32", 1, 64, 64, 2, 2, 112)
+    out, lse = FA.flash_attention_cuda(q, k, v, lse=True)
+    with pytest.raises(ValueError, match="head_dim 112"):
+        FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "granite-moe"])
+def test_gpu_training_loss_and_grads_match_cpu(cuda, name):
+    """One ``lm_loss`` and its gradients on the card (the kernels, remat
+    on) and on the CPU (the plain versions), float32, reduced config at
+    S 1100 (past 1024: the CPU takes the plain flash VJP): the loss within
+    1e-5 relative, every gradient leaf within 1e-4 of its max |value|."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = get_config(name).reduced()
+    out = {}
+    weights = build_model(cfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    for dev in ("cuda", "cpu"):
+        api = build_model(cfg, dev)
+        params = _tree(weights,
+                       lambda t: t.detach().to(dev).requires_grad_(True))
+        batch = next(iter(TokenPipeline(cfg, DataConfig(2, 1100), dev)))
+        metrics, grads = loss_and_grads(api, params, batch, remat=True)
+        out[dev] = (metrics, grads)
+    lg, lc = float(out["cuda"][0]["loss"]), float(out["cpu"][0]["loss"])
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for path, g, w in _pairs(out["cuda"][1], out["cpu"][1]):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-30), path
+
+
+def _tree(t, fn):
+    if isinstance(t, dict):
+        return {k: _tree(v, fn) for k, v in t.items()}
+    return fn(t)
+
+
+def _pairs(a, b, path=""):
+    if isinstance(a, dict):
+        return [x for k in a for x in _pairs(a[k], b[k], f"{path}/{k}")]
+    return [(path, a, b)]
