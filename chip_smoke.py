@@ -289,15 +289,18 @@ PORT_SYMBOLS = {
     "decode_attention": ("decode_split_kernel", "combine_splits"),
     "flash_attention": ("flash_kernel", "flash_tc_kernel"),
     "ssd_scan": ("ssd_kernel", "ssd_tc_kernel"),
-    "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+    "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                            "dkdv_tc_kernel", "dq_tc_kernel")}
 # the bf16 kernels that must run on the tensor cores (wgmma: HGMMA in their
 # SASS): library -> (name fragment, instantiations): #2 and #5 at D 64,
 # 128 and 112 (#5 with and without its lse store), #3 at D 64 and 128, #6
-# at chunk tiles of 64 and 128 rows for N 128 and 64
+# at chunk tiles of 64 and 128 rows for N 128 and 64, #7's dK/dV and dQ
+# kernels at D 64 and 128
 TENSOR_CORE_KERNELS = {
     "flash_attention": (("flash_tc_kernel", 6), ("segment_tc_kernel", 3)),
     "chunk_attention": (("chunk_tc_kernel", 2),),
-    "ssd_scan": (("ssd_tc_kernel", 4),)}
+    "ssd_scan": (("ssd_tc_kernel", 4),),
+    "flash_backward": (("dkdv_tc_kernel", 2), ("dq_tc_kernel", 2))}
 # device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
 # longer than the host takes to queue its runs
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -761,7 +764,11 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
                r["max_abs_err"] for r in rows
                if r["shape"] == "main" or r["model"] == "whisper-small"}
            | {f"flash_attention_bwd/{r['model']}/{r['dtype']}": r["errs"]
-              for r in bwd_rows}})
+              for r in bwd_rows},
+           "bwd_bf16_vs_f32_plain": {
+               r["model"]: {"kernel": r["errs_vs_f32"],
+                            "sdpa": r["sdpa_errs_vs_f32"]}
+               for r in bwd_rows if "errs_vs_f32" in r}})
     assert not bad, f"kernel disagrees with its plain version: {bad}"
     return rows, summary
 
@@ -784,7 +791,8 @@ BWD_EDGES = [(f"S {s}", HEADS["qwen2-0.5b"], 2, s, s, True, 0)
 # max |kernel - plain| <= this * max(1, max |plain|), per gradient; the lse
 # within a tenth of it (float32: sums of up to S terms in another order;
 # bfloat16: both widen the same bf16 inputs, sum in float32 and round each
-# gradient once)
+# gradient once, and the kernel's tensor-core products take P and dS
+# rounded to bf16)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BWD_TIMED = "olmo-1b main"       # the kernels line's headline case
 
@@ -831,11 +839,31 @@ def _bwd_case(torch, gen, dev, dtype, h, kv, d, b, s, sk, causal, window):
                 nbytes=nbytes, flops=flops, library=library)
 
 
+def _bwd_f32_errs(torch, c, got):
+    """The kernel's bf16 gradients ``got`` and SDPA's bf16 backward on the
+    same inputs, each against the float32 plain backward of the widened
+    inputs: max |x - plain| per gradient, (kernel's, SDPA's). A reported
+    figure: the library's bf16 error at the same shape."""
+    from repro_torch.kernels import flash_vjp
+    q, k, v, dout = (c[n].float() for n in ("q", "k", "v", "dout"))
+    out, lse = flash_vjp.flash_fwd_plain(q, k, v, **c["kw"])
+    ref = flash_vjp.flash_bwd_plain(q, k, v, out, dout, lse, **c["kw"])
+    lib = [g.transpose(1, 2) for g in c["library"]()()]
+
+    def errs(grads):
+        return {n: float((g.float() - r).abs().max())
+                for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+
+    return errs(got), errs(lib)
+
+
 def _bwd_cases(torch, gen, dev, flush):
     """Each backward case in float32 and bf16: #5's lse against the plain
     forward's, the kernel's dq, dk, dv against the plain backward's from
     the same output and lse; the main cases timed beside their bound, the
-    plain version and SDPA's backward. Returns (rows, the kernels line's
+    plain version and SDPA's backward. Each bf16 row also reports the
+    kernel's and SDPA's errors against the float32 plain backward of the
+    widened inputs (``_bwd_f32_errs``). Returns (rows, the kernels line's
     entry)."""
     from repro_torch.kernels import flash_vjp
     rows, timed = [], {}
@@ -864,6 +892,9 @@ def _bwd_cases(torch, gen, dev, flush):
                        h, kv, d), causal=causal, window=window),
                    "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
                    "errs": errs, "ok": ok}
+            if dname == "bfloat16":
+                row["errs_vs_f32"], row["sdpa_errs_vs_f32"] = _bwd_f32_errs(
+                    torch, c, got)
             rows.append(row)
             if (label, (h, kv, d)) in [(x[0], x[1]) for x in BWD_CASES]:
                 row.update(_timings(lambda: flash_vjp.flash_attention_bwd_cuda(

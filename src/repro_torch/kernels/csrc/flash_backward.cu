@@ -15,10 +15,17 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta)
 //   dQ = scale * dS K,  dK = scale * dS^T Q
 //
-// The design: three kernels, no float atomics, so the gradients are the
+// The design: a delta kernel, then a key-major kernel for dK and dV and a
+// query-major kernel for dQ; no float atomics, so the gradients are the
 // same from run to run.
 //   1. delta_kernel: one warp per (row, head): delta = rowsum(dO * O).
-//   2. dkdv_kernel: one block per key tile of kBK keys of one KV head. It
+//   2. bfloat16 (the training path's type): dkdv_tc_kernel and
+//      dq_tc_kernel of tc_backward.cuh, one warpgroup each, every product
+//      a wgmma on the tensor cores, P and dS rounded to bf16 before their
+//      products, sums in f32 (that header's note says how).
+//   3. float32 (the parity type), on the CUDA cores in float32 FMAs, as
+//      #5 keeps float32 on fold_tile:
+//      dkdv_kernel: one block per key tile of kBK keys of one KV head. It
 //      keeps the tile's K and V in shared memory and dK and dV in float32
 //      registers, and walks the query tiles of every query head of its
 //      GQA group that can see the tile (from the diagonal on when causal,
@@ -26,22 +33,21 @@
 //      dO, lse and delta, recomputes S and dP, writes P and dS to shared
 //      memory and folds P^T dO and dS^T Q into its accumulators. A group's
 //      heads sum in the block: no repeated K/V and no later reduction.
-//   3. dq_kernel: one block per query tile of one head; it walks the key
+//      dq_kernel: one block per query tile of one head; it walks the key
 //      tiles the tile can see, recomputes S, dP and dS and folds dS K into
 //      float32 registers.
-// Both tile kernels run 256 threads as a 16 x 16 grid: a 64 x 64 product
-// gives each thread 4 x 4 elements (rows ty + 16i, columns tx + 16j), a
-// 64 x D accumulator 4 x D/16. Every operand sits in shared memory as
-// float32 in rows padded to D + 1 (or kBK + 1) floats, so a half-warp's 16
-// rows fall in 16 banks; the products are float32 FMAs on the CUDA cores
-// for both input types (bfloat16 is widened on load, the gradients are
-// rounded once on store). What bounds it: operations. Per visible pair it
-// does 7 D-long dot products (S and dP twice, dV, dK, dQ), on the CUDA
-// cores at a share of their 67 TFLOP/s float32 peak; the tensor cores
-// (wgmma, as #5's forward) are later work.
+//      Both run 256 threads as a 16 x 16 grid: a 64 x 64 product gives
+//      each thread 4 x 4 elements (rows ty + 16i, columns tx + 16j), a
+//      64 x D accumulator 4 x D/16. Every operand sits in shared memory as
+//      float32 in rows padded to D + 1 (or kBK + 1) floats, so a
+//      half-warp's 16 rows fall in 16 banks. Per visible pair they do 7
+//      D-long dot products (S and dP twice, dV, dK, dQ) at a share of the
+//      CUDA cores' 67 TFLOP/s float32 peak.
+// What bounds it: operations.
 #include <cstdint>
 
 #include "attn_common.cuh"
+#include "tc_backward.cuh"
 
 namespace bwd {
 
@@ -88,20 +94,14 @@ __device__ __forceinline__ void load_rows(float (*dst)[D + 1],
   }
 }
 
-struct Visible {
-  int S, Sk, causal, window;
-  __device__ __forceinline__ bool operator()(int i, int j) const {
-    return i < S && j < Sk && (!causal || j <= i) &&
-           (window <= 0 || i - j < window);
-  }
-};
+using tcbwd::Pairs;
 
 // The 4 x 4 elements of S = Q K^T and dP = dO V^T this thread owns, rows
 // ty + 16i of the query tile, columns tx + 16j of the key tile; then P and
 // dS of them, stored to shared memory (P only where store_p).
 template <int D>
 __device__ __forceinline__ void scores(Smem<D>& sm, int q0, int k0,
-                                       float scale, Visible vis,
+                                       float scale, Pairs vis,
                                        bool store_p) {
   const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
   float s[4][4], dp[4][4];
@@ -137,7 +137,7 @@ __device__ __forceinline__ void scores(Smem<D>& sm, int q0, int k0,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + kTile * j;
-      const float p = vis(q0 + r, k0 + c) ? expf(s[i][j] * scale - lse)
+      const float p = vis.visible(q0 + r, k0 + c) ? expf(s[i][j] * scale - lse)
                                            : 0.f;
       if (store_p) sm.p[r][c] = p;
       sm.ds[r][c] = p * (dp[i][j] - delta);
@@ -210,7 +210,7 @@ dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const T* __restrict__ q,
   // causal, up to the window's end when windowed
   const int q_first = causal ? k0 : 0;
   const int q_end = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
-  const Visible vis{S, Sk, causal, window};
+  const Pairs vis{S, Sk, causal, window};
   const int group = H / KV;
   for (int hh = 0; hh < group; ++hh) {
     const int h = g * group + hh;
@@ -286,7 +286,7 @@ dq_kernel(T* __restrict__ dq, const T* __restrict__ q,
   // keys [first, last], as in the forward
   const int first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int last = causal ? min(q_last, Sk - 1) : Sk - 1;
-  const Visible vis{S, Sk, causal, window};
+  const Pairs vis{S, Sk, causal, window};
   for (int kt = first / kBK; kt <= last / kBK; ++kt) {
     const int k0 = kt * kBK;
     const long long koff = (((long long)b * Sk + k0) * KV + g) * D;
@@ -333,27 +333,52 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 }
 
 template <typename T, int D>
-static cudaError_t run(void* dq, void* dk, void* dv, float* delta,
-                       const void* q, const void* k, const void* v,
-                       const void* out, const void* dout, const float* lse,
-                       int B, int S, int Sk, int H, int KV, int causal,
-                       int window, float scale, cudaStream_t stream) {
+static cudaError_t launch_delta(float* delta, const void* out,
+                                const void* dout, int B, int S, int H,
+                                cudaStream_t stream) {
   const long long rows = (long long)B * S * H;
   const int warps = kThreads / 32;
   delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
                        stream>>>(delta, (const T*)out, (const T*)dout, B, S,
                                  H);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int D>
+static cudaError_t run_f32(void* dq, void* dk, void* dv, float* delta,
+                           const void* q, const void* k, const void* v,
+                           const void* out, const void* dout,
+                           const float* lse, int B, int S, int Sk, int H,
+                           int KV, int causal, int window, float scale,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_delta<float, D>(delta, out, dout, B, S, H, stream);
   if (err != cudaSuccess) return err;
-  err = launch(dkdv_kernel<T, D>, dim3((Sk + kBK - 1) / kBK, KV, B),
-               smem_bytes<D>(), stream, (T*)dk, (T*)dv, (const T*)q,
-               (const T*)k, (const T*)v, (const T*)dout, lse,
-               (const float*)delta, S, Sk, H, KV, causal, window, scale);
+  err = launch(dkdv_kernel<float, D>, dim3((Sk + kBK - 1) / kBK, KV, B),
+               smem_bytes<D>(), stream, (float*)dk, (float*)dv,
+               (const float*)q, (const float*)k, (const float*)v,
+               (const float*)dout, lse, (const float*)delta, S, Sk, H, KV,
+               causal, window, scale);
   if (err != cudaSuccess) return err;
-  return launch(dq_kernel<T, D>, dim3((S + kBQ - 1) / kBQ, H, B),
-                smem_bytes<D>(), stream, (T*)dq, (const T*)q, (const T*)k,
-                (const T*)v, (const T*)dout, lse, (const float*)delta, S, Sk,
-                H, KV, causal, window, scale);
+  return launch(dq_kernel<float, D>, dim3((S + kBQ - 1) / kBQ, H, B),
+                smem_bytes<D>(), stream, (float*)dq, (const float*)q,
+                (const float*)k, (const float*)v, (const float*)dout, lse,
+                (const float*)delta, S, Sk, H, KV, causal, window, scale);
+}
+
+template <int D>
+static cudaError_t run_bf16(void* dq, void* dk, void* dv, float* delta,
+                            const void* q, const void* k, const void* v,
+                            const void* out, const void* dout,
+                            const float* lse, int B, int S, int Sk, int H,
+                            int KV, int causal, int window, float scale,
+                            cudaStream_t stream) {
+  typedef __nv_bfloat16 bf16;
+  cudaError_t err = launch_delta<bf16, D>(delta, out, dout, B, S, H, stream);
+  if (err != cudaSuccess) return err;
+  return tcbwd::run<D>((bf16*)dq, (bf16*)dk, (bf16*)dv, delta,
+                       (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                       (const bf16*)dout, lse, B, S, Sk, H, KV, causal,
+                       window, scale, stream);
 }
 
 }  // namespace bwd
@@ -377,13 +402,13 @@ extern "C" int flash_attention_bwd(void* dq, void* dk, void* dv, void* delta,
   if (H % KV) return cudaErrorInvalidValue;
   float* dl = (float*)delta;
   const float* ls = (const float*)lse;
-#define BWD_RUN(T, DD)                                                     \
-  return bwd::run<T, DD>(dq, dk, dv, dl, q, k, v, out, dout, ls, B, S, Sk, \
-                         H, KV, causal, window, scale, s)
-  if (D == 64 && dtype == 0) BWD_RUN(float, 64);
-  if (D == 64 && dtype == 1) BWD_RUN(__nv_bfloat16, 64);
-  if (D == 128 && dtype == 0) BWD_RUN(float, 128);
-  if (D == 128 && dtype == 1) BWD_RUN(__nv_bfloat16, 128);
+#define BWD_RUN(F)                                                       \
+  return bwd::F(dq, dk, dv, dl, q, k, v, out, dout, ls, B, S, Sk, H, KV, \
+                causal, window, scale, s)
+  if (D == 64 && dtype == 0) BWD_RUN(run_f32<64>);
+  if (D == 64 && dtype == 1) BWD_RUN(run_bf16<64>);
+  if (D == 128 && dtype == 0) BWD_RUN(run_f32<128>);
+  if (D == 128 && dtype == 1) BWD_RUN(run_bf16<128>);
 #undef BWD_RUN
   return cudaErrorInvalidValue;
 }

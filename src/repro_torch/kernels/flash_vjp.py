@@ -11,7 +11,9 @@ its two routes:
   and the (B, H, S) float32 log-sum-exp) and whose backward is the
   hand-written ``csrc/flash_backward.cu`` (``flash_attention_bwd_cuda``):
   a ``delta = rowsum(dO * O)`` kernel, a key-major kernel for dK and dV and
-  a query-major kernel for dQ, all on the CUDA cores, no float atomics;
+  a query-major kernel for dQ, no float atomics; bfloat16 runs the last
+  two on the tensor cores (``wgmma``, ``csrc/tc_backward.cuh``), float32
+  on the CUDA cores;
 * on the CPU, the same Function shape over the plain versions
   ``flash_fwd_plain`` and ``flash_bwd_plain``: ``_fwd_impl`` and
   ``_bwd_impl`` on tensors, with the same chunked recomputation, the same
@@ -238,6 +240,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
         raise ValueError("q, k, v, out and dout must share one dtype")
     if lse.dtype != torch.float32:
         raise ValueError("lse must be float32")
+    if q.dtype == torch.bfloat16:      # the tensor-core kernels' cp.async
+        build.check_aligned("flash_attention_bwd", q=q, k=k, v=v, dout=dout)
     # with no query the kernel writes nothing, and dk, dv are zeros
     alloc = torch.zeros_like if s == 0 else torch.empty_like
     dq, dk, dv = torch.empty_like(q), alloc(k), alloc(v)

@@ -17,6 +17,7 @@ engine that replays CUDA graphs and one that runs the same steps eagerly
 must agree bit for bit: same kernels, same inputs.
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -182,7 +183,8 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     kernels in the SASS of all three head dims (64, 128, 112), the dense
     one with and without its lse store (the training path's), the paged
     chunk kernel of both of its own (64, 128), and the SSD scan for both
-    chunk tiles (64 and 128 rows) at both state sizes (N 128, 64); their
+    chunk tiles (64 and 128 rows) at both state sizes (N 128, 64), and
+    the flash backward's dK/dV and dQ kernels at D 64 and 128; their
     float32 bodies hold none."""
     from repro_torch.kernels import build
     counts = build.sass_count("flash_attention", "HGMMA")
@@ -201,6 +203,11 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     tc = {k: n for k, n in ssd.items() if "ssd_tc_kernel" in k}
     assert len(tc) == 4 and all(n > 0 for n in tc.values()), ssd
     assert all(n == 0 for k, n in ssd.items() if "ssd_kernel" in k), ssd
+    bwd = build.sass_count("flash_backward", "HGMMA")
+    for name in ("dkdv_tc_kernel", "dq_tc_kernel"):
+        tc = {k: n for k, n in bwd.items() if name in k}
+        assert len(tc) == 2 and all(n > 0 for n in tc.values()), bwd
+    assert all(n == 0 for k, n in bwd.items() if "_tc_kernel" not in k), bwd
 
 
 @pytest.mark.parametrize("h,kv,d", HEADS_112)
@@ -304,7 +311,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
-    """#1, #3, #4 and the bf16 #2, #5 and #6 read 16-byte vectors: a
+    """#1, #3, #4 and the bf16 #2, #5, #6 and #7 read 16-byte vectors: a
     contiguous view at an odd offset raises instead of faulting."""
     flat = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
     kc = flat[1:].view(2, 64, 2, 64)
@@ -332,6 +339,10 @@ def test_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
     a = -torch.ones(2, device=cuda)
     with pytest.raises(ValueError, match="16-byte boundary"):
         SSD.ssd_scan_cuda(xs, dt, a, bc, bc, 16)
+    from repro_torch.kernels import flash_vjp as FV
+    lse = torch.zeros(2, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        FV.flash_attention_bwd_cuda(x, x, x, x, x, lse)
 
 
 @pytest.mark.parametrize("h,kv,d", [(8, 4, 64), (16, 4, 128), (18, 2, 64)])
@@ -1143,11 +1154,13 @@ def test_gpu_moe_prefix_cache_and_generate_match_cpu(cuda):
 # the backward against its plain version: max |kernel - plain| <= this
 # times max(1, max |plain|), per gradient (float32: sums of up to S terms
 # in another order; bfloat16: both widen the same inputs and sum in
-# float32, each rounds its gradients once)
+# float32, the kernel's tensor-core products take P and dS rounded to
+# bf16, each rounds its gradients once)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BWD_CASES = [
     # (b, s, sk, h, kv, d, causal, window)
     (2, 300, 300, 14, 2, 64, True, 0),        # qwen2-0.5b heads, ragged
+    (2, 1000, 1000, 14, 2, 64, True, 0),      # 16 query tiles, group of 7
     (1, 257, 257, 16, 16, 128, True, 0),      # olmo-1b heads
     (2, 200, 200, 4, 2, 64, True, 50),        # window
     (2, 100, 260, 4, 4, 128, False, 0),       # cross: Sk != S
@@ -1191,10 +1204,11 @@ def test_flash_lse_and_backward_match_plain(cuda, dtype, b, s, sk, h, kv, d,
         assert _close(g, w, BWD_TOL[dtype])
 
 
-def test_flash_backward_is_deterministic(cuda):
-    """No float atomics: two float32 runs give the same bits."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """No float atomics: two runs give the same bits, in both types."""
     from repro_torch.kernels import flash_vjp as FV
-    q, k, v, dout = _bwd_inputs(cuda, "float32", 2, 300, 300, 14, 2, 64)
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 300, 300, 14, 2, 64)
     out, lse = FA.flash_attention_cuda(q, k, v, lse=True)
     a = FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
     b = FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
@@ -1221,6 +1235,32 @@ def test_flash_vjp_on_the_card_matches_the_plain_route(cuda, dtype):
         grads[route] = [out.detach()] + [x.grad for x in xs]
     for g, w in zip(grads["cuda"], grads["cpu"]):
         assert _close(g.cpu(), w, BWD_TOL[dtype])
+
+
+# the device functions a backward launches, by type: bf16 on the tensor
+# cores (tc_backward.cuh), float32 on the CUDA cores
+BWD_SYMBOLS = {"bfloat16": {"delta_kernel", "dkdv_tc_kernel", "dq_tc_kernel"},
+               "float32": {"delta_kernel", "dkdv_kernel", "dq_kernel"}}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_vjp_backward_launches_the_kernels_of_its_type(cuda, dtype):
+    """A backward of ``flash_attention_vjp`` at olmo-1b heads launches the
+    delta kernel and, in bf16, the tensor-core dK/dV and dQ kernels, in
+    float32 the CUDA-core ones, and no other device function of #7."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 1, 257, 257, 16, 16, 128)
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = FV.flash_attention_vjp(*xs, causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.backward(dout)
+        torch.cuda.synchronize()
+    names = {m.group(1) for m in (re.search(r"(\w+)[<(]", e.name)
+                                  for e in prof.events()) if m}
+    every = set().union(*BWD_SYMBOLS.values())
+    assert names & every == BWD_SYMBOLS[dtype], names
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):

@@ -8,7 +8,8 @@ decode and dense flash kernels of ring slots and ``generate``, and the
 SSD scan of the Mamba2 family (its chunked plain version against the JAX
 CPU path, the interpret-mode Pallas kernel and the sequential oracle; and
 the bf16 kernel's number scheme, emulated in plain PyTorch, against the
-gates the card applies to the kernel).
+gates the card applies to the kernel); and the bf16 flash backward's
+number scheme, emulated the same way, against the card's gate.
 
 Tolerance: 2e-5 absolute against the interpret-mode kernels (their online
 softmax sums in another order, as the JAX tests allow), 1e-5 against the
@@ -789,6 +790,74 @@ def test_ssd_bf16_number_scheme_meets_the_card_gates(scheme):
         assert y_ok and s_ok, (y_ok, s_err)
     else:
         assert not (y_ok and s_ok), f"{scheme} passes both gates"
+
+
+# The bf16 flash backward's number scheme (csrc/tc_backward.cuh): bf16 Q,
+# K, V, dO and O; S, dP and delta in float32; P = exp2(S·scale·log2 e -
+# lse·log2 e) under the mask; dS = P (dP - delta) from the float32 P; P and
+# dS rounded to bf16 before the products that take them (dV = P^T·dO,
+# dK = dS^T·Q, dQ = dS·K), sums in float32, each gradient rounded once.
+# The variant also rounds dP - delta to bf16 before dS forms. The gate is
+# the card's (chip_smoke.py BWD_TOL, test_torch_gpu.py): 1e-2 of
+# max(1, max |plain|) per gradient.
+BWD_BF16_SCHEMES = {"kernel": False, "dP - delta rounded too": True}
+BWD_BF16_HEADS = {"qwen2-0.5b": (2, 300, 14, 2, 64),
+                  "olmo-1b": (1, 257, 16, 16, 128)}
+
+
+def _flash_bwd_bf16_emulated(q, k, v, out, dout, lse, causal, window,
+                             round_dp_delta=False):
+    """The bf16 backward kernels' arithmetic in plain PyTorch on the CPU,
+    GQA by repeating the KV heads (dK, dV sum their group) -> (dq, dk, dv)
+    bf16."""
+    from repro_torch.kernels import flash_vjp as FV
+    b, s, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    scale, log2e = 1.0 / math.sqrt(d), 1.4426950408889634
+    qf, dof = q.float(), dout.float()
+    kf, vf = (x.float().repeat_interleave(rep, dim=2) for x in (k, v))
+    mask = FV._mask(torch.arange(s)[:, None], torch.arange(sk)[None, :],
+                    causal, window)
+    st = torch.einsum("bihd,bjhd->bhij", qf, kf)
+    p = torch.where(mask, torch.exp2(st * (scale * log2e)
+                                     - (lse * log2e)[..., None]), 0.0)
+    delta = torch.einsum("bihd,bihd->bhi", dof, out.float())
+    dpd = torch.einsum("bihd,bjhd->bhij", dof, vf) - delta[..., None]
+    if round_dp_delta:
+        dpd = _bf16(dpd)
+    ds = _bf16(p * dpd)
+    dv = torch.einsum("bhij,bihd->bjhd", _bf16(p), dof)
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qf) * scale
+    dq = torch.einsum("bhij,bjhd->bihd", ds, kf) * scale
+    return (dq.bfloat16(), dk.reshape(b, sk, kvh, rep, d).sum(3).bfloat16(),
+            dv.reshape(b, sk, kvh, rep, d).sum(3).bfloat16())
+
+
+@pytest.mark.parametrize("heads", list(BWD_BF16_HEADS))
+@pytest.mark.parametrize("scheme", list(BWD_BF16_SCHEMES))
+def test_flash_bwd_bf16_number_scheme_meets_the_card_gate(scheme, heads):
+    """At qwen2-0.5b heads (B 2, S 300) and olmo-1b heads (B 1, S 257),
+    causal, the kernels' scheme keeps dq, dk and dv within the card's bf16
+    gate of ``flash_bwd_plain`` (which the flash-VJP tests hold against
+    the JAX ``flash_attention_vjp``) from the same bf16 inputs, output and
+    lse; so does the variant that also rounds dP - delta: the gate leaves
+    room for one more bf16 rounding of the scheme."""
+    from repro_torch.kernels import flash_vjp as FV
+    b, s, h, kv, d = BWD_BF16_HEADS[heads]
+    rng = np.random.default_rng(25)
+    q, k, v, dout = (_t(rng.standard_normal(shape, np.float32)).bfloat16()
+                     for shape in ((b, s, h, d), (b, s, kv, d),
+                                   (b, s, kv, d), (b, s, h, d)))
+    out, lse = FV.flash_fwd_plain(q, k, v, causal=True)
+    want = FV.flash_bwd_plain(q, k, v, out, dout, lse, causal=True)
+    got = _flash_bwd_bf16_emulated(q, k, v, out, dout, lse, True, 0,
+                                   BWD_BF16_SCHEMES[scheme])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 1e-2 * max(1.0, float(w.float().abs().max())), \
+            (name, err)
 
 
 def test_ops_ssd_routes_cpu_tensors_to_the_plain_version():
