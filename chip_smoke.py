@@ -11,7 +11,7 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases aj  # kernels and whisper-small
     python3 chip_smoke.py --phases ak  # kernels and the experts
     python3 chip_smoke.py --phases al  # kernels and the hybrid family
-    python3 chip_smoke.py --phases am  # kernels and training
+    python3 chip_smoke.py --phases am  # kernels and training (every family)
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` and runs thirteen phases, each printing one JSON line:
@@ -39,8 +39,9 @@ with ``nvcc`` and runs thirteen phases, each printing one JSON line:
       log-sum-exp against the plain backward (dq, dk, dv) and #5's lse
       against the plain forward's, at qwen2-0.5b's heads (8 x 2048
       causal), olmo-1b's (4 x 2048 causal), a ragged S 1000, a window
-      of 512 and whisper's cross shape (8 x 224 queries over 1536
-      keys), plus short ragged edges; times every
+      of 512, whisper's cross shape (8 x 224 queries over 1536 keys)
+      and zamba2-7b's shared attention (32 heads of 112, 4 x 2048
+      causal), plus short ragged edges (one at D 112); times every
       case's kernel, plain
       version and, where one PyTorch call computes the same function, that
       call (``scaled_dot_product_attention``, a yardstick the port never
@@ -157,7 +158,7 @@ with ``nvcc`` and runs thirteen phases, each printing one JSON line:
   (m) training through ``repro_torch.launch.train.main``, bfloat16
       compute over float32 parameters, remat on, seeded weights: (m1)
       qwen2-0.5b whole (24 layers, d_model 896, 14 / 2 heads of 64,
-      vocabulary 151,936) on 30 steps of 8 x 2048 of the pipeline's
+      vocabulary 151,936) on 10 steps of 8 x 2048 of the pipeline's
       stream; every loss finite, the mean of the last 5 at least 1.0 nat
       below the first; s/step, tokens/s, peak allocation, the model-FLOPs
       share of the step; every step launches exactly #5 and the backward,
@@ -165,7 +166,17 @@ with ``nvcc`` and runs thirteen phases, each printing one JSON line:
       (m3) ``training/checkpoint`` on the card: (m1)'s parameters saved,
       loaded back bit for bit, ``eval_step``'s loss the same before and
       after, then one more step profiled; (m2) olmo-1b whole (16 layers,
-      16 heads of 128) on 10 steps of 4 x 2048, the same gates;
+      16 heads of 128) on 10 steps of 4 x 2048, the same gates; (m4)
+      mamba2-1.3b whole (48 layers) on 10 steps of 4 x 2048: #6 alone
+      launches, twice a layer a step (remat; the SSD Function's
+      forward), one more step profiled by kernel and by kind, and one
+      layer's plain SSD backward alone (its share of the step); (m5)
+      zamba2-7b at 12 of its 81 layers (two invocations of the shared
+      block; all 81 layers' weights, gradients and AdamW moments, ~108
+      GB, do not fit) on 10 steps of 4 x 2048: #6, #5 and #7 (D 112);
+      (m6) whisper-small whole (12 + 12 layers, 1,536 frames) on 10
+      steps of 8 x 448: #5 and #7 at the encoder, the decoder's
+      self-attention and the cross-attention; the same gates;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -192,11 +203,14 @@ with ``nvcc`` and runs thirteen phases, each printing one JSON line:
       one packed prefill's logits, SSM states and packed K/V within 1e-3
       of each leaf's scale, a paged serve with recomputed continuations
       and ``generate`` — identical greedy streams; training: one step's
-      loss and gradients (``loss_and_grads``, remat on) of qwen2-0.5b and
-      granite-moe (its aux loss included) at full width cut to 2 layers,
-      B 2 x S 1536 (the CPU runs the plain flash VJP), the loss within
-      1e-5 relative and every gradient leaf within 1e-4 of its max
-      |value|.
+      loss and gradients (``loss_and_grads``, remat on) of qwen2-0.5b,
+      granite-moe (its aux loss included) and mamba2-1.3b at full width
+      cut to 2 layers, B 1, 1 and 2 x S 1536 (the CPU runs the plain
+      flash VJP),
+      zamba2-7b at 6 layers (one invocation, #7 at D 112), B 1 x 1024,
+      and whisper-small at 2 + 2 layers, B 2 x 448: the loss within 1e-5
+      relative, every gradient leaf within 1e-4 of its max |value|, and
+      the family's kernels launched.
 
 Every path of (b), (d), (e), (f), (j1)-(j3), (k1)-(k3) and (l1)-(l2)
 runs on one engine that
@@ -215,10 +229,11 @@ and (f), plus the four serves of (g), the first graphed cache-on and
 speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
 serve, (j)'s, (k)'s and (l)'s first graphed turns, (l3)'s first timed
-``generate`` and their pool serves, and (m1)'s and (m2)'s training steps;
+``generate`` and their pool serves, and (m1)'s, (m2)'s and (m4)-(m6)'s
+training steps;
 #1, #2, #4, #5 and #6 carry
-zamba2's cases, #5 whisper's and the backward its further shapes under
-``cases``), the card's name and
+zamba2's cases, #5 whisper's and the backward its further shapes, D 112
+among them, under ``cases``), the card's name and
 power
 limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises
@@ -295,12 +310,12 @@ PORT_SYMBOLS = {
 # SASS): library -> (name fragment, instantiations): #2 and #5 at D 64,
 # 128 and 112 (#5 with and without its lse store), #3 at D 64 and 128, #6
 # at chunk tiles of 64 and 128 rows for N 128 and 64, #7's dK/dV and dQ
-# kernels at D 64 and 128
+# kernels at D 64, 128 and 112
 TENSOR_CORE_KERNELS = {
     "flash_attention": (("flash_tc_kernel", 6), ("segment_tc_kernel", 3)),
     "chunk_attention": (("chunk_tc_kernel", 2),),
     "ssd_scan": (("ssd_tc_kernel", 4),),
-    "flash_backward": (("dkdv_tc_kernel", 2), ("dq_tc_kernel", 2))}
+    "flash_backward": (("dkdv_tc_kernel", 3), ("dq_tc_kernel", 3))}
 # device cycles of the sleep ahead of a timed run (~10 ms at H100 clocks):
 # longer than the host takes to queue its runs
 QUEUE_SLEEP_CYCLES = 20_000_000
@@ -778,16 +793,19 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
 # --------------------------------------------------------------------------
 # (label, heads (H, KV, D), B, S, Sk, causal, window): qwen2-0.5b and
 # olmo-1b at a training step's shape, a ragged S, a window, whisper's
-# cross shape; then correctness-only ragged edges
+# cross shape, zamba2-7b's shared attention (32 heads of 112) at (m5)'s
+# shape; then correctness-only ragged edges
 BWD_CASES = [
     ("qwen2-0.5b main", HEADS["qwen2-0.5b"], 8, 2048, 2048, True, 0),
     ("olmo-1b main", HEADS["olmo-1b"], 4, 2048, 2048, True, 0),
     ("ragged 1000", HEADS["qwen2-0.5b"], 8, 1000, 1000, True, 0),
     ("window 512", HEADS["olmo-1b"], 4, 2048, 2048, True, 512),
-    ("whisper cross", WHISPER_HEADS, 8, 224, 1536, False, 0)]
+    ("whisper cross", WHISPER_HEADS, 8, 224, 1536, False, 0),
+    ("zamba2-7b main", ZAMBA_HEADS, 4, 2048, 2048, True, 0)]
 BWD_EDGES = [(f"S {s}", HEADS["qwen2-0.5b"], 2, s, s, True, 0)
              for s in (1, 63, 65, 129)] + [
-    ("cross S 70 Sk 130", HEADS["olmo-1b"], 2, 70, 130, False, 0)]
+    ("cross S 70 Sk 130", HEADS["olmo-1b"], 2, 70, 130, False, 0),
+    ("D 112 S 130 window 40", (4, 2, 112), 2, 130, 130, True, 40)]
 # max |kernel - plain| <= this * max(1, max |plain|), per gradient; the lse
 # within a tenth of it (float32: sums of up to S terms in another order;
 # bfloat16: both widen the same bf16 inputs, sum in float32 and round each
@@ -1277,12 +1295,38 @@ def _profile(torch, run, top: int = 12):
                 sym["count"] += count
     kernels.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in kernels)
+    by_kind = {}
+    for key, (ms, _) in totals.items():
+        kind = _kind(key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     _log(f"profiled in {time.perf_counter() - t1:.1f} s")
     return out, {"wall_ms": 1e3 * wall, "device_ms": device_ms,
                  "device_busy_share": device_ms / (1e3 * wall),
                  "top": [{"kernel": k, "ms": ms, "count": n}
                          for ms, n, k in kernels[:top]],
-                 "port_kernels": port}
+                 "port_kernels": port, "by_kind": by_kind}
+
+
+# device-function name fragments of PyTorch's and cuBLAS's kernels, by
+# kind (the first that matches; the port's kernels are told apart first)
+KINDS = (("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+         ("elementwise", ("elementwise",)),
+         ("reduce", ("reduce_kernel",)),
+         ("scan", ("scan", "Scan")),
+         ("copy", ("Copy", "copy")))
+
+
+def _kind(name):
+    """The kind of a device function for ``_profile``'s ``by_kind``: the
+    port's kernel name, or one of ``KINDS``, or "other"."""
+    symbol = re.search(r"(\w+)[<(]", name)
+    for port, symbols in PORT_SYMBOLS.items():
+        if symbol and symbol.group(1) in symbols:
+            return port
+    for kind, fragments in KINDS:
+        if any(f in name for f in fragments):
+            return kind
+    return "other"
 
 
 # --------------------------------------------------------------------------
@@ -1454,12 +1498,16 @@ POOL_POLICIES = ("temporal", "fixed_batch_mps", "maxmin", "dstack")
 POOL_RATE = 150.0          # requests/s per model
 POOL_DURATION = 0.4        # virtual seconds: ~60 requests per model
 POOL_GEN = 4               # tokens per request
+# (c)'s pool, GPU against CPU: half of (g)'s arrivals (~30 requests per
+# model), cut from POOL_DURATION to keep the whole script within its time
+# (the CPU serves every tick of the four models)
+POOL_C_DURATION = 0.2
 
 
-def _pool_serve(pool, policy):
-    """Serve ``policy`` over ``pool`` on seeded arrivals. Returns the
-    controller, the result and every admission: (model, asked units,
-    granted units, batch, request ids)."""
+def _pool_serve(pool, policy, duration=POOL_DURATION):
+    """Serve ``policy`` over ``pool`` on seeded arrivals for ``duration``
+    virtual seconds. Returns the controller, the result and every
+    admission: (model, asked units, granted units, batch, request ids)."""
     from repro_torch.core.scheduler import POLICIES
     from repro_torch.serving.controller import (Controller, ControllerConfig,
                                                 make_generators)
@@ -1478,7 +1526,7 @@ def _pool_serve(pool, policy):
     try:
         ctl = Controller(pool, POLICIES[policy](pool.profiles),
                          make_generators(pool, POOL_RATE),
-                         ControllerConfig(duration=POOL_DURATION,
+                         ControllerConfig(duration=duration,
                                           gen_len=POOL_GEN))
         res = ctl.run()
     finally:
@@ -3023,29 +3071,93 @@ def phase_l(torch):
 # --------------------------------------------------------------------------
 # phase (m): training through the normal entry point
 # --------------------------------------------------------------------------
-# (m1) and (m2): model, batch, sequence, steps, at full width and depth
-TRAIN_RUNS = {"m1": ("qwen2-0.5b", 8, 2048, 30),
-              "m2": ("olmo-1b", 4, 2048, 10)}
-TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
+# (m1), (m2) and (m4)-(m6): model, batch, sequence, steps and the depth
+# trained (None: the whole model), at full width ((m1) cut from 30 steps
+# to 10 to keep the whole script within its time). (m5) trains zamba2-7b's
+# first HYBRID_LAYERS of 81 layers (two invocations of the shared block,
+# as (l1) serves): all 81 hold 6.75 B parameters, and at 16 bytes a
+# parameter (float32 weights, gradients and AdamW's two moments) that is
+# ~108 GB, over the card's 80 GB; 12 layers hold 1.37 B (~22 GB)
+TRAIN_RUNS = {"m1": ("qwen2-0.5b", 8, 2048, 10, None),
+              "m2": ("olmo-1b", 4, 2048, 10, None),
+              "m4": ("mamba2-1.3b", 4, 2048, 10, None),
+              "m5": (HYBRID, 4, 2048, 10, HYBRID_LAYERS),
+              "m6": ("whisper-small", 8, 448, 10, None)}
+# each family's training path: #5 and its backward #7 at every attention,
+# #6 (the SSD Function's forward) at every mamba layer
+TRAIN_PATHS = {"dense": ("flash_attention", "flash_attention_bwd"),
+               "moe": ("flash_attention", "flash_attention_bwd"),
+               "ssm": ("ssd_scan",),
+               "hybrid": ("ssd_scan", "flash_attention",
+                          "flash_attention_bwd"),
+               "audio": ("flash_attention", "flash_attention_bwd")}
 TRAIN_DROP = 1.0     # nats the mean of the last 5 losses must fall by
 
 
-def _model_flops(cfg, n_params, b, s):
-    """Model FLOPs of one training step: 6 * N * tokens for the matmuls,
-    plus 3 times the causal attention's forward (4 * pairs * D per head
-    and layer); the forward that remat runs again is not counted."""
-    pairs = s * (s + 1) // 2
-    attn = 4.0 * pairs * cfg.resolved_head_dim * cfg.num_heads * b
-    return 6.0 * n_params * b * s + 3.0 * attn * cfg.num_layers
+def _attention_calls(cfg):
+    """The attentions of one forward: one a layer (dense), one per
+    invocation of the shared block (hybrid), the encoder's and each
+    decoder layer's self- and cross-attention (encoder-decoder)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
 
 
-def _train_run(torch, phase, model, b, s, steps):
-    """``launch.train.main`` at full width in bf16 with remat: the losses,
-    each step's wall and launches, and the last parameters."""
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def _model_flops(cfg, params, b, s):
+    """Model FLOPs of one training step: 6 times each weight's elements
+    times the tokens it multiplies — B x S for the decoder's, the
+    embedding's and the head's; B x encoder frames for an encoder's and
+    the cross-attention's K/V projections; a hybrid's shared block once a
+    token per invocation — plus 3 times each attention's forward (4 x
+    visible pairs x D per head: causal self-attention, the full
+    encoder and cross-attention). Left out: positional tables (lookups),
+    the SSD scan's own products (C·B^T, its product with x·dt, the state
+    terms) and the forward that remat runs again."""
+    enc = cfg.encoder_seq if cfg.family == "audio" else 0
+    invocations = (cfg.num_layers // cfg.attn_every
+                   if cfg.family == "hybrid" else 1)
+    flops = 0.0
+    for path, leaf in _named_leaves(params):
+        if path in ("/enc_pos", "/dec_pos"):
+            continue
+        if path.startswith(("/enc_layers", "/enc_final")) or re.match(
+                r"/layers/cross_attn/[wb][kv]$", path):
+            tokens = b * enc
+        elif path.startswith("/shared_attn"):
+            tokens = b * s * invocations
+        else:
+            tokens = b * s
+        flops += 6.0 * leaf.numel() * tokens
+    head = 4.0 * cfg.resolved_head_dim * cfg.num_heads * b
+    causal = s * (s + 1) // 2
+    if cfg.family == "audio":
+        pairs = cfg.encoder_layers * enc * enc + cfg.num_layers * (
+            causal + s * enc)
+    else:
+        pairs = _attention_calls(cfg) * causal
+    return flops + 3.0 * head * pairs
+
+
+def _train_run(torch, phase, model, b, s, steps, layers):
+    """``launch.train.main`` at full width in bf16 with remat (the depth
+    cut to ``layers`` where given): the losses, each step's wall and
+    launches, and the last parameters."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
-    from repro_torch.training.optimizer import tree_leaves
     cfg = get_config(model)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     steps_s, launches, kept = [], [], {}
 
     def on_step(i, params, metrics, step_s):
@@ -3061,11 +3173,12 @@ def _train_run(torch, phase, model, b, s, steps):
     losses = train.main(
         ["--arch", model, "--full-size", "--steps", str(steps),
          "--batch", str(b), "--seq", str(s), "--dtype", "bfloat16",
-         "--log-every", str(max(1, steps // 3))], on_step=on_step)
+         "--log-every", str(max(1, steps // 3))]
+        + (["--layers", str(layers)] if layers else []), on_step=on_step)
     wall = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in tree_leaves(kept["params"]))
+    n_params = sum(x.numel() for _, x in _named_leaves(kept["params"]))
     step_s = float(np.median(steps_s[1:]))
-    flops = _model_flops(cfg, n_params, b, s)
+    flops = _model_flops(cfg, kept["params"], b, s)
     total = {n: sum(c[n] for c in launches) for n in KERNEL_NAMES}
     first, last5 = losses[0], float(np.mean(losses[-5:]))
     out = {"model": model, "layers": cfg.num_layers, "batch": b, "seq": s,
@@ -3083,10 +3196,15 @@ def _train_run(torch, phase, model, b, s, steps):
     assert all(np.isfinite(losses)), f"{phase}: a loss is not finite"
     assert last5 <= first - TRAIN_DROP, \
         f"{phase}: loss {first} -> {last5} (mean of the last 5)"
+    attn = _attention_calls(cfg)
     for i, c in enumerate(launches):
-        _check_launches(c, TRAIN_PATH, f"{phase}/step {i}")
-        assert c["flash_attention"] >= cfg.num_layers \
-            and c["flash_attention_bwd"] >= cfg.num_layers, (phase, i, c)
+        _check_launches(c, TRAIN_PATHS[cfg.family], f"{phase}/step {i}")
+        # #5 at least once an attention (twice under remat but in the
+        # encoder), #7 once; #6 twice a mamba layer (remat)
+        assert c["flash_attention"] >= attn \
+            and c["flash_attention_bwd"] >= attn, (phase, i, c)
+        if cfg.family in ("ssm", "hybrid"):
+            assert c["ssd_scan"] == 2 * cfg.num_layers, (phase, i, c)
     return out, kept["params"], cfg
 
 
@@ -3127,8 +3245,8 @@ def _checkpoint_round_trip(torch, cfg, params):
 
 
 def _profile_step(torch, cfg, params, b, s):
-    """One more training step of (m1)'s model under the profiler: the
-    device time by kernel and the device's busy share of the step."""
+    """One more training step of ``cfg`` under the profiler: the device
+    time by kernel and by kind, and the device's busy share of the step."""
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models.registry import build_model
     from repro_torch.training.optimizer import AdamW
@@ -3144,9 +3262,47 @@ def _profile_step(torch, cfg, params, b, s):
     return prof
 
 
+def _ssd_backward_alone(torch, cfg, b, s):
+    """(m4)'s SSD backward alone: the plain scan's recomputation and
+    gradients (``ssd_vjp``'s backward) for one layer at the step's shape
+    (bf16 x, B and C), profiled for its device time and timed by events;
+    and the #6 forward beside it."""
+    from repro_torch.kernels import ssd_scan
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            dtype).requires_grad_(True)
+
+    x, bb, cc = randn(b, s, h, p), randn(b, s, n), randn(b, s, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device="cuda")).requires_grad_(
+            True)
+    a = (-torch.exp(0.5 * torch.randn(h, generator=gen, device="cuda"))
+         ).requires_grad_(True)
+    inputs = (x, dt, a, bb, cc)
+    y, _ = ssd_scan.ssd_vjp(*inputs, cfg.ssm_chunk)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+
+    def backward():
+        return torch.autograd.grad(y, inputs, dy, retain_graph=True)
+
+    _, prof = _profile(torch, backward)
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: ssd_scan.ssd_scan_cuda(
+            x, dt, a, bb, cc, cfg.ssm_chunk), torch, iters=10)
+    return {"layer_device_ms": prof["device_ms"],
+            "layer_ms": _time_ms(backward, torch, iters=5),
+            "kernel_forward_ms": fwd_ms, "by_kind": prof["by_kind"],
+            "top": prof["top"][:8]}
+
+
 def phase_m(torch):
     """Training: (m1) qwen2-0.5b whole, (m3) its parameters' checkpoint
-    round trip and one profiled step, (m2) olmo-1b whole (head_dim 128)."""
+    round trip and one profiled step, (m2) olmo-1b whole (head_dim 128);
+    (m4) mamba2-1.3b whole, one step profiled and its SSD backward alone,
+    (m5) zamba2-7b at HYBRID_LAYERS, (m6) whisper-small whole."""
     out = {"phase": "m"}
     out["m1"], params, cfg = _train_run(torch, "m1", *TRAIN_RUNS["m1"])
     out["m3"] = _checkpoint_round_trip(torch, cfg, params)
@@ -3155,29 +3311,54 @@ def phase_m(torch):
     out["m1"]["device_busy_share"] = prof["device_busy_share"]
     del params
     _release(torch)
-    out["m2"], params, _ = _train_run(torch, "m2", *TRAIN_RUNS["m2"])
-    del params
-    out["launches"] = {n: out["m1"]["launches"][n] + out["m2"]["launches"][n]
+    for run in ("m2", "m4", "m5", "m6"):
+        out[run], params, cfg = _train_run(torch, run, *TRAIN_RUNS[run])
+        if run == "m4":
+            b, s = TRAIN_RUNS[run][1:3]
+            prof = _profile_step(torch, cfg, params, b, s)
+            alone = _ssd_backward_alone(torch, cfg, b, s)
+            alone["step_share"] = (cfg.num_layers * alone["layer_device_ms"]
+                                   / prof["device_ms"])
+            out[run].update(profile=prof, ssd_backward=alone,
+                            device_busy_share=prof["device_busy_share"])
+            _log(json.dumps({"m4 ssd backward": alone}))
+        del params
+        _release(torch)
+    runs = ("m1", "m2", "m4", "m5", "m6")
+    out["launches"] = {n: sum(out[r]["launches"][n] for r in runs)
                        for n in KERNEL_NAMES}
-    keys = ("s_per_step", "tokens_per_s", "peak_mem_bytes",
+    keys = ("layers", "s_per_step", "tokens_per_s", "peak_mem_bytes",
             "model_flops_share", "first_loss", "last5_mean",
             "launches_per_step")
-    _emit({"phase": "m", **{r: {k: out[r][k] for k in keys}
-                            for r in ("m1", "m2")},
-           "m1_busy_share": out["m1"]["device_busy_share"],
-           "m1_profiled_step_ms": {
-               "device": prof["device_ms"], "wall": prof["wall_ms"],
-               **{n: k["ms"] for n, k in prof["port_kernels"].items()}},
+    _emit({"phase": "m", **{r: {k: out[r][k] for k in keys} for r in runs},
+           **{f"{r}_busy_share": out[r]["device_busy_share"]
+              for r in ("m1", "m4")},
+           **{f"{r}_profiled_step_ms": {
+               "device": out[r]["profile"]["device_ms"],
+               "wall": out[r]["profile"]["wall_ms"],
+               **out[r]["profile"]["by_kind"],
+               **{n: k["ms"] for n, k in
+                  out[r]["profile"]["port_kernels"].items()}}
+              for r in ("m1", "m4")},
+           "m4_ssd_backward": {k: out["m4"]["ssd_backward"][k] for k in (
+               "layer_device_ms", "layer_ms", "kernel_forward_ms",
+               "step_share")},
            "m3": {k: out["m3"][k] for k in ("bit_equal", "eval_loss_before",
                                             "eval_loss_after")}})
     return out
 
 
-# (c)'s training check: full width cut to 2 layers, float32, B 2 x S 1536
-# (past 1024: the CPU takes the plain flash VJP, chunks of 512); the loss
-# within this relative error, every gradient leaf within GRAD_TOL of its
-# max |value|
-TRAIN_C = dict(layers=2, batch=2, seq=1536)
+# (c)'s training checks: full width, float32; per model the layers (the
+# encoder's too), batch and sequence: 2 layers at S 1536 (past 1024: the
+# CPU takes the plain flash VJP, chunks of 512), B 1 for qwen2-0.5b and
+# granite-moe (cut from 2 to keep the whole script within its time), B 2
+# for mamba2-1.3b; zamba2-7b at 6 layers (one invocation of the shared
+# block, #7 at D 112), B 1 x 1024; whisper 2 + 2 layers, B 2 x 448 over
+# 1,536 frames. The loss within this relative error, every gradient leaf
+# within GRAD_TOL of its max |value|
+TRAIN_C = {"qwen2-0.5b": (2, 1, 1536), MOE: (2, 1, 1536),
+           "mamba2-1.3b": (2, 2, 1536), HYBRID: (6, 1, 1024),
+           "whisper-small": (2, 2, 448)}
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 
@@ -3191,8 +3372,11 @@ def _train_pair(torch, name):
     from repro_torch.models.registry import build_model
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train_step import loss_and_grads
-    cfg = dataclasses.replace(get_config(name), num_layers=TRAIN_C["layers"],
+    layers, bsz, seq = TRAIN_C[name]
+    cfg = dataclasses.replace(get_config(name), num_layers=layers,
                               dtype="float32")
+    if cfg.has_encoder:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
     weights = build_model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(3))
     res, launches, secs = {}, None, {}
@@ -3200,8 +3384,8 @@ def _train_pair(torch, name):
         api = build_model(cfg, dev)
         params = {"cuda": weights, "cpu": _to_cpu(weights)}[dev]
         params = _tree_map(params, lambda t: t.detach().requires_grad_(True))
-        batch = next(iter(TokenPipeline(cfg, DataConfig(
-            TRAIN_C["batch"], TRAIN_C["seq"], seed=4), dev)))
+        batch = next(iter(TokenPipeline(cfg, DataConfig(bsz, seq, seed=4),
+                                        dev)))
         _reset_launch_counts()
         t0 = time.perf_counter()
         res[dev] = loss_and_grads(api, params, batch, remat=True)
@@ -3224,7 +3408,7 @@ def _train_pair(torch, name):
                close=loss_err <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL)
     _log(json.dumps({f"train {name}": out}))
     assert out["close"], f"train {name}: GPU and CPU differ: {out}"
-    _check_launches(launches, TRAIN_PATH, f"c/train {name}")
+    _check_launches(launches, TRAIN_PATHS[cfg.family], f"c/train {name}")
     return out
 
 
@@ -3637,7 +3821,7 @@ def phase_c(torch, i3=None):
     _reset_launch_counts()
     for i, pool in enumerate(pools):
         t0 = time.perf_counter()
-        _, res, log = _pool_serve(pool, "dstack")
+        _, res, log = _pool_serve(pool, "dstack", POOL_C_DURATION)
         if i == 0:
             launches = _launch_counts()
         logs.append(log)
@@ -3676,14 +3860,14 @@ def phase_c(torch, i3=None):
         "gateway: (i3)'s bf16 scorecards differ from the float32 ones"
 
     # 10. training: one step's loss and gradients, GPU against CPU, for
-    # the dense family and the experts
-    for name in ("qwen2-0.5b", MOE):
+    # every family
+    for name in TRAIN_C:
         checks[f"train_{name}"] = _train_pair(torch, name)
 
     out = {"phase": "c",
            "model": "olmo-1b, mamba2-1.3b, qwen2-0.5b, whisper-small, "
                     "granite-moe-3b-a800m (2 layers), zamba2-7b "
-                    f"({HYBRID_LAYERS} layers)",
+                    f"({HYBRID_LAYERS} layers; 6 in training)",
            "dtype": "float32",
            "checks": {k: {kk: v[kk] for kk in (
                "streams_identical", "first_token_logits_max_abs_diff",

@@ -174,17 +174,17 @@ def dtype_code(dtype) -> int:
 # family's path (it has no ``prefill_chunk``)
 HEAD_DIMS = (64, 128, 112)
 CHUNK_HEAD_DIMS = (64, 128)
-# the flash backward (training): 64 and 128 only
-BWD_HEAD_DIMS = (64, 128)
+# the flash backward (training): zamba2-7b's shared attention trains at 112
+BWD_HEAD_DIMS = (64, 128, 112)
 
 
 def check_no_grad(entry: str, **tensors) -> None:
     """Raise when grad mode is on and an operand requires grad: a kernel
     writes a fresh tensor through a raw pointer, so its output would carry
     no ``grad_fn`` and the operands' gradients would be lost without a
-    word. The training path's attention goes through
-    ``flash_vjp.flash_attention_vjp``, whose autograd Function launches
-    the kernels with grad mode off."""
+    word. The training path goes through the autograd Functions that
+    launch the kernels with grad mode off: ``flash_vjp.flash_attention_vjp``
+    for attention, ``ssd_scan.ssd_vjp`` for the SSD scan."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in tensors.values()):
@@ -192,7 +192,7 @@ def check_no_grad(entry: str, **tensors) -> None:
             f"{entry}: an operand requires grad, and the kernel's output "
             f"would carry no gradient; run it under torch.no_grad(), or "
             f"train through repro_torch.kernels.flash_vjp."
-            f"flash_attention_vjp")
+            f"flash_attention_vjp or repro_torch.kernels.ssd_scan.ssd_vjp")
 
 
 def check_operands(entry: str, head_dim: Optional[int], *,

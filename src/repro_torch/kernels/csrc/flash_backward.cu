@@ -38,9 +38,12 @@
 //      float32 registers.
 //      Both run 256 threads as a 16 x 16 grid: a 64 x 64 product gives
 //      each thread 4 x 4 elements (rows ty + 16i, columns tx + 16j), a
-//      64 x D accumulator 4 x D/16. Every operand sits in shared memory as
-//      float32 in rows padded to D + 1 (or kBK + 1) floats, so a
-//      half-warp's 16 rows fall in 16 banks. Per visible pair they do 7
+//      64 x D accumulator 4 x D/16: 4, 8 or 7 columns at D 64, 128 or
+//      112 (zamba2-7b), so D 112 runs unpadded, whole 16-column strides.
+//      Every operand sits in shared memory as float32 in rows padded to
+//      D + 1 (or kBK + 1) floats, so a half-warp's 16 rows fall in 16
+//      banks (150 KB at D 112, 162 KB at D 128: one block per SM).
+//      Per visible pair they do 7
 //      D-long dot products (S and dP twice, dV, dK, dQ) at a share of the
 //      CUDA cores' 67 TFLOP/s float32 peak.
 // What bounds it: operations.
@@ -61,6 +64,7 @@ constexpr int kTile = 16;  // the 16 x 16 thread grid
 
 template <int D>
 struct Smem {
+  static_assert(D % kTile == 0, "whole 16-column strides of the grid");
   float q[kBQ][D + 1];
   float dout[kBQ][D + 1];
   float k[kBK][D + 1];
@@ -386,7 +390,7 @@ static cudaError_t run_bf16(void* dq, void* dk, void* dv, float* delta,
 // dq, q, out, dout: (B, S, H, D); dk, dv, k, v: (B, Sk, KV, D); lse, delta
 // (scratch, written here): (B, H, S) float32; all contiguous. causal: 0/1;
 // window: 0 = none; Sk != S only with neither. dtype: 0 = float32, 1 =
-// bfloat16; D 64 or 128. S == 0 writes nothing (the caller zeroes dk and
+// bfloat16; D 64, 128 or 112. S == 0 writes nothing (the caller zeroes dk and
 // dv). Returns cudaGetLastError().
 extern "C" int flash_attention_bwd(void* dq, void* dk, void* dv, void* delta,
                                    const void* q, const void* k,
@@ -409,6 +413,8 @@ extern "C" int flash_attention_bwd(void* dq, void* dk, void* dv, void* delta,
   if (D == 64 && dtype == 1) BWD_RUN(run_bf16<64>);
   if (D == 128 && dtype == 0) BWD_RUN(run_f32<128>);
   if (D == 128 && dtype == 1) BWD_RUN(run_bf16<128>);
+  if (D == 112 && dtype == 0) BWD_RUN(run_f32<112>);
+  if (D == 112 && dtype == 1) BWD_RUN(run_bf16<112>);
 #undef BWD_RUN
   return cudaErrorInvalidValue;
 }

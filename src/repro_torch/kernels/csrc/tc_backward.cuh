@@ -41,8 +41,13 @@
 // on the SFU. Shared memory: the block's own two tiles and two buffers of
 // the two walked tiles, 6 x 64 x tile_dim bf16 (96 KB at D 128, 48 KB at
 // D 64) plus 1 KB of lse and delta, so two blocks share an SM at D 128.
-// Head dims run at tile_dim<D>() columns (64 or 128); D 112 would only
-// add an instantiation (build.BWD_HEAD_DIMS holds 64 and 128).
+// Head dims run at tile_dim<D>() columns (64 or 128): D 112 (zamba2-7b's
+// shared attention) runs in tiles of 128 columns, as #5's forward does.
+// load_tile zero-fills the 16 columns past D of every tile it loads, so
+// S^T and dP^T (7 steps of 16, the zero step skipped) are exact; dV and
+// dK accumulate 128 columns whose last 16 are zeros (dO and Q are zero
+// there), and store_rows writes only the 112. The padding wastes 1/8 of
+// the two D-wide products and of their shared memory (98 KB, as at D 128).
 #pragma once
 
 #include <cstdint>

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import chunk_attention as _chunk
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -117,11 +119,18 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
     b, c: (B, L, N) -> (y (B, L, H, P), final_state (B, H, N, P) float32).
     Any L: the chunk is ``min(chunk, L)`` rows and positions past L act as
     dt = 0. On a GPU the kernel takes dt, a and the initial state in
-    float32."""
-    if _route(x) == "cuda":
-        return _ssd.ssd_scan_cuda(x, dt.float(), a.float(), b, c, chunk,
-                                  initial_state)
-    return _ssd.ssd_chunked_plain(x, dt, a, b, c, chunk, initial_state)
+    float32; under autograd (grad mode on and an operand that requires
+    grad) it goes through ``ssd_scan.ssd_vjp``: the kernel forward, the
+    plain scan's gradients. On the CPU autograd differentiates the plain
+    scan itself, as the JAX CPU path does."""
+    if _route(x) == "cpu":
+        return _ssd.ssd_chunked_plain(x, dt, a, b, c, chunk, initial_state)
+    dt, a = dt.float(), a.float()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, initial_state)):
+        return _ssd.ssd_vjp(x, dt, a, b, c, chunk, initial_state)
+    return _ssd.ssd_scan_cuda(x, dt, a, b, c, chunk, initial_state)
 
 
 def ssd_decode(x, dt, a, b, c, state):

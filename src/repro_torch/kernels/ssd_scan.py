@@ -16,7 +16,9 @@ across chunks the state is carried. ``L`` need not be a multiple of
 which is exact — the state freezes at the last real row.
 
 * ``ssd_chunked_plain`` is the JAX CPU path (``ops._ssd_chunked_jnp``):
-  the same padding, chunk length and sequential inter-chunk carry;
+  the same padding, chunk length, sequential inter-chunk carry and
+  values, with the intra-chunk decay masked before its exp, so that its
+  gradients stay finite where the decays overflow above the diagonal;
 * ``ssd_ref_plain`` is the sequential oracle (``ref.ssd_ref``);
 * ``ssd_decode_plain`` is one recurrent step (``ref.ssd_decode_ref``); the
   JAX package has no kernel for it (elementwise work and a mat-vec), so
@@ -27,7 +29,13 @@ which is exact — the state freezes at the last real row.
   heads, forms C·Bᵀ once per chunk for the group and keeps each head's
   state in registers; the float32-formed operands enter the bf16 products
   as hi + lo pairs. float32 runs on the CUDA cores, one block per
-  (batch, head).
+  (batch, head);
+* ``ssd_vjp`` is the training path's scan on the card: an autograd
+  Function whose forward is one launch of the kernel and whose backward
+  recomputes ``ssd_chunked_plain`` from the saved inputs under autograd
+  and returns its gradients. That is the JAX package's training route,
+  autodiff through the plain chunked scan (its Pallas scan has no VJP),
+  with the kernel kept as the forward.
 """
 from __future__ import annotations
 
@@ -76,10 +84,15 @@ def ssd_chunked_plain(x, dt, a, b, c, chunk: int, initial_state=None):
 
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
     tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
-    lmask = torch.where(
+    # exp of the masked exponent, not a mask of the exp: the same values
+    # (exp(-inf) = 0), but above the diagonal the exponent is positive and
+    # its exp overflows once a chunk's decays sum past ~88 (a chunk of 128
+    # at full width does), and the backward of where(tri, exp(.), 0) then
+    # forms 0 * inf = NaN there, as the JAX package's form does
+    lmask = torch.exp(torch.where(
         tri[None, None, :, :, None],
-        torch.exp(a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]),
-        0.0)                                            # (B, NC, cl, cl, H)
+        a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :],
+        float("-inf")))                                 # (B, NC, cl, cl, H)
     y_diag = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, lmask, xdt)
 
     decay_out = torch.exp(a_tot[:, :, None, :] - a_cs)        # (B, NC, cl, H)
@@ -168,3 +181,49 @@ def ssd_scan_cuda(x, dt, a, b, c, chunk: int, initial_state=None):
     build.check(err, "ssd_scan")
     launches += 1
     return y, state
+
+
+class _SsdVjp(torch.autograd.Function):
+    """``scan`` (the kernel, or a plain version in the tests) forward;
+    autograd through ``ssd_chunked_plain`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, initial_state, chunk, scan):
+        ctx.save_for_backward(x, dt, a, b, c, initial_state)
+        ctx.chunk = chunk
+        # an output the loss does not reach (training discards the final
+        # state) brings None, and its branch of the recomputation is left
+        # out rather than fed zeros
+        ctx.set_materialize_grads(False)
+        return scan(x, dt, a, b, c, chunk, initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        *saved, s0 = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        with torch.enable_grad():
+            outs = ssd_chunked_plain(*inputs, ctx.chunk, s0)
+        outs = [(o, g) for o, g in zip(outs, (dy, dstate)) if g is not None]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in outs], wanted, [g for _, g in outs],
+            allow_unused=True) if outs and wanted else ())
+        return (*[next(grads) if n else None for n in needs], None, None,
+                None)
+
+
+def ssd_vjp(x, dt, a, b, c, chunk: int, initial_state=None, *, scan=None):
+    """The SSD scan differentiable in x, dt, a, b and c: (y, final_state)
+    as ``ssd_scan_cuda`` gives them, computed by ``scan`` (default:
+    ``ssd_scan_cuda``, which runs with grad mode off inside the Function),
+    and the gradients of ``ssd_chunked_plain`` at the same inputs. A
+    gradient the loss does not send to an output (the final state, in
+    training) counts as zeros. ``initial_state`` is a constant: one that
+    requires grad raises."""
+    if initial_state is not None and initial_state.requires_grad:
+        raise NotImplementedError(
+            "ssd_vjp: no gradient of the initial state (no training path "
+            "passes one)")
+    return _SsdVjp.apply(x, dt, a, b, c, initial_state, chunk,
+                         scan or ssd_scan_cuda)

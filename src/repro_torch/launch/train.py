@@ -1,14 +1,20 @@
-"""Training entry point of the port: the transformer family (dense and
-mixture-of-experts) on a GPU, or reduced on the CPU.
+"""Training entry point of the port: every family (dense,
+mixture-of-experts, Mamba2, hybrid, encoder-decoder) on a GPU, or reduced
+on the CPU.
 
   python -m repro_torch.launch.train --arch qwen2-0.5b --full-size \\
       --steps 30 --batch 8 --seq 2048
+  python -m repro_torch.launch.train --arch mamba2-1.3b --full-size \\
+      --steps 10 --batch 4 --seq 2048 --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch olmo-1b --steps 20 --batch 8 --seq 64
 
+An encoder model's batches carry the pipeline's stub frame embeddings.
+
 The flags are the JAX package's ``launch/train.py``'s, plus ``--device``
 (default: the CUDA device), ``--dtype`` (the compute dtype; default the
-config's: bfloat16 at full size, float32 reduced) and ``--no-remat``.
+config's: bfloat16 at full size, float32 reduced), ``--no-remat`` and
+``--layers`` (the depth cut to the first N layers).
 Parameters are float32 leaves that require grad, drawn from a generator
 seeded 0; the step runs the layers in ``--dtype`` and AdamW updates the
 float32 leaves in place.
@@ -47,6 +53,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="compute dtype (default: the config's)")
     ap.add_argument("--no-remat", action="store_true",
                     help="keep every layer's activations for the backward")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train only the first N layers (a model whose "
+                         "whole depth does not fit the card)")
     return ap
 
 
@@ -61,6 +70,8 @@ def main(argv=None, on_step=None):
         cfg = cfg.reduced()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     api = build_model(cfg, dev)
     params = api.init(torch.Generator(device=dev).manual_seed(0))
     for leaf in tree_leaves(params):

@@ -141,17 +141,23 @@ def _cross_dense(q, k, v):
 def forward(params, cfg, tokens, enc_embeds, *,
             remat: bool = False):
     """tokens: (B, S) int; enc_embeds: (B, S_enc, d) -> (logits (B, S, V),
-    aux with the JAX package's two keys at 0)."""
-    L.refuse_training("encoder-decoder", params, remat,
-                      "its encoder's and cross-attention's training path")
+    aux with the JAX package's two keys at 0). Differentiable in every
+    leaf: every attention goes through ``big_attention`` (on the card
+    under autograd the flash kernel with its lse and the backward kernel);
+    ``remat`` checkpoints each decoder layer, as the JAX package wraps
+    only its decoder's scanned body, and the encoder runs unwrapped."""
     dtype = dtype_of(cfg.dtype)
     enc_out = encode(params, cfg, enc_embeds)
     s = tokens.shape[1]
     x = (L.embed_tokens(params["embed"], tokens, dtype)
          + params["dec_pos"][:s].to(dtype))
+
+    def body(lp, x, enc_out):
+        return _dec_block(lp, cfg, x, enc_out, _self_dense, _cross_dense)[0]
+
     for i in range(cfg.num_layers):
-        x = _dec_block(L.layer_params(params["layers"], i), cfg, x, enc_out,
-                       _self_dense, _cross_dense)[0]
+        x = L.run_layer(body, remat, L.layer_params(params["layers"], i), x,
+                        enc_out)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {

@@ -99,18 +99,24 @@ def _rope(cfg, positions):
 
 def forward(params, cfg, tokens, *, remat: bool = False):
     """tokens: (B, S) int -> (logits (B, S, V), aux); aux holds the JAX
-    package's two auxiliary losses at 0."""
-    L.refuse_training("hybrid", params, remat,
-                      "a backward of the SSD scan (#6 has none)")
+    package's two auxiliary losses at 0. Differentiable in every leaf:
+    ``remat`` checkpoints each layer's body, the mamba block and the
+    shared block's invocation after it (the JAX package's scanned body);
+    the shared block's gradient sums over its invocations."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
     rope = _rope(cfg, torch.arange(tokens.shape[1],
                                    device=tokens.device)[None, :])
     sp = params["shared_attn"]
+    layers = ssm.leaf_layers(params)
+
+    def body(lp, sp, x, rope, shared: bool):
+        x = ssm.block_body(lp, cfg, x)
+        return _shared(sp, cfg, x, rope, _causal)[0] if shared else x
+
     for i in range(cfg.num_layers):
-        x, _ = ssm.mamba_block(L.layer_params(params["layers"], i), cfg, x)
-        if _invocation(cfg, i) is not None:
-            x, _, _ = _shared(sp, cfg, x, rope, _causal)
+        x = L.run_layer(body, remat, L.layer_params(layers, i), sp, x,
+                        rope, _invocation(cfg, i) is not None)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import flash_vjp, ops
 from repro_torch.kernels.flash_attention import (attention_dense,
@@ -37,8 +38,8 @@ __all__ = [
     "embed_plan", "layer_params", "apply_norm", "rope_tables", "apply_rope",
     "attn_qkv", "attn_out", "apply_mlp", "embed_tokens", "unembed",
     "repeat_kv",
-    "attention_dense", "big_attention", "requires_training",
-    "refuse_training", "cp_attention", "packed_positions",
+    "attention_dense", "run_layer", "big_attention", "cp_attention",
+    "packed_positions",
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
     "packed_cross_attention", "cache_row_update", "paged_cache_update",
     "decode_attention", "paged_decode_attention", "paged_chunk_attention",
@@ -216,24 +217,15 @@ def unembed(p, x, cfg):
 # --------------------------------------------------------------------------
 # padded (dense) attention
 # --------------------------------------------------------------------------
-def requires_training(params) -> bool:
-    """Whether a forward over ``params`` would be differentiated: grad
-    mode on and a leaf that requires grad."""
-    if not torch.is_grad_enabled():
-        return False
-    if isinstance(params, dict):
-        return any(requires_training(v) for v in params.values())
-    return isinstance(params, torch.Tensor) and params.requires_grad
-
-
-def refuse_training(family: str, params, remat: bool, missing: str) -> None:
-    """Raise ``NotImplementedError`` when a forward of ``family`` is asked
-    to run under autograd or with ``remat``: ``missing`` names the backward
-    the port lacks."""
-    if remat or requires_training(params):
-        raise NotImplementedError(
-            f"training the {family} family is not ported: it needs "
-            f"{missing}")
+def run_layer(body, remat: bool, *args):
+    """``body(*args)``, under ``torch.utils.checkpoint`` (non-reentrant:
+    only the layer's inputs are kept, its activations are recomputed in
+    the backward) with ``remat``, as the JAX package wraps its scanned
+    layer in ``jax.checkpoint``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(body, *args,
+                                                 use_reentrant=False)
+    return body(*args)
 
 
 def big_attention(q, k, v, *, causal: bool, window: int = 0):

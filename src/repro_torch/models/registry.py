@@ -11,11 +11,12 @@ on architecture:
                                                     keeps: derived weights
                                                     made once)
 
-``forward`` is differentiable for the transformer family (dense, experts,
-``vlm``): ``repro_torch.training`` trains through it, ``remat`` running
-each layer under activation checkpointing. The other families' forwards
-raise under autograd or with ``remat``: their backwards (the SSD scan's,
-the encoder-decoder's) are not ported.
+``forward`` is differentiable for every family: ``repro_torch.training``
+trains through it, ``remat`` running each layer under activation
+checkpointing (the encoder-decoder's decoder layers only, as in the JAX
+package). On the card its attention goes through ``flash_vjp`` (#5 and
+its backward kernel) and its SSD scan through ``ssd_scan.ssd_vjp`` (#6
+forward, the plain scan's gradients).
 
 ``batch`` is ``{"tokens": (B, S) tensor}`` on the model's device, plus
 ``enc_embeds`` (B, encoder_seq, d_model) for an encoder model (``packed``

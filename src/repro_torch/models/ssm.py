@@ -233,15 +233,30 @@ def mamba_block_packed(lp, cfg, h, seg_ids, pos, seg_starts, seg_lens,
 # --------------------------------------------------------------------------
 # model-level API
 # --------------------------------------------------------------------------
+def leaf_layers(params) -> dict:
+    """The stacked layer leaves without ``layers["prep"]``: a forward that
+    may be differentiated derives its weights from the leaves at every
+    call, so the gradients reach them (prepared copies are detached) and
+    no stale copy stands in for them."""
+    return {k: v for k, v in params["layers"].items() if k != "prep"}
+
+
+def block_body(lp, cfg, x):
+    """``mamba_block``'s hidden state alone: the body ``forward`` runs per
+    layer, under ``torch.utils.checkpoint`` with ``remat``."""
+    return mamba_block(lp, cfg, x)[0]
+
+
 def forward(params, cfg, tokens, *, remat: bool = False):
     """tokens: (B, S) int -> (logits (B, S, V), aux); aux holds the JAX
-    package's two auxiliary losses at 0."""
-    L.refuse_training("ssm", params, remat,
-                      "a backward of the SSD scan (#6 has none)")
+    package's two auxiliary losses at 0. Differentiable in every leaf: the
+    scan goes through ``ops.ssd`` (on the card ``ssd_scan.ssd_vjp`` under
+    autograd); ``remat`` checkpoints each layer."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
+    layers = leaf_layers(params)
     for i in range(cfg.num_layers):
-        x, _ = mamba_block(L.layer_params(params["layers"], i), cfg, x)
+        x = L.run_layer(block_body, remat, L.layer_params(layers, i), cfg, x)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {

@@ -25,7 +25,6 @@ import functools
 from typing import Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
@@ -78,9 +77,7 @@ def forward(params, cfg, tokens, *, remat: bool = False):
     """tokens: (B, S) int -> (logits (B, S, V), aux). aux holds the JAX
     package's two keys: each the mean over layers of the experts' value,
     0 for the dense family. ``remat``: each layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
-    layer's input for the backward and runs the layer again there, as the
-    JAX package wraps its scanned layer in ``jax.checkpoint``. Under
+    ``torch.utils.checkpoint`` (``L.run_layer``). Under
     autograd the attention is ``flash_vjp``'s (``L.big_attention``)."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], tokens, dtype)
@@ -97,12 +94,8 @@ def forward(params, cfg, tokens, *, remat: bool = False):
 
     auxes = []
     for i in range(cfg.num_layers):
-        lp = L.layer_params(params["layers"], i)
-        if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                layer, lp, x, use_reentrant=False)
-        else:
-            x, aux = layer(lp, x)
+        x, aux = L.run_layer(layer, remat,
+                             L.layer_params(params["layers"], i), x)
         auxes.append(aux)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.num_experts:

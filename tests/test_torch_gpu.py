@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (#1, #2, #4 and #5 also at zamba2-7b's head_dim 112, #6 also at its
-state N 64), and the serving paths through them against the CPU's. Every test is marked ``gpu`` and skips (with its reason) where no
+card (#1, #2, #4, #5 and the flash backward also at zamba2-7b's head_dim
+112, #6 also at its state N 64), the SSD scan's training Function, and the
+serving and training paths through them against the CPU's. Every test is marked ``gpu`` and skips (with its reason) where no
 CUDA device is present — the decision is taken inside the ``cuda``
 fixture, so every worker collects the same tests. Run them on the GPU
 machine from the repository root:
@@ -184,7 +185,7 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     one with and without its lse store (the training path's), the paged
     chunk kernel of both of its own (64, 128), and the SSD scan for both
     chunk tiles (64 and 128 rows) at both state sizes (N 128, 64), and
-    the flash backward's dK/dV and dQ kernels at D 64 and 128; their
+    the flash backward's dK/dV and dQ kernels at D 64, 128 and 112; their
     float32 bodies hold none."""
     from repro_torch.kernels import build
     counts = build.sass_count("flash_attention", "HGMMA")
@@ -206,7 +207,7 @@ def test_bf16_flash_kernel_runs_on_tensor_cores(cuda):
     bwd = build.sass_count("flash_backward", "HGMMA")
     for name in ("dkdv_tc_kernel", "dq_tc_kernel"):
         tc = {k: n for k, n in bwd.items() if name in k}
-        assert len(tc) == 2 and all(n > 0 for n in tc.values()), bwd
+        assert len(tc) == 3 and all(n > 0 for n in tc.values()), bwd
     assert all(n == 0 for k, n in bwd.items() if "_tc_kernel" not in k), bwd
 
 
@@ -580,6 +581,62 @@ def test_ssd_kernel_does_not_depend_on_the_batch(cuda, dtype):
         y1, s1 = SSD.ssd_scan_cuda(*one, 128)
         assert torch.equal(s[i:i + 1], s1), f"row {i}: state differs"
         assert torch.equal(y[i:i + 1], y1), f"row {i}: outputs differ"
+
+
+@pytest.mark.parametrize("h,n", [(64, 128), (112, 64)])  # mamba2, zamba2
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_vjp_on_the_card_matches_autograd_through_the_plain_scan(
+        cuda, dtype, h, n):
+    """``ssd_vjp`` on CUDA tensors (one launch of #6, the plain scan's
+    gradients) against autograd through ``ssd_chunked_plain`` on the card,
+    at the model's SSD heads, L 300 (a ragged last chunk): y at the
+    kernel's tolerance (float32: 1e-4 of its scale), every gradient within
+    1e-4 of its max |value| in float32 and at ``TOL`` in bfloat16."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    base = _ssd_inputs(gen, cuda, dtype, 2, 300, h, n=n)
+    wy = torch.randn(2, 300, h, 64, generator=gen, device=cuda)
+    got = {}
+    for route in ("function", "plain"):
+        xs = [t.detach().clone().requires_grad_(True) for t in base]
+        ops.reset_launch_counts()
+        if route == "function":
+            y, _ = SSD.ssd_vjp(*xs, 128)
+            assert ops.launch_counts()["ssd_scan"] == 1
+        else:
+            y, _ = SSD.ssd_chunked_plain(*xs, 128)
+        (y.float() * wy).sum().backward()
+        assert ops.launch_counts()["ssd_scan"] == (route == "function")
+        got[route] = [y.detach()] + [t.grad for t in xs]
+    _ssd_close(got["function"][0], got["plain"][0], dtype)
+    for name, g, w in zip(("x", "dt", "a", "b", "c"), got["function"][1:],
+                          got["plain"][1:]):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all(), name
+        if dtype == "float32":
+            assert _close_to_max(g, w, 1e-4), name
+        else:
+            torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+def test_ssd_under_autograd_goes_through_the_function(cuda):
+    """``ops.ssd`` on CUDA tensors that require grad takes ``ssd_vjp``
+    (one launch, a gradient for every operand); a constant initial state
+    rides along, one that requires grad raises."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xs = [t.requires_grad_(True)
+          for t in _ssd_inputs(gen, cuda, "float32", 1, 130, 4)]
+    s0 = torch.randn(1, 4, 128, 64, generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    y, s = ops.ssd(*xs, chunk=128, initial_state=s0)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    (y.sum() + s.sum()).backward()
+    assert all(t.grad is not None for t in xs)
+    with pytest.raises(NotImplementedError, match="initial state"):
+        ops.ssd(*xs, chunk=128, initial_state=s0.requires_grad_(True))
+
+
+def _close_to_max(got, want, tol):
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -1166,6 +1223,8 @@ BWD_CASES = [
     (2, 100, 260, 4, 4, 128, False, 0),       # cross: Sk != S
     (1, 1, 1, 2, 1, 64, True, 0),
     (1, 65, 65, 2, 2, 128, True, 0),
+    (1, 300, 300, 32, 32, 112, True, 0),      # zamba2-7b's shared attention
+    (2, 130, 130, 4, 2, 112, True, 40),       # D 112, GQA and a window
 ]
 
 
@@ -1289,12 +1348,13 @@ def test_flash_backward_without_queries_gives_zero_key_grads(cuda):
     assert not dk.any() and not dv.any()
 
 
-def test_flash_backward_refuses_head_dim_112(cuda):
+def test_flash_backward_refuses_an_unbuilt_head_dim(cuda):
+    """D 96 is built into no kernel: the wrapper raises before a launch."""
     from repro_torch.kernels import flash_vjp as FV
-    q, k, v, dout = _bwd_inputs(cuda, "float32", 1, 64, 64, 2, 2, 112)
-    out, lse = FA.flash_attention_cuda(q, k, v, lse=True)
-    with pytest.raises(ValueError, match="head_dim 112"):
-        FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    q, k, v, dout = _bwd_inputs(cuda, "float32", 1, 64, 64, 2, 2, 96)
+    lse = torch.zeros((1, 2, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        FV.flash_attention_bwd_cuda(q, k, v, torch.zeros_like(q), dout, lse)
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "granite-moe"])
@@ -1322,6 +1382,61 @@ def test_gpu_training_loss_and_grads_match_cpu(cuda, name):
     for path, g, w in _pairs(out["cuda"][1], out["cpu"][1]):
         scale = float(w.abs().max())
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-30), path
+
+
+def _train_cfg(name):
+    """The three newly trained families at reduced width with the shapes
+    the kernels are built for: mamba2-1.3b's SSD heads; zamba2-7b at 6
+    layers (one invocation of the shared block at head_dim 112) and its
+    SSD heads; whisper-small reduced (12 heads of 64 at width 256, 16
+    frames)."""
+    if name == "mamba2-1.3b":
+        return _ssm_cfg()
+    if name == "zamba2-7b":
+        return dataclasses.replace(_hybrid_cfg(), num_layers=6)
+    return get_config(name).reduced()
+
+
+# each family's kernels on its training path
+TRAIN_PATHS = {"mamba2-1.3b": {"ssd_scan"},
+               "zamba2-7b": {"ssd_scan", "flash_attention",
+                             "flash_attention_bwd"},
+               "whisper-small": {"flash_attention", "flash_attention_bwd"}}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_PATHS))
+def test_gpu_training_of_the_ssd_and_encoder_families_matches_cpu(cuda,
+                                                                   name):
+    """The same for Mamba2, the hybrid and the encoder-decoder, at S 300
+    (the SSD's ragged last chunk): the loss within 1e-5 relative, every
+    gradient leaf within 1e-4 of its max |value|, and exactly the
+    family's kernels launched, #6 and #5 twice a layer (remat)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = _train_cfg(name)
+    out = {}
+    weights = build_model(cfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    for dev in ("cuda", "cpu"):
+        api = build_model(cfg, dev)
+        params = _tree(weights,
+                       lambda t: t.detach().to(dev).requires_grad_(True))
+        # the same tokens (and frames, drawn on the host) on both devices
+        batch = next(iter(TokenPipeline(cfg, DataConfig(2, 300), dev)))
+        ops.reset_launch_counts()
+        metrics, grads = loss_and_grads(api, params, batch, remat=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert {k for k, n in counts.items() if n} == TRAIN_PATHS[name]
+            if counts["ssd_scan"]:
+                assert counts["ssd_scan"] == 2 * cfg.num_layers
+        out[dev] = (metrics, grads)
+    lg, lc = float(out["cuda"][0]["loss"]), float(out["cpu"][0]["loss"])
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for path, g, w in _pairs(out["cuda"][1], out["cpu"][1]):
+        assert _close_to_max(g.cpu(), w, 1e-4), path
 
 
 def _tree(t, fn):

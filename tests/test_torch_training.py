@@ -25,6 +25,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import msgpack  # noqa: E402
 
+from repro.configs import ARCHS  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
 from repro.data.pipeline import TokenPipeline as JTokenPipeline  # noqa: E402
@@ -45,7 +46,12 @@ from repro_torch.training.train_step import (_chunked_ce,  # noqa: E402
                                              make_eval_step,
                                              make_train_step)
 
-LM_MODELS = ["olmo-1b", "qwen2-0.5b", "granite-moe", "phi3.5-moe"]
+LM_MODELS = ["olmo-1b", "qwen2-0.5b", "granite-moe", "phi3.5-moe",
+             "mamba2-1.3b", "zamba2-7b", "whisper-small"]
+# the families whose training rides on the SSD scan's Function and on the
+# encoder-decoder's attentions (zamba2-7b reduced: 2 layers, attn_every
+# 2, one invocation of the shared block)
+NEW_FAMILIES = ["mamba2-1.3b", "zamba2-7b", "whisper-small"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -94,13 +100,19 @@ def models():
 
 
 def _batches(cfg, n, b, s, seed=0):
-    """n JAX pipeline batches and the same as port tensors."""
+    """n JAX pipeline batches and the same as port tensors (tokens and
+    labels as int64; an encoder model's frames, the JAX package's draws,
+    as float32)."""
     pipe = iter(JTokenPipeline(jax_config(cfg.name).reduced(),
                                JDataConfig(b, s, seed=seed)))
     jb = [next(pipe) for _ in range(n)]
-    tb = [{k: torch.tensor(np.asarray(v)).long() for k, v in x.items()}
-          for x in jb]
-    return jb, tb
+    return jb, [_torch_batch(x) for x in jb]
+
+
+def _torch_batch(batch):
+    return {k: torch.tensor(np.asarray(v)).long() if k != "enc_embeds"
+            else torch.tensor(np.asarray(v, np.float32))
+            for k, v in batch.items()}
 
 
 # --------------------------------------------------------------------------
@@ -252,7 +264,8 @@ def test_moe_aux_loss_flows_into_training(models):
     np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "granite-moe"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "granite-moe"]
+                         + NEW_FAMILIES)
 def test_remat_gives_the_same_loss_and_gradients(models, name):
     """Activation checkpointing recomputes the layers in the backward: the
     same loss and the same gradients (bit for bit on the CPU: the same
@@ -273,7 +286,18 @@ def test_five_train_steps_match_jax(models):
     """5 ``train_step``s (remat on, as ``launch.train`` runs them) from
     identical weights and pipeline batches: the losses within rtol 1e-4 of
     JAX's."""
-    cfg, japi, jparams, api, _ = models("qwen2-0.5b")
+    _five_steps(models, "qwen2-0.5b")
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "zamba2-7b"])
+def test_five_train_steps_of_the_ssd_families_match_jax(models, name):
+    """The same for the Mamba2 and hybrid families: the scan differentiated
+    through the plain chunked scan in both packages."""
+    _five_steps(models, name)
+
+
+def _five_steps(models, name):
+    cfg, japi, jparams, api, _ = models(name)
     kw = dict(lr=2e-3, warmup_steps=2, total_steps=20)
     jstep = jax.jit(JT.make_train_step(japi, JO.AdamW(**kw)))
     step = make_train_step(api, AdamW(**kw))
@@ -426,22 +450,135 @@ def test_launch_train_needs_a_device_without_cuda():
         launch_train.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("name", ["mamba2-1.3b", "zamba2-7b",
-                                  "whisper-small"])
-def test_untrained_families_refuse_training(name):
-    """The SSM, hybrid and encoder-decoder forwards raise under autograd
-    and with ``remat``, naming what is missing; without grad they run."""
-    cfg = get_config(name).reduced()
-    api = build_model(cfg, device="cpu")
-    params = api.init(torch.Generator().manual_seed(0))
-    batch = next(iter(TokenPipeline(cfg, DataConfig(1, 16), "cpu")))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.forward(params, batch, remat=True)
-    trainable = {k: v for k, v in params.items()}
-    trainable["final_norm"] = {k: v.clone().requires_grad_(True)
-                               for k, v in params["final_norm"].items()}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.forward(trainable, batch)
-    with torch.no_grad():
-        logits, _ = api.forward(trainable, batch)
-    assert logits.shape[:2] == (1, 16)
+def test_launch_train_runs_the_mamba2_family_on_the_cpu():
+    """``launch.train.main`` trains mamba2-1.3b reduced on the CPU, remat
+    on: finite losses that fall, the first one JAX's on the same batch."""
+    losses = launch_train.main(
+        ["--device", "cpu", "--arch", "mamba2-1.3b", "--steps", "6",
+         "--batch", "2", "--seq", "40", "--lr", "3e-3"])
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+
+
+def test_launch_train_cuts_the_depth():
+    """``--layers`` trains the first layers of the model alone."""
+    seen = []
+    launch_train.main(
+        ["--device", "cpu", "--arch", "zamba2-7b", "--layers", "1",
+         "--steps", "1", "--batch", "1", "--seq", "16"],
+        on_step=lambda i, p, m, s: seen.append(p))
+    assert seen[0]["layers"]["A_log"].shape[0] == 1
+
+
+# --------------------------------------------------------------------------
+# the port's counterpart of tests/test_models_smoke.py's train step
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_reduced_one_train_step(models, arch):
+    """One ``train_step`` of every architecture, reduced, from the JAX
+    package's weights on the JAX smoke test's batch shape (2 x 32, random
+    tokens, normal frames): finite loss and gradient norm, the parameters
+    moved, ``state.step`` 1, and the loss JAX's ``lm_loss`` on the same
+    weights and batch."""
+    cfg, japi, jparams, api, _ = models(arch)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    jbatch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.has_encoder:
+        jbatch["enc_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    _, jm = JT.lm_loss(japi, jparams,
+                       {k: jnp.asarray(v) for k, v in jbatch.items()})
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = _t(_np_tree(jparams), grad=True)
+    before = [x.detach().clone() for _, x, _ in _pairs(params, params)]
+    state = opt.init(params)
+    params, state, m = make_train_step(api, opt)(params, state,
+                                                 _torch_batch(jbatch))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+    assert any(not torch.equal(a, b) for a, (_, b, _) in zip(
+        before, _pairs(params, params)))
+    assert state.step == 1
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the SSD scan's autograd Function (the card's training route)
+# --------------------------------------------------------------------------
+def _ssd_inputs(seed, b, length, h, p, n):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, length, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, length, h)) - 1.0))
+    a = -np.exp(0.5 * rng.standard_normal(h))
+    bb = rng.standard_normal((b, length, n)).astype(np.float32)
+    cc = rng.standard_normal((b, length, n)).astype(np.float32)
+    return [torch.tensor(v, dtype=torch.float32) for v in (x, dt, a, bb, cc)]
+
+
+@pytest.mark.parametrize("length,chunk,use_state,with_s0", [
+    (64, 16, False, False),       # L a multiple of the chunk
+    (50, 16, False, False),       # dt = 0 padding of the last chunk
+    (50, 16, True, False),        # the final state reaches the loss too
+    (37, 8, True, True),          # a constant initial state
+])
+def test_ssd_function_backward_is_autograd_through_the_plain_scan(
+        length, chunk, use_state, with_s0):
+    """``ssd_vjp`` with ``ssd_chunked_plain`` injected as its forward (the
+    kernel's place on the card): the outputs and every gradient equal
+    autograd through ``ssd_chunked_plain`` bit for bit."""
+    from repro_torch.kernels import ssd_scan as SSD
+    base = _ssd_inputs(length, 2, length, 3, 8, 4)
+    rng = np.random.default_rng(1)
+    s0 = (torch.tensor(rng.standard_normal((2, 3, 4, 8)), dtype=torch.float32)
+          if with_s0 else None)
+    wy = torch.tensor(rng.standard_normal((2, length, 3, 8)),
+                      dtype=torch.float32)
+    ws = torch.tensor(rng.standard_normal((2, 3, 4, 8)), dtype=torch.float32)
+    got = {}
+    for route in ("function", "autograd"):
+        xs = [t.clone().requires_grad_(True) for t in base]
+        if route == "function":
+            y, s = SSD.ssd_vjp(*xs, chunk, s0, scan=SSD.ssd_chunked_plain)
+        else:
+            y, s = SSD.ssd_chunked_plain(*xs, chunk, s0)
+        loss = (y * wy).sum() + ((s * ws).sum() if use_state else 0.0)
+        loss.backward()
+        got[route] = [y.detach(), s.detach()] + [t.grad for t in xs]
+    for name, a, b in zip(("y", "state", "x", "dt", "a", "b", "c"),
+                          got["function"], got["autograd"]):
+        assert torch.equal(a, b), name
+
+
+def test_ssd_plain_gradients_stay_finite_where_the_decay_overflows():
+    """A chunk of 128 whose decays sum past ~88 (dt ~ 1, a ~ -1, as at
+    full width) overflows exp above the diagonal: the plain scan's
+    outputs and gradients stay finite and equal the token-by-token
+    recurrence's (``ssd_ref_plain`` under autograd, which never forms
+    such an exp) within 1e-4 of each one's max |value| (the chunk sums
+    reassociate)."""
+    from repro_torch.kernels import ssd_scan as SSD
+    x, dt, a, b, c = _ssd_inputs(5, 1, 256, 2, 4, 4)
+    dt = dt + 1.0
+    a = a.abs().neg() - 1.0
+    grads, ys = {}, {}
+    for name, fn in (("chunked", lambda *v: SSD.ssd_chunked_plain(*v, 128)),
+                     ("recurrence", SSD.ssd_ref_plain)):
+        xs = [t.clone().requires_grad_(True) for t in (x, dt, a, b, c)]
+        y, s = fn(*xs)
+        (y.sum() + s.sum()).backward()
+        ys[name], grads[name] = y.detach(), [t.grad for t in xs]
+    for g, w in zip([ys["chunked"]] + grads["chunked"],
+                    [ys["recurrence"]] + grads["recurrence"]):
+        assert torch.isfinite(g).all()
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+def test_ssd_function_takes_no_initial_state_gradient():
+    from repro_torch.kernels import ssd_scan as SSD
+    xs = _ssd_inputs(0, 1, 16, 2, 8, 4)
+    s0 = torch.zeros((1, 2, 4, 8), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="initial state"):
+        SSD.ssd_vjp(*xs, 8, s0, scan=SSD.ssd_chunked_plain)
