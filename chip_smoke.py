@@ -12,9 +12,10 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases ak  # kernels and the experts
     python3 chip_smoke.py --phases al  # kernels and the hybrid family
     python3 chip_smoke.py --phases am  # kernels and training (every family)
+    python3 chip_smoke.py --phases an  # kernels, q_offset shards, dry run
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs thirteen phases, each printing one JSON line:
+with ``nvcc`` and runs fourteen phases, each printing one JSON line:
 
   (a) kernels vs plain: each of the seven hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
@@ -177,6 +178,21 @@ with ``nvcc`` and runs thirteen phases, each printing one JSON line:
       (m6) whisper-small whole (12 + 12 layers, 1,536 frames) on 10
       steps of 8 x 448: #5 and #7 at the encoder, the decoder's
       self-attention and the cross-attention; the same gates;
+  (n) context parallelism and the dry run: #5 and #7 at a query offset —
+      a sequence of 2048 (B 8; qwen2-0.5b's, olmo-1b's and zamba2-7b's
+      heads, D 64, 128 and 112; float32 and bfloat16; causal, a window
+      of 512 and non-causal) split into 2 and into 4 slices, each slice a
+      context-parallel rank's: every slice's out, lse, dq, dk and dv
+      against the plain versions at (a)'s tolerances and timed beside
+      its bound; the slices' outputs, lse and dq put together and their
+      dk, dv summed against the unsharded call; the path — each rank's
+      ``layers.cp_shard`` forward and backward under autograd — launches
+      #5 and #7; ``launch.dryrun --mesh card`` for olmo-1b and qwen2-0.5b
+      at the four input shapes (CPU processes started with the script,
+      fake tensors, no device work), ``roofline_report``'s table of them,
+      and qwen2-0.5b ``decode_32k``'s parameters and cache allocated for
+      real (within 1% of the record's argument bytes) and one decode
+      step's peak beside the record's prediction;
   (c) equality: olmo-1b at full width cut to 2 layers, float32 with TF32
       off, runs each path once on the GPU (the kernels, under CUDA
       graphs) and once on the CPU (the plain versions) — a paged serve,
@@ -229,8 +245,9 @@ and (f), plus the four serves of (g), the first graphed cache-on and
 speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
 serve, (j)'s, (k)'s and (l)'s first graphed turns, (l3)'s first timed
-``generate`` and their pool serves, and (m1)'s, (m2)'s and (m4)-(m6)'s
-training steps;
+``generate`` and their pool serves, (m1)'s, (m2)'s and (m4)-(m6)'s
+training steps, and (n)'s ``cp_shard`` drive; #5 and #7 also carry (n)'s
+q_offset slices under ``cases``;
 #1, #2, #4, #5 and #6 carry
 zamba2's cases, #5 whisper's and the backward its further shapes, D 112
 among them, under ``cases``), the card's name and
@@ -3069,6 +3086,346 @@ def phase_l(torch):
 
 
 # --------------------------------------------------------------------------
+# phase (n): #5 and #7 at a query offset, and the dry run on the card
+# --------------------------------------------------------------------------
+# (label, heads (H, KV, D)) of the shard checks: a sequence of N_SEQ split
+# into N_SHARDS slices of B N_BATCH, each slice a context-parallel rank's
+N_HEADS = [("qwen2-0.5b", HEADS["qwen2-0.5b"]), ("olmo-1b", HEADS["olmo-1b"]),
+           ("zamba2-7b", ZAMBA_HEADS)]
+N_SEQ, N_BATCH, N_SHARDS = 2048, 8, (2, 4)
+N_MASKS = {"causal": (True, 0), "window": (True, 512), "full": (False, 0)}
+# the dry run's archs on the card's 1×1 mesh, in a CPU process of their
+# own each (fake tensors: no device work), started with the script
+N_DRYRUN = ("olmo-1b", "qwen2-0.5b")
+N_DRYRUN_DIR = OUT_DIR / "dryrun_torch"
+N_ALLOC_RTOL = 0.01      # allocated bytes vs the record's argument bytes
+
+
+def _shard_pairs(s_l, sk, off, causal, window):
+    """Visible (query, key) pairs of one row of a shard at ``off``."""
+    i = np.arange(s_l) + off
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(i, sk - 1) if causal else np.full_like(i, sk - 1)
+    return int((hi - lo + 1).sum())
+
+
+def _shard_library(torch, q, k, v, dout, off, causal, window):
+    """SDPA forward and backward over one shard with its shifted mask."""
+    import torch.nn.functional as F
+    s_l, sk = q.shape[1], k.shape[1]
+    ii = torch.arange(s_l, device=q.device)[:, None] + off
+    jj = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(s_l, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= jj <= ii
+    if window:
+        mask &= ii - jj < window
+    extra = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              **extra)
+
+    o = fwd()
+    go = dout.transpose(1, 2)
+    return fwd, lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                            retain_graph=True)
+
+
+def _shard_checks(torch, gen, dev):
+    """Every (heads, dtype, mask, shard count): each shard's #5 (out, lse)
+    and #7 (dq, dk, dv) at its q_offset against the plain versions at
+    phase (a)'s tolerances, and the shards put together (outputs, lse
+    and dq concatenated, dk and dv summed) against the unsharded call;
+    each bf16 shard's kernel time beside its bound (every shard's bound
+    is reported). Returns (rows, the
+    kernels line's cases for #5 and #7)."""
+    from repro_torch.kernels import flash_attention, flash_vjp
+    rows, cases = [], {"flash_attention": {}, "flash_attention_bwd": {}}
+    for label, (h, kv, d) in N_HEADS:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            atol, rtol = TOL[dname]
+            btol = BWD_TOL[dname]
+            for mname, (causal, window) in N_MASKS.items():
+                kw = dict(causal=causal, window=window)
+                b, s = N_BATCH, N_SEQ
+                q, dout = (torch.randn(b, s, h, d, generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(2))
+                k, v = (torch.randn(b, s, kv, d, generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                out, lse = flash_attention.flash_attention_cuda(
+                    q, k, v, lse=True, **kw)
+                whole = flash_vjp.flash_attention_bwd_cuda(
+                    q, k, v, out, dout, lse, **kw)
+                for m in N_SHARDS:
+                    s_l = s // m
+                    parts = []
+                    for r in range(m):
+                        off = r * s_l
+                        sl = slice(off, off + s_l)
+                        ql, dl = q[:, sl].contiguous(), dout[:, sl].contiguous()
+                        okw = dict(kw, q_offset=off)
+                        o, ls = flash_attention.flash_attention_cuda(
+                            ql, k, v, lse=True, **okw)
+                        g = flash_vjp.flash_attention_bwd_cuda(
+                            ql, k, v, o, dl, ls, **okw)
+                        po, pls = flash_vjp.flash_fwd_plain(ql, k, v, **okw)
+                        pg = flash_vjp.flash_bwd_plain(ql, k, v, o, dl, ls,
+                                                       **okw)
+                        torch.cuda.synchronize()
+                        errs = {"out": float((o.float() - po.float()).abs()
+                                             .max())}
+                        ok = bool(torch.allclose(o.float(), po.float(),
+                                                 atol=atol, rtol=rtol))
+                        for n, x, y, t in (("lse", ls, pls, btol / 10),
+                                           ("dq", g[0], pg[0], btol),
+                                           ("dk", g[1], pg[1], btol),
+                                           ("dv", g[2], pg[2], btol)):
+                            x, y = x.float(), y.float()
+                            errs[n] = float((x - y).abs().max())
+                            ok &= bool(torch.isfinite(x).all()) and \
+                                errs[n] <= t * max(1.0, float(y.abs().max()))
+                        pairs = _shard_pairs(s_l, s, off, causal, window) \
+                            * b * h
+                        elt = q.element_size()
+                        f_bytes = (2 * ql.numel() + 2 * k.numel()) * elt \
+                            + 4 * ls.numel()
+                        b_bytes = (4 * ql.numel() + 4 * k.numel()) * elt \
+                            + 4 * ls.numel()
+                        row = {"model": label, "heads": (h, kv, d),
+                               "dtype": dname, "mask": mname, "shards": m,
+                               "rank": r, "q_offset": off, "errs": errs,
+                               "ok": ok}
+                        row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(
+                            f_bytes, 4.0 * pairs * d, dname)
+                        row["bwd_bound_ms"], row["bwd_bound_by"] = _bound_ms(
+                            b_bytes, 2.5 * 4.0 * pairs * d, dname)
+                        if dname == "bfloat16":   # float32: correctness only
+                            row["fwd_ms"] = _time_ms(
+                                lambda: flash_attention.flash_attention_cuda(
+                                    ql, k, v, lse=True, **okw), torch,
+                                iters=10)
+                            row["bwd_ms"] = _time_ms(
+                                lambda: flash_vjp.flash_attention_bwd_cuda(
+                                    ql, k, v, o, dl, ls, **okw), torch,
+                                iters=10)
+                        if (dname, mname, m, r) == ("bfloat16", "causal", 2,
+                                                    1):
+                            fwd, bwd = _shard_library(torch, ql, k, v, dl,
+                                                      off, causal, window)
+                            key = f"q_offset {label} {m} shards rank {r}"
+                            base = {"heads": (h, kv, d), "shape": dict(
+                                b=b, s=s_l, sk=s, q_offset=off, causal=causal,
+                                window=window)}
+                            cases["flash_attention"][key] = {
+                                **base, "max_abs_err": errs["out"],
+                                "ms": row["fwd_ms"],
+                                "plain_ms": _time_ms(
+                                    lambda: flash_vjp.flash_fwd_plain(
+                                        ql, k, v, **okw), torch, iters=3),
+                                "bound_ms": row["fwd_bound_ms"],
+                                "bound_by": row["fwd_bound_by"],
+                                "library_ms": _time_ms(fwd, torch)}
+                            cases["flash_attention_bwd"][key] = {
+                                **base, "max_abs_err": max(
+                                    errs[n] for n in ("dq", "dk", "dv")),
+                                "ms": row["bwd_ms"],
+                                "plain_ms": _time_ms(
+                                    lambda: flash_vjp.flash_bwd_plain(
+                                        ql, k, v, o, dl, ls, **okw), torch,
+                                    iters=3),
+                                "bound_ms": row["bwd_bound_ms"],
+                                "bound_by": row["bwd_bound_by"],
+                                "library_ms": _time_ms(bwd, torch)}
+                        parts.append((o, ls, g))
+                        rows.append(row)
+                        _log(json.dumps(row))
+                    # the shards put together against the unsharded call
+                    cat_o = torch.cat([p[0] for p in parts], 1).float()
+                    cat_l = torch.cat([p[1] for p in parts], 2)
+                    cat_q = torch.cat([p[2][0] for p in parts], 1).float()
+                    sum_k = sum(p[2][1].float() for p in parts)
+                    sum_v = sum(p[2][2].float() for p in parts)
+                    werr = {"out": float((cat_o - out.float()).abs().max()),
+                            "lse": float((cat_l - lse).abs().max()),
+                            "dq": float((cat_q - whole[0].float()).abs()
+                                        .max()),
+                            "dk": float((sum_k - whole[1].float()).abs()
+                                        .max()),
+                            "dv": float((sum_v - whole[2].float()).abs()
+                                        .max())}
+                    wok = bool(torch.allclose(cat_o, out.float(), atol=atol,
+                                              rtol=rtol))
+                    for n, ref, t in (("lse", lse, btol / 10),
+                                      ("dq", whole[0], btol),
+                                      ("dk", whole[1], btol),
+                                      ("dv", whole[2], btol)):
+                        wok &= werr[n] <= t * max(1.0, float(
+                            ref.float().abs().max()))
+                    row = {"model": label, "dtype": dname, "mask": mname,
+                           "shards": m, "vs_unsharded": werr,
+                           "bit_equal_out": bool(torch.equal(
+                               cat_o, out.float())), "ok": wok}
+                    if dname == "bfloat16":
+                        # the slices' summed time against the whole call's
+                        mine = rows[-m:]
+                        row["shards_fwd_ms"] = sum(r["fwd_ms"] for r in mine)
+                        row["shards_bwd_ms"] = sum(r["bwd_ms"] for r in mine)
+                        row["whole_fwd_ms"] = _time_ms(
+                            lambda: flash_attention.flash_attention_cuda(
+                                q, k, v, lse=True, **kw), torch, iters=10)
+                        row["whole_bwd_ms"] = _time_ms(
+                            lambda: flash_vjp.flash_attention_bwd_cuda(
+                                q, k, v, out, dout, lse, **kw), torch,
+                            iters=10)
+                    rows.append(row)
+                    _log(json.dumps(row))
+                    del parts
+                del q, k, v, dout, out, lse, whole
+    return rows, cases
+
+
+def _cp_drive(torch, gen, dev):
+    """The path: each rank's ``layers.cp_shard`` of a bf16 qwen2-0.5b
+    sequence of 2048 over 2 ranks, forward and backward under autograd,
+    as ``cp_attention``'s ``local_map`` runs it per device. Returns the
+    launch counts of the drive."""
+    from repro_torch.models import layers as L
+    h, kv, d = HEADS["qwen2-0.5b"]
+    bf = torch.bfloat16
+    q = torch.randn(N_BATCH, N_SEQ, h, d, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(N_BATCH, N_SEQ, kv, d, generator=gen,
+                        device=dev).to(bf).requires_grad_(True)
+            for _ in range(2))
+    s_l = N_SEQ // 2
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    for r in range(2):
+        ql = q[:, r * s_l:(r + 1) * s_l].detach().requires_grad_(True)
+        o = L.cp_shard(ql, k, v, r, causal=True)
+        o.float().square().mean().backward()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    assert torch.isfinite(k.grad.float()).all()
+    return launches
+
+
+def start_dryruns():
+    """The dry run of ``N_DRYRUN`` on the card's 1×1 mesh, one CPU process
+    each (no CUDA device: its tensors are fake), writing under
+    ``chiprun_out/dryrun_torch``; phase (n) collects them."""
+    import os
+    N_DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    for arch in N_DRYRUN:
+        log = open(N_DRYRUN_DIR / f"{arch}.log", "w")
+        procs[arch] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "card", "--out", str(N_DRYRUN_DIR)], cwd=ROOT,
+            env=env, stdout=log, stderr=subprocess.STDOUT), log, time.time())
+    return procs
+
+
+def _dryrun_records(torch, procs):
+    """Wait for the dry runs, put the card's memory into each record's
+    ``fits``, and print ``roofline_report``'s table."""
+    import contextlib
+    import io
+    from repro_torch.core.hardware import local_gpu
+    from repro_torch.launch import roofline_report
+    hbm = local_gpu().hbm_bytes
+    waited, recs = {}, {}
+    for arch, (proc, log, t0) in procs.items():
+        rc = proc.wait(timeout=max(1.0, 900 - (time.time() - t0)))
+        log.close()
+        waited[arch] = {"rc": rc, "s": time.time() - t0}
+        assert rc == 0, (arch, rc, (N_DRYRUN_DIR / f"{arch}.log").read_text()
+                         [-3000:])
+    for path in sorted(N_DRYRUN_DIR.glob("*__card.json")):
+        rec = json.loads(path.read_text())
+        assert rec["ok"], (path.name, rec.get("error"))
+        rec["hbm_bytes"] = hbm
+        rec["fits"] = rec["memory"]["total_per_device"] <= hbm
+        path.write_text(json.dumps(rec, indent=1))
+        recs[(rec["arch"], rec["shape"])] = rec
+    assert len(recs) == 4 * len(N_DRYRUN), sorted(recs)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        roofline_report.main("card", str(N_DRYRUN_DIR))
+    table = buf.getvalue()
+    (N_DRYRUN_DIR / "roofline_card.md").write_text(table)
+    _log(table)
+    return recs, waited, table
+
+
+def _real_decode(torch, rec):
+    """qwen2-0.5b ``decode_32k`` for real: its parameters and cache
+    allocated on the card (the growth of ``memory_allocated`` against the
+    record's argument bytes, within N_ALLOC_RTOL), then one decode step's
+    peak allocation beside the record's prediction (reported only)."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import build_model
+    cfg, shape = get_config("qwen2-0.5b"), get_shape("decode_32k")
+    api = build_model(cfg)
+    clen = dryrun.cache_len_for(cfg, shape)
+    _release(torch)
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = api.init(gen, torch.bfloat16)
+        cache = api.init_cache(shape.global_batch, clen)
+        token = torch.randint(0, cfg.vocab_size, (shape.global_batch,),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    args = rec["memory"]["argument_size_in_bytes"]
+    out = {"allocated_bytes": grown, "record_argument_bytes": args,
+           "rel_diff": abs(grown - args) / args}
+    assert out["rel_diff"] <= N_ALLOC_RTOL, out
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, cache = api.decode_step(params, token, cache)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    out["step_peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    out["record_total_per_device"] = rec["memory"]["total_per_device"]
+    del params, cache, logits
+    _release(torch)
+    return out
+
+
+def phase_n(torch, procs):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows, cases = _shard_checks(torch, gen, dev)
+    launches = _cp_drive(torch, gen, dev)
+    _check_launches(launches, ("flash_attention", "flash_attention_bwd"),
+                    "n")
+    recs, waited, table = _dryrun_records(torch, procs)
+    real = _real_decode(torch, recs[("qwen2-0.5b", "decode_32k")])
+    bad = [r for r in rows if not r["ok"]]
+    out = {"phase": "n", "shard_rows": len(rows), "failed": len(bad),
+           "launches": launches, "dryrun": waited, "real_decode": real,
+           "records": {f"{a}/{s}": {
+               "argument_bytes": r["memory"]["argument_size_in_bytes"],
+               "total_per_device": r["memory"]["total_per_device"],
+               "flops": r["flops_per_device"], "fits": r["fits"]}
+               for (a, s), r in recs.items()}}
+    _emit(out)
+    assert not bad, f"q_offset shards disagree: {bad}"
+    return {**out, "rows": rows, "cases": cases, "roofline": table}
+
+
+# --------------------------------------------------------------------------
 # phase (m): training through the normal entry point
 # --------------------------------------------------------------------------
 # (m1), (m2) and (m4)-(m6): model, batch, sequence, steps and the depth
@@ -3927,9 +4284,9 @@ def _to_cpu(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="abdefghijklmc",
+    ap.add_argument("--phases", default="abdefghijklmnc",
                     help="which phases to run, of a, b, d, e, f, g, h, i, "
-                         "j, k, l, m, c (default: all)")
+                         "j, k, l, m, n, c (default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3964,6 +4321,18 @@ def main(argv=None) -> int:
             tc = {k: n for k, n in hgmma[lib].items() if name in k}
             assert len(tc) == count and all(tc.values()), (name, hgmma)
     report = {"build_s": build_s, "sass_hgmma": hgmma}
+    procs = start_dryruns() if "n" in args.phases else {}
+    try:
+        return _run_phases(torch, args, report, procs)
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _run_phases(torch, args, report, procs) -> int:
     summary, paged_streams = {}, None
     main_launches = {n: 0 for n in KERNEL_NAMES}
     report["phase_s"] = seconds = {}
@@ -4004,13 +4373,18 @@ def main(argv=None) -> int:
         report["l"] = timed("l", phase_l)
     if "m" in args.phases:
         report["m"] = timed("m", phase_m)
-    for phase in "bdefghijklm":
+    if "n" in args.phases:
+        report["n"] = timed("n", phase_n, procs)
+        if summary:
+            for name, extra in report["n"]["cases"].items():
+                summary[name].setdefault("cases", {}).update(extra)
+    for phase in "bdefghijklmn":
         for name, n in report.get(phase, {}).get("launches", {}).items():
             main_launches[name] += n
     if "c" in args.phases:
         report["c"] = timed("c", phase_c, report.get("i", {}).get("i3"))
     if summary:
-        if all(p in args.phases for p in "bdefghijklm"):
+        if all(p in args.phases for p in "bdefghijklmn"):
             assert all(main_launches.values()), main_launches
             for name, row in summary.items():
                 row["launches"] = main_launches[name]

@@ -3,7 +3,7 @@ configurations of the JAX package's zoo, in its order, by name or by the
 JAX package's aliases. The profiles and
 the simulator plan over all ten; the model registry builds only the
 families ported so far (``repro_torch.models.registry``)."""
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.configs.chameleon_34b import CONFIG as _chameleon
 from repro_torch.configs.deepseek_7b import CONFIG as _deepseek
 from repro_torch.configs.granite_moe import CONFIG as _granite
@@ -46,4 +46,13 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[key]
 
 
-__all__ = ["ARCHS", "ALIASES", "ModelConfig", "get_config"]
+def get_shape(name: str) -> InputShape:
+    if name not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]
+
+
+__all__ = [
+    "ARCHS", "ALIASES", "INPUT_SHAPES", "InputShape", "ModelConfig",
+    "get_config", "get_shape",
+]

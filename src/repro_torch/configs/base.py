@@ -3,7 +3,8 @@
 ``reduced()``), kept here so the port imports nothing of that package.
 
 It drives model construction (``repro_torch.models.registry.build_model``)
-and parameter counting.
+and parameter counting. ``InputShape`` and ``INPUT_SHAPES`` are the JAX
+package's four dry-run shapes (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -188,3 +189,19 @@ class ModelConfig:
             encoder_seq=16 if self.encoder_seq else 0,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}

@@ -46,11 +46,11 @@ SIGNATURES = {
     "decode_attention":
         (_P,) * 6 + (_I,) * 8 + (_F, _P),
     "flash_attention":
-        (_P,) * 5 + (_I,) * 9 + (_F, _P),
+        (_P,) * 5 + (_I,) * 10 + (_F, _P),
     "ssd_scan":
         (_P,) * 8 + (_I,) * 7 + (_P,),
     "flash_attention_bwd":
-        (_P,) * 10 + (_I,) * 9 + (_F, _P),
+        (_P,) * 10 + (_I,) * 10 + (_F, _P),
 }
 ENTRY_LIBRARY = {
     "paged_decode_attention": "paged_attention",

@@ -4,14 +4,17 @@
 //
 // 1. flash_attention replaces the TPU kernel
 //    src/repro/kernels/flash_attention.py, flash_attention (_flash_kernel).
-//    q: (B, S, H, D); k, v: (B, Sk, KV, D). Token i attends token j iff
-//    (causal -> j <= i) and (window > 0 -> i - j < window); non-causal
-//    attention without a window sees every key. Query head h reads KV head
-//    h * KV / H. S and Sk are any lengths: the kernel masks the ragged
-//    edges itself, so every padded prefill on the card goes through it
-//    (the TPU needs S to be a multiple of its 512 tile). Sk differs from
-//    S only without causality and window (cross-attention: decoder queries
-//    over encoder frames); the caller refuses the rest.
+//    q: (B, S, H, D); k, v: (B, Sk, KV, D). Query row i stands at position
+//    p = i + q_offset, and attends token j iff (causal -> j <= p) and
+//    (window > 0 -> p - j < window); non-causal attention without a
+//    window sees every key. Query head h reads KV head h * KV / H. S and
+//    Sk are any lengths: the kernel masks the ragged edges itself, so
+//    every padded prefill on the card goes through it (the TPU needs S to
+//    be a multiple of its 512 tile). Causal or windowed attention needs
+//    q_offset + S <= Sk: Sk == S at offset 0 (a whole sequence), or one
+//    context-parallel shard of the queries over the whole sequence's
+//    keys (layers.cp_attention); without either, any Sk
+//    (cross-attention: decoder queries over encoder frames).
 //
 // 2. segment_flash_attention replaces the TPU kernel
 //    src/repro/kernels/flash_attention.py, segment_flash_attention
@@ -74,7 +77,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(T* __restrict__ out, float* __restrict__ lse,
              const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, int S, int Sk, int H, int KV,
-             int causal, int window, float scale) {
+             int causal, int window, int q_offset, float scale) {
   Smem<D>& sm = smem<D>();
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h * KV / H;
@@ -89,8 +92,9 @@ flash_kernel(T* __restrict__ out, float* __restrict__ lse,
   st.init();
   // keys [first, last]: a window starts the walk at the oldest key the
   // tile's first query still sees, causality ends it at the diagonal
-  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int last = causal ? q_last : Sk - 1;
+  // (both at the rows' positions, q_offset on)
+  const int first = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int last = causal ? min(q_last + q_offset, Sk - 1) : Sk - 1;
   for (int kt = first / kBK; kt <= last / kBK; ++kt) {
     const int k0 = kt * kBK;
     load_kv<T, D>(sm, k, v, [&](int t) -> long long {
@@ -98,9 +102,9 @@ flash_kernel(T* __restrict__ out, float* __restrict__ lse,
       return j < Sk ? (((long long)b * Sk + j) * KV + g) * D : -1;
     });
     fold_tile<D>(sm, st, scale, [&](int r, int t) {
-      const int i = q0 + r, j = k0 + t;
-      return i < S && j < Sk && (!causal || j <= i) &&
-             (window <= 0 || i - j < window);
+      const int p = q0 + r + q_offset, j = k0 + t;
+      return q0 + r < S && j < Sk && (!causal || j <= p) &&
+             (window <= 0 || p - j < window);
     });
   }
   store_rows<T, D>(st, out, qoff);
@@ -111,7 +115,8 @@ flash_kernel(T* __restrict__ out, float* __restrict__ lse,
 namespace tc {
 
 // The causal / window / ragged-edge visibility of the dense kernel over a
-// query tile of rows [q0, q_last] and Sk keys.
+// query tile at positions [q0, q_last] (its rows shifted by q_offset) and
+// Sk keys.
 struct DenseMask {
   int q0, q_last, Sk, causal, window;
   __device__ __forceinline__ bool full(int k0) const {
@@ -151,22 +156,23 @@ flash_tc_kernel(__nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                 const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, int S, int Sk, int H,
-                int KV, int causal, int window, float scale) {
+                int KV, int causal, int window, int q_offset, float scale) {
   // the last query tiles see the most keys when causal: they start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = h * KV / H;
   const int q_last = min(q0 + tc::kBQ, S) - 1;
-  // keys [first, last], as in flash_kernel
-  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int last = causal ? q_last : Sk - 1;
+  // the tile's positions, and keys [first, last], as in flash_kernel
+  const int p0 = q0 + q_offset, p_last = q_last + q_offset;
+  const int first = window > 0 ? max(0, p0 - window + 1) : 0;
+  const int last = causal ? min(p_last, Sk - 1) : Sk - 1;
   const long long q_stride = (long long)H * D, kv_stride = (long long)KV * D;
   const long long qo = (((long long)b * S + q0) * H + h) * D;
   const long long ko = ((long long)b * Sk * KV + g) * D;
   tc::tc_attend<D>(out + qo, q + qo, q_stride, S - q0,
-                   tc::StridedKeys<D>{k + ko, v + ko, kv_stride, Sk}, q0,
+                   tc::StridedKeys<D>{k + ko, v + ko, kv_stride, Sk}, p0,
                    first / tc::kBK, last / tc::kBK, scale,
-                   tc::DenseMask{q0, q_last, Sk, causal, window},
+                   tc::DenseMask{p0, p_last, Sk, causal, window},
                    kLse ? lse + ((long long)b * H + h) * S + q0 : nullptr);
 }
 
@@ -174,57 +180,60 @@ template <int D>
 static cudaError_t run_dense_tc(void* out, void* lse, const void* q,
                                 const void* k, const void* v, int B, int S,
                                 int Sk, int H, int KV, int causal, int window,
-                                float scale, cudaStream_t stream) {
+                                int q_offset, float scale,
+                                cudaStream_t stream) {
   const dim3 grid((S + tc::kBQ - 1) / tc::kBQ, H, B);
   return launch(lse ? flash_tc_kernel<D, true> : flash_tc_kernel<D, false>,
                 grid, tc::smem_bytes<D>(), stream,
                 (__nv_bfloat16*)out, (float*)lse, (const __nv_bfloat16*)q,
                 (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, S, Sk, H,
-                KV, causal, window, scale);
+                KV, causal, window, q_offset, scale);
 }
 
 template <typename T, int D>
 static cudaError_t run_dense(void* out, void* lse, const void* q,
                              const void* k, const void* v, int B, int S,
                              int Sk, int H, int KV, int causal, int window,
-                             float scale, cudaStream_t stream) {
+                             int q_offset, float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   return launch(lse ? flash_kernel<T, D, true> : flash_kernel<T, D, false>,
                 grid, smem_bytes<D>(), stream, (T*)out,
                 (float*)lse, (const T*)q, (const T*)k, (const T*)v, S, Sk, H,
-                KV, causal, window, scale);
+                KV, causal, window, q_offset, scale);
 }
 
 // q, out: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous. lse: null,
 // or (B, H, S) float32 for each row's log-sum-exp (the training path).
-// causal: 0/1; window: 0 = none; Sk != S only with neither. dtype: 0 =
-// float32, 1 = bfloat16. Returns cudaGetLastError().
+// causal: 0/1; window: 0 = none; q_offset: the position of query row 0;
+// with either, 0 <= q_offset and q_offset + S <= Sk. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError().
 extern "C" int flash_attention(void* out, void* lse, const void* q,
                                const void* k, const void* v, int B, int S,
                                int Sk, int H, int KV, int D, int causal,
-                               int window, int dtype, float scale,
-                               void* stream) {
+                               int window, int q_offset, int dtype,
+                               float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || S == 0) return cudaSuccess;
-  if (Sk != S && (causal || window > 0)) return cudaErrorInvalidValue;
+  if ((causal || window > 0) && (q_offset < 0 || q_offset + S > Sk))
+    return cudaErrorInvalidValue;
   if (D == 64 && dtype == 0)
     return run_dense<float, 64>(out, lse, q, k, v, B, S, Sk, H, KV, causal,
-                                window, scale, s);
+                                window, q_offset, scale, s);
   if (D == 64 && dtype == 1)
     return run_dense_tc<64>(out, lse, q, k, v, B, S, Sk, H, KV, causal, window,
-                            scale, s);
+                            q_offset, scale, s);
   if (D == 128 && dtype == 0)
     return run_dense<float, 128>(out, lse, q, k, v, B, S, Sk, H, KV, causal,
-                                 window, scale, s);
+                                 window, q_offset, scale, s);
   if (D == 128 && dtype == 1)
     return run_dense_tc<128>(out, lse, q, k, v, B, S, Sk, H, KV, causal, window,
-                             scale, s);
+                             q_offset, scale, s);
   if (D == 112 && dtype == 0)
     return run_dense<float, 112>(out, lse, q, k, v, B, S, Sk, H, KV, causal,
-                                 window, scale, s);
+                                 window, q_offset, scale, s);
   if (D == 112 && dtype == 1)
     return run_dense_tc<112>(out, lse, q, k, v, B, S, Sk, H, KV, causal, window,
-                             scale, s);
+                             q_offset, scale, s);
   return cudaErrorInvalidValue;
 }
 

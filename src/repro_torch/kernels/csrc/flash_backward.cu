@@ -7,8 +7,10 @@
 // writes in plain jnp (it is no Pallas kernel; on a TPU the training path
 // runs the Pallas forward and this jnp backward). q, O, dO: (B, S, H, D);
 // k, v: (B, Sk, KV, D); lse: (B, H, S) float32, natural-log units of the
-// scaled scores. Token i attends token j iff (causal -> j <= i) and
-// (window > 0 -> i - j < window); Sk differs from S only without either.
+// scaled scores. Query row i stands at position p = i + q_offset and
+// attends token j iff (causal -> j <= p) and (window > 0 -> p - j <
+// window); with either, q_offset + S <= Sk (a context-parallel shard of
+// the queries over the whole sequence's keys when q_offset > 0).
 // Query head h reads KV head h * KV / H. With scale = 1/sqrt(D):
 //   P = exp(scale * q k^T - lse) on the visible pairs, 0 elsewhere
 //   delta = rowsum(dO * O)
@@ -194,7 +196,7 @@ dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const T* __restrict__ q,
             const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, int S, int Sk, int H, int KV,
-            int causal, int window, float scale) {
+            int causal, int window, int q_offset, float scale) {
   Smem<D>& sm = smem<D>();
   constexpr int kDJ = D / kTile;  // accumulator columns per thread
   const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
@@ -210,11 +212,13 @@ dkdv_kernel(T* __restrict__ dk, T* __restrict__ dv, const T* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < kDJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  // the queries that can see a key of the tile: from the diagonal on when
-  // causal, up to the window's end when windowed
-  const int q_first = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
-  const Pairs vis{S, Sk, causal, window};
+  // the query rows that can see a key of the tile: from the diagonal on
+  // when causal, up to the window's end when windowed (a row's position
+  // is q_offset on)
+  const int q_first = causal ? max(0, k0 - q_offset) : 0;
+  const int q_end = window > 0
+      ? min(S - 1, k_last + window - 1 - q_offset) : S - 1;
+  const Pairs vis{S, Sk, causal, window, q_offset};
   const int group = H / KV;
   for (int hh = 0; hh < group; ++hh) {
     const int h = g * group + hh;
@@ -270,7 +274,7 @@ dq_kernel(T* __restrict__ dq, const T* __restrict__ q,
           const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, int S, int Sk, int H, int KV,
-          int causal, int window, float scale) {
+          int causal, int window, int q_offset, float scale) {
   Smem<D>& sm = smem<D>();
   constexpr int kDJ = D / kTile;
   const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
@@ -288,9 +292,9 @@ dq_kernel(T* __restrict__ dq, const T* __restrict__ q,
     for (int j = 0; j < kDJ; ++j) acc[i][j] = 0.f;
 
   // keys [first, last], as in the forward
-  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int last = causal ? min(q_last, Sk - 1) : Sk - 1;
-  const Pairs vis{S, Sk, causal, window};
+  const int first = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int last = causal ? min(q_last + q_offset, Sk - 1) : Sk - 1;
+  const Pairs vis{S, Sk, causal, window, q_offset};
   for (int kt = first / kBK; kt <= last / kBK; ++kt) {
     const int k0 = kt * kBK;
     const long long koff = (((long long)b * Sk + k0) * KV + g) * D;
@@ -353,20 +357,21 @@ static cudaError_t run_f32(void* dq, void* dk, void* dv, float* delta,
                            const void* q, const void* k, const void* v,
                            const void* out, const void* dout,
                            const float* lse, int B, int S, int Sk, int H,
-                           int KV, int causal, int window, float scale,
-                           cudaStream_t stream) {
+                           int KV, int causal, int window, int q_offset,
+                           float scale, cudaStream_t stream) {
   cudaError_t err = launch_delta<float, D>(delta, out, dout, B, S, H, stream);
   if (err != cudaSuccess) return err;
   err = launch(dkdv_kernel<float, D>, dim3((Sk + kBK - 1) / kBK, KV, B),
                smem_bytes<D>(), stream, (float*)dk, (float*)dv,
                (const float*)q, (const float*)k, (const float*)v,
                (const float*)dout, lse, (const float*)delta, S, Sk, H, KV,
-               causal, window, scale);
+               causal, window, q_offset, scale);
   if (err != cudaSuccess) return err;
   return launch(dq_kernel<float, D>, dim3((S + kBQ - 1) / kBQ, H, B),
                 smem_bytes<D>(), stream, (float*)dq, (const float*)q,
                 (const float*)k, (const float*)v, (const float*)dout, lse,
-                (const float*)delta, S, Sk, H, KV, causal, window, scale);
+                (const float*)delta, S, Sk, H, KV, causal, window, q_offset,
+                scale);
 }
 
 template <int D>
@@ -374,41 +379,43 @@ static cudaError_t run_bf16(void* dq, void* dk, void* dv, float* delta,
                             const void* q, const void* k, const void* v,
                             const void* out, const void* dout,
                             const float* lse, int B, int S, int Sk, int H,
-                            int KV, int causal, int window, float scale,
-                            cudaStream_t stream) {
+                            int KV, int causal, int window, int q_offset,
+                            float scale, cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
   cudaError_t err = launch_delta<bf16, D>(delta, out, dout, B, S, H, stream);
   if (err != cudaSuccess) return err;
   return tcbwd::run<D>((bf16*)dq, (bf16*)dk, (bf16*)dv, delta,
                        (const bf16*)q, (const bf16*)k, (const bf16*)v,
                        (const bf16*)dout, lse, B, S, Sk, H, KV, causal,
-                       window, scale, stream);
+                       window, q_offset, scale, stream);
 }
 
 }  // namespace bwd
 
 // dq, q, out, dout: (B, S, H, D); dk, dv, k, v: (B, Sk, KV, D); lse, delta
 // (scratch, written here): (B, H, S) float32; all contiguous. causal: 0/1;
-// window: 0 = none; Sk != S only with neither. dtype: 0 = float32, 1 =
-// bfloat16; D 64, 128 or 112. S == 0 writes nothing (the caller zeroes dk and
-// dv). Returns cudaGetLastError().
+// window: 0 = none; q_offset: the position of query row 0; with either,
+// 0 <= q_offset and q_offset + S <= Sk. dtype: 0 = float32, 1 = bfloat16;
+// D 64, 128 or 112. S == 0 writes nothing (the caller zeroes dk and dv).
+// Returns cudaGetLastError().
 extern "C" int flash_attention_bwd(void* dq, void* dk, void* dv, void* delta,
                                    const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse, int B,
                                    int S, int Sk, int H, int KV, int D,
-                                   int causal, int window, int dtype,
-                                   float scale, void* stream) {
+                                   int causal, int window, int q_offset,
+                                   int dtype, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || S == 0) return cudaSuccess;
-  if (Sk == 0 || (Sk != S && (causal || window > 0)))
+  if (Sk == 0 ||
+      ((causal || window > 0) && (q_offset < 0 || q_offset + S > Sk)))
     return cudaErrorInvalidValue;
   if (H % KV) return cudaErrorInvalidValue;
   float* dl = (float*)delta;
   const float* ls = (const float*)lse;
 #define BWD_RUN(F)                                                       \
   return bwd::F(dq, dk, dv, dl, q, k, v, out, dout, ls, B, S, Sk, H, KV, \
-                causal, window, scale, s)
+                causal, window, q_offset, scale, s)
   if (D == 64 && dtype == 0) BWD_RUN(run_f32<64>);
   if (D == 64 && dtype == 1) BWD_RUN(run_bf16<64>);
   if (D == 128 && dtype == 0) BWD_RUN(run_f32<128>);

@@ -97,18 +97,21 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-// Which (query i, key j) pairs are visible; full(q0, k0): every pair of
-// the 64-query tile at q0 and the 64-key tile at k0 is.
+// Which (query row i, key j) pairs are visible, row i standing at
+// position i + q_offset in the causal and window masks; full(q0, k0):
+// every pair of the 64-query tile at row q0 and the 64-key tile at k0 is.
 struct Pairs {
-  int S, Sk, causal, window;
+  int S, Sk, causal, window, q_offset;
   __device__ __forceinline__ bool visible(int i, int j) const {
-    return i < S && j < Sk && (!causal || j <= i) &&
-           (window <= 0 || i - j < window);
+    const int p = i + q_offset;
+    return i < S && j < Sk && (!causal || j <= p) &&
+           (window <= 0 || p - j < window);
   }
   __device__ __forceinline__ bool full(int q0, int k0) const {
+    const int p0 = q0 + q_offset;
     return q0 + kBQ <= S && k0 + kBK <= Sk &&
-           (!causal || k0 + kBK - 1 <= q0) &&
-           (window <= 0 || q0 + kBQ - 1 - k0 < window);
+           (!causal || k0 + kBK - 1 <= p0) &&
+           (window <= 0 || p0 + kBQ - 1 - k0 < window);
   }
 };
 
@@ -178,7 +181,7 @@ dkdv_tc_kernel(bf16* __restrict__ dk, bf16* __restrict__ dv,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse,
                const float* __restrict__ delta, int S, int Sk, int H, int KV,
-               int causal, int window, float scale) {
+               int causal, int window, int q_offset, float scale) {
   Smem<D>& sm = smem<D>();
   constexpr int kDW = tile_dim<D>();
   constexpr int kNT = kBQ / 8;  // 8-query column tiles of S^T
@@ -190,11 +193,13 @@ dkdv_tc_kernel(bf16* __restrict__ dk, bf16* __restrict__ dv,
   load_tile<D, kBK>(sm.own[0], k + koff, kv_stride, nk);
   load_tile<D, kBK>(sm.own[1], v + koff, kv_stride, nk);
 
-  // the query tiles that can see a key of the tile: from the diagonal on
-  // when causal, up to the window's end when windowed; for each query
-  // head of the group in turn
-  const int q_first = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S - 1, k0 + nk - 1 + window - 1) : S - 1;
+  // the query rows that can see a key of the tile: from the diagonal on
+  // when causal, up to the window's end when windowed (rows stand at
+  // their position less q_offset); for each query head of the group in
+  // turn
+  const int q_first = causal ? max(0, k0 - q_offset) : 0;
+  const int q_end = window > 0
+      ? min(S - 1, k0 + nk - 1 + window - 1 - q_offset) : S - 1;
   const int qt0 = q_first / kBQ;
   const int nqt = q_first <= q_end ? q_end / kBQ - qt0 + 1 : 0;
   const int group = H / KV;
@@ -225,7 +230,7 @@ dkdv_tc_kernel(bf16* __restrict__ dk, bf16* __restrict__ dv,
   zero(acc_k);
   zero(acc_v);
   const float sl2 = scale * kLog2e;
-  const Pairs pairs{S, Sk, causal, window};
+  const Pairs pairs{S, Sk, causal, window, q_offset};
   // in the accumulator layout this lane holds key rows j_lo and j_lo + 8
   // and, of every 8-query tile t, the columns 8t + 2(lane%4) and + 1
   const int j_lo = k0 + warp * 16 + (lane >> 2);
@@ -308,7 +313,7 @@ dq_tc_kernel(bf16* __restrict__ dq, const bf16* __restrict__ q,
              const bf16* __restrict__ k, const bf16* __restrict__ v,
              const bf16* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, int S, int Sk, int H, int KV,
-             int causal, int window, float scale) {
+             int causal, int window, int q_offset, float scale) {
   Smem<D>& sm = smem<D>();
   constexpr int kDW = tile_dim<D>();
   constexpr int kNT = kBK / 8;  // 8-key column tiles of S
@@ -325,8 +330,8 @@ dq_tc_kernel(bf16* __restrict__ dq, const bf16* __restrict__ q,
   load_tile<D, kBQ>(sm.own[1], dout + qoff, q_stride, nq);
 
   // key tiles [first, last] / kBK, as in the forward
-  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int last = causal ? min(q0 + nq - 1, Sk - 1) : Sk - 1;
+  const int first = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int last = causal ? min(q0 + nq - 1 + q_offset, Sk - 1) : Sk - 1;
   const int kt0 = first / kBK, n_walk = last / kBK - kt0 + 1;
   auto load_walk = [&](int n) {
     const int k0 = (kt0 + n) * kBK;
@@ -351,7 +356,7 @@ dq_tc_kernel(bf16* __restrict__ dq, const bf16* __restrict__ q,
   float acc[kDW / 8][4];
   zero(acc);
   const float sl2 = scale * kLog2e;
-  const Pairs pairs{S, Sk, causal, window};
+  const Pairs pairs{S, Sk, causal, window, q_offset};
   for (int n = 0; n < n_walk; ++n) {
     const int buf = n & 1;
     cp_async_wait<0>();  // tile n (and Q, dO) landed for this thread
@@ -416,16 +421,16 @@ template <int D>
 cudaError_t run(bf16* dq, bf16* dk, bf16* dv, const float* delta,
                 const bf16* q, const bf16* k, const bf16* v,
                 const bf16* dout, const float* lse, int B, int S, int Sk,
-                int H, int KV, int causal, int window, float scale,
-                cudaStream_t stream) {
+                int H, int KV, int causal, int window, int q_offset,
+                float scale, cudaStream_t stream) {
   cudaError_t err = attn::launch(
       dkdv_tc_kernel<D>, dim3(KV, B, (Sk + kBK - 1) / kBK), smem_bytes<D>(),
       stream, dk, dv, q, k, v, dout, lse, delta, S, Sk, H, KV, causal, window,
-      scale);
+      q_offset, scale);
   if (err != cudaSuccess) return err;
   return attn::launch(dq_tc_kernel<D>, dim3(H, B, (S + kBQ - 1) / kBQ),
                       smem_bytes<D>(), stream, dq, q, k, v, dout, lse, delta,
-                      S, Sk, H, KV, causal, window, scale);
+                      S, Sk, H, KV, causal, window, q_offset, scale);
 }
 
 }  // namespace tcbwd

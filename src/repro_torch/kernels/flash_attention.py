@@ -8,8 +8,10 @@ Replaces the TPU kernels of ``src/repro/kernels/flash_attention.py``:
   ``i`` attends token ``j`` iff ``j <= i`` when causal and ``i - j <
   window`` when a window is given. Padded ``prefill`` and ``forward`` run
   it (``layers.big_attention``), and so do the encoder-decoder family's
-  encoder and cross-attention (non-causal, Sk the encoder's frames: the
-  only calls with Sk != S, which causal or windowed calls refuse).
+  encoder and cross-attention (non-causal, Sk the encoder's frames). The
+  training path's context-parallel shards (``layers.cp_attention``) shift
+  the query rows to ``i + q_offset`` in the masks: a causal or windowed
+  call needs ``q_offset + S <= Sk``.
   ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` for any S
   and Sk (the kernel masks the ragged edges): bfloat16 on the tensor
   cores (``wgmma``), float32 on the CUDA cores, chosen by dtype behind
@@ -118,11 +120,22 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def check_offset(s: int, sk: int, causal: bool, window: int,
+                 q_offset: int) -> None:
+    """Refuse a causal or windowed call whose shifted query rows
+    ``q_offset .. q_offset + S - 1`` do not all lie among the Sk keys."""
+    if (causal or window) and not 0 <= q_offset <= sk - s:
+        raise ValueError(
+            f"{sk} keys for {s} queries at offset {q_offset}: causal or "
+            f"windowed attention needs 0 <= q_offset and q_offset + S <= Sk")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         lse: bool = False):
+                         lse: bool = False, q_offset: int = 0):
     """Launch the dense CUDA kernel. q: (B, S, H, D); k, v: (B, Sk, KV, D);
-    head_dim 64, 128 or 112; any S and Sk, Sk != S only non-causal without a
-    window. ``lse``: also return each row's log-sum-exp of its scaled
+    head_dim 64, 128 or 112; any S and Sk without causality or a window,
+    else ``q_offset + S <= Sk`` (query row i stands at position i +
+    ``q_offset``). ``lse``: also return each row's log-sum-exp of its scaled
     scores, (B, H, S) float32 (the training path's forward,
     ``flash_vjp``; a row that sees no key gets -1e30); serving passes no
     lse pointer and the kernel stores none."""
@@ -136,9 +149,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
             or k.shape[3] != d):
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if sk != s and (causal or window):
-        raise ValueError(f"{sk} keys for {s} queries: causal or windowed "
-                         f"attention needs as many keys as queries")
+    check_offset(s, sk, causal, window, q_offset)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
     out = torch.empty_like(q)
@@ -147,8 +158,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     fn = build.function("flash_attention")
     err = fn(out.data_ptr(), lse_out.data_ptr() if lse else None,
              q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, sk, h, kvh, d,
-             int(bool(causal)), int(window), build.dtype_code(q.dtype),
-             1.0 / math.sqrt(d), build.stream_of(q))
+             int(bool(causal)), int(window), int(q_offset),
+             build.dtype_code(q.dtype), 1.0 / math.sqrt(d),
+             build.stream_of(q))
     build.check(err, "flash_attention")
     flash_launches += 1
     return (out, lse_out) if lse else out

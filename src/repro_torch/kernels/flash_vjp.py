@@ -27,9 +27,10 @@ j <= i + q_offset when causal and i + q_offset - j < window when a window
 is given; Sk differs from S only without either (cross-attention). A row
 that sees no key gives a zero output, lse ``NEG_INF`` and zero gradients
 in both routes (the JAX forward would average its values; no call of the
-training path has such a row). ``q_offset`` (the context-parallel shift)
-is taken by the plain route only: the sharded ``cp_attention`` is not on
-the card yet.
+training path has such a row). ``q_offset`` (the context-parallel
+shift of the sharded ``layers.cp_attention``) goes to both routes: on the
+card both kernels take it, and a causal or windowed call then needs
+``q_offset + S <= Sk``.
 """
 from __future__ import annotations
 
@@ -123,14 +124,19 @@ def flash_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
     lse_g = lse.reshape(b, kvh, g, sq)
     delta_g = delta.reshape(b, kvh, g, sq)
     kpos_all = torch.arange(sk, device=q.device)[None, :]
-    dq = torch.zeros((b, sq, kvh, g, d), device=q.device)
+    # every accumulation is out of place (a sharded trace's DTensors
+    # cannot add a partial sum into a sharded buffer in place), in the
+    # same order from zeros
+    starts = range(0, sq, chunk_q)
+    dqs = [q.new_zeros((b, min(chunk_q, sq - q0), kvh, g, d),
+                       dtype=torch.float32) for q0 in starts]
     dks, dvs = [], []
     for k0 in range(0, sk, chunk_k):
         kf = k[:, k0:k0 + chunk_k].float()                  # (b, ck, kv, d)
         vf = v[:, k0:k0 + chunk_k].float()
-        dk_j = torch.zeros(kf.shape, device=q.device)
-        dv_j = torch.zeros(kf.shape, device=q.device)
-        for q0 in range(0, sq, chunk_q):
+        dk_j = kf.new_zeros(kf.shape)
+        dv_j = kf.new_zeros(kf.shape)
+        for qi, q0 in enumerate(starts):
             qf = qg[:, q0:q0 + chunk_q].float()             # (b, cq, kv, g, d)
             df = dog[:, q0:q0 + chunk_q].float()
             cq = qf.shape[1]
@@ -142,15 +148,15 @@ def flash_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
             p = torch.where(
                 mask, torch.exp(s - lse_g[..., q0:q0 + cq, None]),
                 torch.zeros_like(s))
-            dv_j += torch.einsum("bngqk,bqngd->bknd", p, df)
+            dv_j = dv_j + torch.einsum("bngqk,bqngd->bknd", p, df)
             dp = torch.einsum("bqngd,bknd->bngqk", df, vf)
             ds = p * (dp - delta_g[..., q0:q0 + cq, None])
-            dq[:, q0:q0 + cq] += torch.einsum(
+            dqs[qi] = dqs[qi] + torch.einsum(
                 "bngqk,bknd->bqngd", ds, kf) * scale
-            dk_j += torch.einsum("bngqk,bqngd->bknd", ds, qf) * scale
+            dk_j = dk_j + torch.einsum("bngqk,bqngd->bknd", ds, qf) * scale
         dks.append(dk_j)
         dvs.append(dv_j)
-    return (dq.reshape(b, sq, h, d).to(q.dtype),
+    return (torch.cat(dqs, dim=1).reshape(b, sq, h, d).to(q.dtype),
             torch.cat(dks, dim=1).to(k.dtype),
             torch.cat(dvs, dim=1).to(v.dtype))
 
@@ -179,11 +185,11 @@ class _CudaFlash(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _flash.flash_attention_cuda(q, k, v, causal=causal,
-                                               window=window, lse=True)
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out, lse = _flash.flash_attention_cuda(q, k, v, lse=True, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(causal=causal, window=window)
+        ctx.kw = kw
         return out
 
     @staticmethod
@@ -192,22 +198,23 @@ class _CudaFlash(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out,
                                               dout.contiguous(), lse,
                                               **ctx.kw)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_vjp(q, k, v, *, causal: bool = True, window: int = 0,
                         chunk_q: int = 512, chunk_k: int = 512,
                         q_offset: int = 0):
     """q: (B, S, H, D); k, v: (B, Sk, KV, D) -> (B, S, H, D), differentiable
-    in q, k and v. On a CUDA tensor the kernels (the chunks are the
-    kernels' own tiles; a non-zero ``q_offset`` raises); on the CPU the
-    plain versions in chunks of ``chunk_q`` queries and ``chunk_k`` keys."""
+    in q, k and v; query row i stands at position i + ``q_offset`` in the
+    masks. On a CUDA tensor the kernels (the chunks are the kernels' own
+    tiles); on the CPU the plain versions in chunks of ``chunk_q`` queries
+    and ``chunk_k`` keys."""
     if q.device.type == "cuda":
-        if q_offset:
-            raise NotImplementedError(
-                "flash_attention_vjp: q_offset (context-parallel attention) "
-                "runs on the plain route only")
-        return _CudaFlash.apply(q, k, v, bool(causal), int(window))
+        # the kernels read dense rows: a slice of a sequence (a
+        # context-parallel shard) is copied first
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        return _CudaFlash.apply(q, k, v, bool(causal), int(window),
+                                int(q_offset))
     cq = min(chunk_q, q.shape[1])
     ck = min(chunk_k, k.shape[1])
     return _PlainFlash.apply(q, k, v, bool(causal), int(window), cq, ck,
@@ -215,11 +222,12 @@ def flash_attention_vjp(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, q_offset: int = 0):
     """Launch ``csrc/flash_backward.cu``: (dq, dk, dv) in the inputs' dtype.
     q, out, dout: (B, S, H, D); k, v: (B, Sk, KV, D); lse: (B, H, S)
-    float32 (#5's); head_dim 64 or 128, float32 or bfloat16; any S and Sk,
-    Sk != S only non-causal without a window."""
+    float32 (#5's, at the same ``q_offset``); head_dim 64, 128 or 112,
+    float32 or bfloat16; any S and Sk without causality or a window, else
+    ``q_offset + S <= Sk``."""
     global bwd_launches
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -233,9 +241,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
                          f"{tuple(out.shape)}, dout {tuple(dout.shape)}, "
                          f"lse {tuple(lse.shape)}")
-    if sk != s and (causal or window):
-        raise ValueError(f"{sk} keys for {s} queries: causal or windowed "
-                         f"attention needs as many keys as queries")
+    _flash.check_offset(s, sk, causal, window, q_offset)
     if len({q.dtype, k.dtype, v.dtype, out.dtype, dout.dtype}) != 1:
         raise ValueError("q, k, v, out and dout must share one dtype")
     if lse.dtype != torch.float32:
@@ -250,8 +256,9 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
     err = fn(dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), b, s, sk, h, kvh, d,
-             int(bool(causal)), int(window), build.dtype_code(q.dtype),
-             1.0 / math.sqrt(d), build.stream_of(q))
+             int(bool(causal)), int(window), int(q_offset),
+             build.dtype_code(q.dtype), 1.0 / math.sqrt(d),
+             build.stream_of(q))
     build.check(err, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

@@ -28,12 +28,14 @@ runs this family's continuations by prefix recompute.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
+from repro_torch.utils.sharding import maybe_constrain
 
 MAX_DEC_POS = 32_768
 
@@ -66,8 +68,9 @@ def dec_layer_plan(cfg) -> dict:
 def plan(cfg) -> dict:
     return {
         "embed": L.embed_plan(cfg),
-        "enc_pos": L.ParamDef((cfg.encoder_seq, cfg.d_model)),
-        "dec_pos": L.ParamDef((MAX_DEC_POS, cfg.d_model)),
+        "enc_pos": L.ParamDef((cfg.encoder_seq, cfg.d_model),
+                              (None, "embed")),
+        "dec_pos": L.ParamDef((MAX_DEC_POS, cfg.d_model), (None, "embed")),
         "enc_layers": L.stack_plan(enc_layer_plan(cfg), cfg.encoder_layers),
         "enc_final": L.norm_plan(cfg.d_model, cfg.norm),
         "layers": L.stack_plan(dec_layer_plan(cfg), cfg.num_layers),
@@ -130,12 +133,11 @@ def _dec_block(lp, cfg, x, enc_out, self_attention, cross_attention):
     return x + L.apply_mlp(lp["mlp"], h), k, v, kc, vc
 
 
-def _self_dense(q, k, v):
-    return L.big_attention(q, k, v, causal=True)
-
-
-def _cross_dense(q, k, v):
-    return L.big_attention(q, k, v, causal=False)
+def _dense(cfg):
+    """The padded paths' self- and cross-attention: ``cp_attention``
+    (``big_attention`` on one device)."""
+    return (functools.partial(L.cp_attention, cfg, causal=True),
+            functools.partial(L.cp_attention, cfg, causal=False))
 
 
 def forward(params, cfg, tokens, enc_embeds, *,
@@ -153,11 +155,12 @@ def forward(params, cfg, tokens, enc_embeds, *,
          + params["dec_pos"][:s].to(dtype))
 
     def body(lp, x, enc_out):
-        return _dec_block(lp, cfg, x, enc_out, _self_dense, _cross_dense)[0]
+        return _dec_block(lp, cfg, x, enc_out, *_dense(cfg))[0]
 
     for i in range(cfg.num_layers):
         x = L.run_layer(body, remat, L.layer_params(params["layers"], i), x,
                         enc_out)
+        x = maybe_constrain(x, "batch", None, "act_embed")
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {
@@ -173,22 +176,26 @@ def cache_plan(cfg, batch: int, cache_len: int) -> dict:
     hd = cfg.resolved_head_dim
     kv_shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, hd)
     cross = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads, hd)
-    return {"k": L.ParamDef(kv_shape, "zeros"),
-            "v": L.ParamDef(kv_shape, "zeros"),
-            "cross_k": L.ParamDef(cross, "zeros"),
-            "cross_v": L.ParamDef(cross, "zeros"),
-            "pos": L.ParamDef((batch,), "zeros")}
+    spec = L.kv_cache_spec(cfg)
+    return {"k": L.ParamDef(kv_shape, spec, "zeros"),
+            "v": L.ParamDef(kv_shape, spec, "zeros"),
+            "cross_k": L.ParamDef(cross, spec, "zeros"),
+            "cross_v": L.ParamDef(cross, spec, "zeros"),
+            "pos": L.ParamDef((batch,), None, "zeros")}
 
 
-def _zeros(plan, dtype, device, ints=("pos", "block_tables")):
-    return {k: torch.zeros(pd.shape, device=device,
-                           dtype=torch.int32 if k in ints else dtype)
+def _zeros(plan, dtype, device, like=None, ints=("pos", "block_tables")):
+    return {k: L.plan_zeros(pd, torch.int32 if k in ints else dtype,
+                            device, like)
             for k, pd in plan.items()}
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu"):
+def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu",
+               like=None):
+    """Zero cache; placed on ``like``'s mesh when it is a DTensor
+    (``L.plan_zeros``)."""
     return _zeros(cache_plan(cfg, batch, cache_len),
-                  dtype_of(dtype or cfg.dtype), device)
+                  dtype_of(dtype or cfg.dtype), device, like)
 
 
 def paged_cache_plan(cfg, batch: int, num_pages: int, page_size: int,
@@ -199,12 +206,13 @@ def paged_cache_plan(cfg, batch: int, num_pages: int, page_size: int,
     hd = cfg.resolved_head_dim
     kv_shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
     cross = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads, hd)
-    return {"k": L.ParamDef(kv_shape, "zeros"),
-            "v": L.ParamDef(kv_shape, "zeros"),
-            "cross_k": L.ParamDef(cross, "zeros"),
-            "cross_v": L.ParamDef(cross, "zeros"),
-            "block_tables": L.ParamDef((batch, max_pages), "zeros"),
-            "pos": L.ParamDef((batch,), "zeros")}
+    paged, spec = L.paged_kv_cache_spec(cfg), L.kv_cache_spec(cfg)
+    return {"k": L.ParamDef(kv_shape, paged, "zeros"),
+            "v": L.ParamDef(kv_shape, paged, "zeros"),
+            "cross_k": L.ParamDef(cross, spec, "zeros"),
+            "cross_v": L.ParamDef(cross, spec, "zeros"),
+            "block_tables": L.ParamDef((batch, max_pages), None, "zeros"),
+            "pos": L.ParamDef((batch,), None, "zeros")}
 
 
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
@@ -223,11 +231,11 @@ def prefill(params, cfg, tokens, cache_len: int, enc_embeds):
     enc_out = encode(params, cfg, enc_embeds)
     x = (L.embed_tokens(params["embed"], tokens, dtype)
          + params["dec_pos"][:s].to(dtype))
-    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device)
+    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device,
+                       like=tokens)
     for i in range(cfg.num_layers):
         x, k, v, kc, vc = _dec_block(L.layer_params(params["layers"], i),
-                                     cfg, x, enc_out, _self_dense,
-                                     _cross_dense)
+                                     cfg, x, enc_out, *_dense(cfg))
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
         cache["cross_k"][i] = kc
@@ -298,12 +306,13 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
         kc, vc = cache["k"][i], cache["v"][i]
         update(kc, k)
         update(vc, v)
+        q = L.constrain_q_decode(cfg, q[:, 0])
         x = x + L.attn_out(lp["self_attn"], x.dtype,
-                           attend(q[:, 0], kc, vc)[:, None])
+                           attend(q, kc, vc)[:, None])
         h = L.apply_norm(lp["ln2"], x, cfg.norm)
-        cross = L.decode_attention(_proj(h[:, 0], lp["cross_attn"]["wq"]),
-                                   cache["cross_k"][i], cache["cross_v"][i],
-                                   enc_len)
+        qc = L.constrain_q_decode(cfg, _proj(h[:, 0], lp["cross_attn"]["wq"]))
+        cross = L.decode_attention(qc, cache["cross_k"][i],
+                                   cache["cross_v"][i], enc_len)
         x = x + L.attn_out(lp["cross_attn"], x.dtype, cross[:, None])
         h = L.apply_norm(lp["ln3"], x, cfg.norm)
         x = x + L.apply_mlp(lp["mlp"], h)

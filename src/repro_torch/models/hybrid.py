@@ -31,6 +31,7 @@ continuations by prefix recompute.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -38,6 +39,7 @@ import torch
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.utils.sharding import maybe_constrain
 
 # only the shared attention's K/V is paged; the Mamba state stays per slot
 PAGED_KEYS = ("attn_k", "attn_v")
@@ -89,8 +91,8 @@ def _shared(sp, cfg, x, rope, attention):
     return x + L.apply_mlp(sp["mlp"], h), k, v
 
 
-def _causal(q, k, v):
-    return L.big_attention(q, k, v, causal=True)
+def _causal(cfg, q, k, v):
+    return L.big_attention(L.constrain_q_prefill(cfg, q), k, v, causal=True)
 
 
 def _rope(cfg, positions):
@@ -112,11 +114,14 @@ def forward(params, cfg, tokens, *, remat: bool = False):
 
     def body(lp, sp, x, rope, shared: bool):
         x = ssm.block_body(lp, cfg, x)
-        return _shared(sp, cfg, x, rope, _causal)[0] if shared else x
+        if shared:
+            x = _shared(sp, cfg, x, rope, functools.partial(_causal, cfg))[0]
+        return x
 
     for i in range(cfg.num_layers):
         x = L.run_layer(body, remat, L.layer_params(layers, i), sp, x,
                         rope, _invocation(cfg, i) is not None)
+        x = maybe_constrain(x, "batch", None, "act_embed")
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {
@@ -132,19 +137,23 @@ def cache_plan(cfg, batch: int, cache_len: int) -> dict:
     base = ssm.cache_plan(cfg, batch, cache_len)
     kv = (n_attn_blocks(cfg), batch, cache_len, cfg.num_kv_heads,
           cfg.resolved_head_dim)
-    base["attn_k"] = L.ParamDef(kv, "zeros")
-    base["attn_v"] = L.ParamDef(kv, "zeros")
+    spec = L.kv_cache_spec(cfg)
+    base["attn_k"] = L.ParamDef(kv, spec, "zeros")
+    base["attn_v"] = L.ParamDef(kv, spec, "zeros")
     return base
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu"):
+def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu",
+               like=None):
     """Zero ring cache: ``ssm`` float32, ``conv`` and the K/V in ``dtype``
-    (default the config's), ``pos`` int32."""
+    (default the config's), ``pos`` int32; placed on ``like``'s mesh when
+    it is a DTensor (``L.plan_zeros``)."""
     dtype = dtype_of(dtype or cfg.dtype)
-    cache = ssm.init_cache(cfg, batch, cache_len, dtype, device=device)
-    shape = cache_plan(cfg, batch, cache_len)["attn_k"].shape
-    cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
-    cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache = ssm.init_cache(cfg, batch, cache_len, dtype, device=device,
+                           like=like)
+    cp = cache_plan(cfg, batch, cache_len)
+    cache["attn_k"] = L.plan_zeros(cp["attn_k"], dtype, device, like)
+    cache["attn_v"] = L.plan_zeros(cp["attn_v"], dtype, device, like)
     return cache
 
 
@@ -153,9 +162,10 @@ def paged_cache_plan(cfg, batch: int, num_pages: int, page_size: int,
     base = ssm.cache_plan(cfg, batch, 0)
     kv = (n_attn_blocks(cfg), num_pages, page_size, cfg.num_kv_heads,
           cfg.resolved_head_dim)
-    base["attn_k"] = L.ParamDef(kv, "zeros")
-    base["attn_v"] = L.ParamDef(kv, "zeros")
-    base["block_tables"] = L.ParamDef((batch, max_pages), "zeros")
+    spec = L.paged_kv_cache_spec(cfg)
+    base["attn_k"] = L.ParamDef(kv, spec, "zeros")
+    base["attn_v"] = L.ParamDef(kv, spec, "zeros")
+    base["block_tables"] = L.ParamDef((batch, max_pages), None, "zeros")
     return base
 
 
@@ -189,7 +199,8 @@ def prefill(params, cfg, tokens, cache_len: int):
     x = L.embed_tokens(params["embed"], tokens, dtype)
     rope = _rope(cfg, torch.arange(s, device=tokens.device)[None, :])
     sp = params["shared_attn"]
-    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device)
+    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device,
+                       like=tokens)
     keep = min(s, cache_len)
     states, convs = [], []
     for i in range(cfg.num_layers):
@@ -199,7 +210,8 @@ def prefill(params, cfg, tokens, cache_len: int):
         convs.append(conv)
         j = _invocation(cfg, i)
         if j is not None:
-            x, k, v = _shared(sp, cfg, x, rope, _causal)
+            x, k, v = _shared(sp, cfg, x, rope,
+                              functools.partial(_causal, cfg))
             cache["attn_k"][j, :, :keep] = k[:, s - keep:]
             cache["attn_v"][j, :, :keep] = v[:, s - keep:]
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg.norm)
@@ -274,7 +286,7 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
         kc, vc = cache["attn_k"][j], cache["attn_v"][j]
         update(kc, k)
         update(vc, v)
-        return attend(q[:, 0], kc, vc)[:, None]
+        return attend(L.constrain_q_decode(cfg, q[:, 0]), kc, vc)[:, None]
 
     states, convs = [], []
     for i in range(cfg.num_layers):

@@ -3,14 +3,23 @@ encoder-decoder subset of the JAX package's ``repro.models.layers``, as
 plain functions on tensors — for padded and packed prefill (self- and
 cross-attention), and decode over ring or paged caches.
 
-Parameters are declared through a *plan* of ``ParamDef``s (same shapes and
-initialisers as the JAX package), and the apply functions take the same
+Parameters are declared through a *plan* of ``ParamDef``s (same shapes,
+logical axes and initialisers as the JAX package: the axes drive
+``utils.sharding``), and the apply functions take the same
 parameter dictionaries with the same leaf names, so weights convert
 between the two packages leaf for leaf (``repro_torch.models.weights``).
 
 Attention on the serving path goes through ``repro_torch.kernels.ops``: the
 hand-written CUDA kernels for tensors on a GPU, their plain versions —
 the JAX CPU path's arithmetic — for tensors on the CPU.
+
+On DTensors under ``utils.sharding.use_mesh`` (the dry run, a sharded
+run) the same functions run SPMD: the JAX package's constraint sites
+(``maybe_constrain``, ``constrain_q_prefill``/``_decode``), the
+sequence-sharded ``cp_attention``, attention per head-group shard
+(``per_head_shards``), and the residual stream pinned to the JAX
+layer-carry layout (``residual``) where DTensor's own choice would
+flatten two sharded dims. On plain tensors none of it does anything.
 
 Sampling (``top_k_top_p_filter``, ``sample_logits``) is the JAX package's
 plain sampler: ``jax.random.categorical`` is the arg-max of Gumbel noise
@@ -32,13 +41,19 @@ from repro_torch.kernels import flash_vjp, ops
 from repro_torch.kernels.flash_attention import (attention_dense,
                                                  repeat_kv, rows_to_segments,
                                                  segments_to_rows)
+from repro_torch.utils import sharding
+from repro_torch.utils.sharding import is_dtensor, maybe_constrain
 
 __all__ = [
-    "ParamDef", "stack_plan", "norm_plan", "attn_plan", "mlp_plan",
-    "embed_plan", "layer_params", "apply_norm", "rope_tables", "apply_rope",
-    "attn_qkv", "attn_out", "apply_mlp", "embed_tokens", "unembed",
+    "ParamDef", "stack_plan", "abstract_params", "plan_zeros", "norm_plan",
+    "attn_plan", "mlp_plan", "embed_plan", "layer_params", "apply_norm",
+    "rope_tables", "apply_rope", "attn_qkv", "attn_out", "residual",
+    "apply_mlp", "embed_tokens", "unembed",
     "repeat_kv",
     "attention_dense", "run_layer", "big_attention", "cp_attention",
+    "cp_shard", "per_head_shards",
+    "constrain_q_prefill", "constrain_q_decode", "kv_cache_spec",
+    "paged_kv_cache_spec",
     "packed_positions",
     "segments_to_rows", "rows_to_segments", "packed_prefill_attention",
     "packed_cross_attention", "cache_row_update", "paged_cache_update",
@@ -54,15 +69,42 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    spec: Optional[Tuple[Optional[str], ...]]        # logical axes
     init: str = "normal"                             # normal | zeros | ones
     std: float = 0.02
 
 
 def stack_plan(plan, n: int):
-    """The plan of ``n`` copies of ``plan`` stacked on a leading axis."""
+    """The plan of ``n`` copies of ``plan`` stacked on a leading axis (the
+    logical ``stack`` axis, never sharded)."""
     if isinstance(plan, ParamDef):
-        return ParamDef((n,) + tuple(plan.shape), plan.init, plan.std)
+        spec = plan.spec or (None,) * len(plan.shape)
+        return ParamDef((n,) + tuple(plan.shape), ("stack",) + tuple(spec),
+                        plan.init, plan.std)
     return {k: stack_plan(v, n) for k, v in plan.items()}
+
+
+def plan_zeros(pd: ParamDef, dtype, device, like=None):
+    """Zeros of ``pd``'s shape on ``device``; when ``like`` is a DTensor
+    (a sharded run), a DTensor of local zeros on its mesh, placed by
+    ``pd``'s logical axes, so no device holds the whole leaf."""
+    if not is_dtensor(like):
+        return torch.zeros(pd.shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    mesh = like.device_mesh
+    spec = sharding.resolve_spec(pd.spec, pd.shape, mesh)
+    local = torch.zeros(sharding.local_shape(pd.shape, spec, mesh),
+                        dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, sharding.placements(spec, mesh),
+                              run_check=False)
+
+
+def abstract_params(plan, dtype=torch.float32):
+    """The plan's tensors on the ``meta`` device: shapes and dtypes, no
+    storage (the counterpart of ``jax.ShapeDtypeStruct``)."""
+    if isinstance(plan, ParamDef):
+        return torch.empty(tuple(plan.shape), dtype=dtype, device="meta")
+    return {k: abstract_params(v, dtype) for k, v in plan.items()}
 
 
 def layer_params(tree, i: int):
@@ -74,10 +116,10 @@ def layer_params(tree, i: int):
 
 def norm_plan(d: int, kind: str):
     if kind == "rmsnorm":
-        return {"scale": ParamDef((d,), "ones")}
+        return {"scale": ParamDef((d,), ("embed",), "ones")}
     if kind == "layernorm":
-        return {"scale": ParamDef((d,), "ones"),
-                "bias": ParamDef((d,), "zeros")}
+        return {"scale": ParamDef((d,), ("embed",), "ones"),
+                "bias": ParamDef((d,), ("embed",), "zeros")}
     if kind == "layernorm_nonparam":
         return {}
     raise ValueError(kind)
@@ -86,32 +128,37 @@ def norm_plan(d: int, kind: str):
 def attn_plan(cfg) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
+    # head_dim is deliberately not a fallback shard axis (the JAX
+    # package's note: a head_dim-sharded q/k makes every score tile a
+    # partial-sum all-reduce); non-divisible head counts replicate the
+    # projections and shard the KV cache's sequence instead
     p = {
-        "wq": ParamDef((d, h, hd)),
-        "wk": ParamDef((d, kv, hd)),
-        "wv": ParamDef((d, kv, hd)),
-        "wo": ParamDef((h, hd, d)),
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ParamDef((h, hd), "zeros")
-        p["bk"] = ParamDef((kv, hd), "zeros")
-        p["bv"] = ParamDef((kv, hd), "zeros")
+        p["bq"] = ParamDef((h, hd), ("heads", None), "zeros")
+        p["bk"] = ParamDef((kv, hd), ("kv_heads", None), "zeros")
+        p["bv"] = ParamDef((kv, hd), ("kv_heads", None), "zeros")
     return p
 
 
 def mlp_plan(cfg, d_ff: Optional[int] = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {
-        "wi_gate": ParamDef((d, ff)),
-        "wi_up": ParamDef((d, ff)),
-        "wo": ParamDef((ff, d)),
+        "wi_gate": ParamDef((d, ff), ("embed", "mlp")),
+        "wi_up": ParamDef((d, ff), ("embed", "mlp")),
+        "wo": ParamDef((ff, d), ("mlp", "embed")),
     }
 
 
 def embed_plan(cfg) -> dict:
-    p = {"embedding": ParamDef((cfg.padded_vocab, cfg.d_model))}
+    v = cfg.padded_vocab
+    p = {"embedding": ParamDef((v, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+        p["lm_head"] = ParamDef((cfg.d_model, v), ("embed", "vocab"))
     return p
 
 
@@ -137,6 +184,11 @@ def _inv_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
     half = d // 2
     freq = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / d))
     return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+
+
+def clear_caches() -> None:
+    """Drop the tensors cached per device (the rotary frequencies)."""
+    _inv_freq.cache_clear()
 
 
 def rope_tables(positions, d: int, theta: float):
@@ -165,6 +217,7 @@ def attn_qkv(p, cfg, x, rope):
     """Project + rotate. x: (B, S, d) -> q (B, S, H, hd), k, v
     (B, S, KV, hd); ``rope`` is ``rope_tables`` of the positions."""
     b, s, d = x.shape
+    x = residual(x)
 
     def proj(w):
         return (x.reshape(b * s, d) @ w.reshape(d, -1).to(x.dtype)).reshape(
@@ -185,16 +238,46 @@ def attn_out(p, x_dtype, attn):
     """attn: (..., H, hd) -> (..., d_model)."""
     w = p["wo"]
     lead = attn.shape[:-2]
+    attn = maybe_constrain(attn, "batch", *(None,) * (attn.dim() - 3),
+                           "heads", None)
     y = attn.reshape(-1, w.shape[0] * w.shape[1]) @ w.reshape(
         -1, w.shape[2]).to(x_dtype)
     return y.reshape(*lead, w.shape[2])
 
 
+def residual(x):
+    """Activations (B, ..., d) in the JAX package's layer-carry layout
+    (batch over the batch axes, d_model over ``model``) under a mesh;
+    ``x`` itself on one device. DTensor chooses each op's layout alone and
+    may shard a sequence dim beside the batch, which a matmul's flattening
+    of the leading dims cannot take: the projections and the residual
+    adds pin it here first."""
+    return maybe_constrain(x, "batch", *(None,) * (x.dim() - 2),
+                           "act_embed")
+
+
+def _rows(x):
+    """(x as (rows, d), its leading shape): a DTensor laid out by
+    ``residual`` first; a plain tensor stays as it is (its matmul folds
+    the leading dims itself)."""
+    if not is_dtensor(x) or x.dim() <= 2:
+        return x, None
+    lead = x.shape[:-1]
+    return residual(x).reshape(-1, x.shape[-1]), lead
+
+
+def _unrows(y, lead):
+    """``_rows``'s inverse: (rows, n) back to lead + (n,), the rows laid
+    out over the batch axes alone first (the batch leads the rows)."""
+    return y if lead is None else residual(y).reshape(*lead, -1)
+
+
 def apply_mlp(p, x):
+    x, lead = _rows(x)
     g = x @ p["wi_gate"].to(x.dtype)
     u = x @ p["wi_up"].to(x.dtype)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["wo"].to(x.dtype)
+    return _unrows(h @ p["wo"].to(x.dtype), lead)
 
 
 def embed_tokens(p, tokens, dtype):
@@ -204,10 +287,12 @@ def embed_tokens(p, tokens, dtype):
 def unembed(p, x, cfg):
     """Logits over the padded vocab; pad rows masked to -1e9."""
     w = p.get("lm_head")
+    x, lead = _rows(x)
     if w is None:
         logits = x @ p["embedding"].to(x.dtype).T
     else:
         logits = x @ w.to(x.dtype)
+    logits = _unrows(logits, lead)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
@@ -228,8 +313,43 @@ def run_layer(body, remat: bool, *args):
     return body(*args)
 
 
+def per_head_shards(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)`` on DTensors, run shard by shard: attention
+    is independent per batch row and per KV head group, so q, k and v are
+    laid out with at most their batch dims over the batch axes and their
+    head dims over ``model`` (q's heads only where the KV heads shard
+    alike; every other dim whole), and each device runs ``fn`` on its
+    local shards (``local_map``). A tensor of ``rest`` is a per-row vector
+    (B,), laid out as the batch. The output is laid out as q."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+
+    def spec(x, logical):
+        return sharding.resolve_spec(logical, tuple(x.shape), mesh)
+
+    def at(sp, d):
+        return sp[d] if d < len(sp) else None
+
+    hd = q.dim() - 2
+    lead = ("batch",) + (None,) * (hd - 1)
+    sq = spec(q, lead + ("heads", None))
+    sk = spec(k, ("batch", None, "kv_heads", None))
+    if at(sq, hd) != at(sk, 2):
+        sq, sk = spec(q, lead), spec(k, ("batch",))
+    q_pl = sharding.placements(sq, mesh)
+    kv_pl = sharding.placements(sk, mesh)
+    rest_pl = tuple(sharding.placements(spec(x, ("batch",)), mesh)
+                    if isinstance(x, torch.Tensor) else None for x in rest)
+    return local_map(fn, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl) + rest_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, *rest)
+
+
 def big_attention(q, k, v, *, causal: bool, window: int = 0):
-    """Attention of a padded batch. q: (B, S, H, D); k, v: (B, Sk, KV, D),
+    """Attention of a padded batch; on DTensors (a sharded run) through
+    ``per_head_shards``. q: (B, S, H, D); k, v: (B, Sk, KV, D),
     Sk != S only for non-causal attention without a window (an encoder's
     frames under a decoder's queries). On a GPU every length goes through
     the flash kernel (it masks the ragged edges, so there is no
@@ -242,6 +362,9 @@ def big_attention(q, k, v, *, causal: bool, window: int = 0):
     kernel with its lse and the hand-written backward; on the CPU, as the
     JAX CPU path, ``attention_dense`` under autograd up to 1024 tokens and
     the plain flash VJP (chunks of 512 where they divide) beyond."""
+    if is_dtensor(q):
+        return per_head_shards(functools.partial(
+            big_attention, causal=causal, window=window), q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         s, sk = q.shape[1], k.shape[1]
@@ -253,10 +376,109 @@ def big_attention(q, k, v, *, causal: bool, window: int = 0):
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def constrain_q_prefill(cfg, q, tp: int = 16):
+    """Context parallelism for archs whose q-head count doesn't divide the
+    TP width (qwen2: 14, whisper: 12, granite: 24): shard the q SEQUENCE so
+    attention compute splits tp-ways with only a tiny all-gather of the
+    (GQA-small) k/v — instead of replicating the whole S² computation."""
+    if cfg.num_heads % tp:
+        return maybe_constrain(q, "batch", "kv_seq", None, None)
+    return q
+
+
+def _cp_sharded(cfg, q, mesh) -> bool:
+    """The JAX package's gate of the sequence-sharded branch: a DTensor q
+    under a mesh whose ``model`` axis exists, does not divide the head
+    count, divides S in units of 512, and whose batch axes divide B."""
+    if mesh is None or not is_dtensor(q):
+        return False
+    sizes = sharding.axis_sizes(mesh)
+    if "model" not in sizes or cfg.num_heads % sizes["model"] == 0:
+        return False
+    nb = int(np.prod([sizes[a] for a in sharding.batch_axes(mesh)]))
+    return (q.shape[1] % (sizes["model"] * 512) == 0
+            and q.shape[0] % max(1, nb) == 0)
+
+
+def cp_shard(q_l, k_l, v_l, rank: int, *, causal: bool, window: int = 0):
+    """One rank's part of the sequence-sharded ``cp_attention``: its slice
+    q_l (B, S/m, H, D) of the queries against the whole k, v, the masks
+    shifted to the slice's first position ``rank * S/m``
+    (``flash_vjp.flash_attention_vjp`` at that ``q_offset``: #5 and #7 on
+    the card)."""
+    return flash_vjp.flash_attention_vjp(q_l, k_l, v_l, causal=causal,
+                                         window=window,
+                                         q_offset=rank * q_l.shape[1])
+
+
 def cp_attention(cfg, q, k, v, *, causal: bool, window: int = 0):
-    """Context-parallel attention on one device: ``big_attention`` (the
-    JAX package's sequence-sharded branch needs a mesh)."""
-    return big_attention(q, k, v, causal=causal, window=window)
+    """Context-parallel self-attention for replicated-head architectures.
+
+    Under a mesh that passes ``_cp_sharded``'s gate, each rank of the
+    ``model`` axis runs ``flash_vjp.flash_attention_vjp`` on its sequence
+    slice of q against the whole (small, GQA) k/v, with the causal and
+    window masks shifted by the slice's offset (``q_offset``): a
+    ``local_map`` over DTensors, q sharded on the sequence over ``model``
+    and on the batch over the batch axes, k and v replicated over
+    ``model`` (their gradients are partial sums there). Otherwise
+    ``big_attention`` after ``constrain_q_prefill``, as in the JAX
+    package."""
+    mesh = sharding.active_mesh()
+    if not _cp_sharded(cfg, q, mesh):
+        q = constrain_q_prefill(cfg, q)
+        return big_attention(q, k, v, causal=causal, window=window)
+
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    ba = sharding.batch_axes(mesh)
+    bspec = ba if len(ba) > 1 else (ba[0] if ba else None)
+    q_pl = sharding.placements(sharding.P(bspec, "model"), mesh)
+    kv_pl = sharding.placements(sharding.P(bspec), mesh)
+    names = sharding.axis_names(mesh)
+    kv_grad = tuple(Partial() if a == "model" else pl
+                    for a, pl in zip(names, kv_pl))
+    def local(q_l, k_l, v_l):
+        return cp_shard(q_l, k_l, v_l, mesh.get_local_rank("model"),
+                        causal=causal, window=window)
+
+    fn = local_map(local, out_placements=list(q_pl),
+                   in_placements=(q_pl, kv_pl, kv_pl),
+                   in_grad_placements=(q_pl, kv_grad, kv_grad),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v)
+
+
+def constrain_q_decode(cfg, q, tp: int = 16):
+    """Against a sequence-sharded cache (kv heads non-divisible), the
+    single-token q must be replicated across the TP group: scores are then
+    computed per cache shard and combined by a (batch, heads)-sized
+    distributed softmax — bytes, not gigabytes, of all-reduce."""
+    if cfg.num_kv_heads % tp:
+        return maybe_constrain(q, "batch", None, None)
+    return q
+
+
+def kv_cache_spec(cfg, tp: int = 16):
+    """Sharding for a (layers, batch, seq, kv_heads, head_dim) cache.
+
+    KV heads shard when they divide the TP width (zero-communication local
+    decode attention); otherwise the *sequence* dim shards — decode
+    attention then does a distributed softmax whose all-reduce is only
+    (batch, heads[, head_dim]) per layer."""
+    if cfg.num_kv_heads and cfg.num_kv_heads % tp == 0:
+        return ("stack", "batch", None, "kv_heads", None)
+    return ("stack", "batch", "kv_seq", None, None)
+
+
+def paged_kv_cache_spec(cfg, tp: int = 16):
+    """Sharding for a (layers, num_pages, page_size, kv_heads, head_dim)
+    paged pool: KV heads shard when they divide the TP width, otherwise
+    the *page* dim shards (pages are the paged analogue of the sequence
+    dim; the block table stays replicated)."""
+    if cfg.num_kv_heads and cfg.num_kv_heads % tp == 0:
+        return ("stack", None, None, "kv_heads", None)
+    return ("stack", "kv_seq", None, None, None)
 
 
 # --------------------------------------------------------------------------
@@ -304,9 +526,53 @@ def packed_cross_attention(q, k_cross, v_cross, seg_ids, positions,
 # --------------------------------------------------------------------------
 def cache_row_update(buf, new, slot):
     """Write ``new`` (B, 1, ...) IN PLACE into ``buf`` (B, C, ...) at
-    per-row ring position ``slot`` (B,): one row per sequence."""
+    per-row ring position ``slot`` (B,): one row per sequence. A DTensor
+    ``buf`` (the sharded dry run) is written shard by shard
+    (``_sharded_row_update``)."""
+    if is_dtensor(buf):
+        return _sharded_row_update(buf, new[:, 0], slot)
     bidx = torch.arange(buf.shape[0], device=buf.device)
     buf[bidx, slot.long()] = new[:, 0].to(buf.dtype)
+    return buf
+
+
+def _sharded_row_update(buf, new, slot):
+    """``cache_row_update`` on a DTensor ``buf`` (B, C, ...) whose batch
+    and ring dims may be sharded: each device writes the rows of its batch
+    shard whose slot falls in its ring shard (an unchanged entry
+    elsewhere), in place in its local shard; ``new`` (B, ...) is
+    redistributed to the buffer's layout less its ring dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = buf.device_mesh
+    pls = buf.placements
+    new_pl = tuple(Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+                   and p.dim != 1 else Replicate() for p in pls)
+
+    def offset(dim: int, local: int) -> int:
+        idx = 0
+        for i, p in enumerate(pls):
+            if isinstance(p, Shard) and p.dim == dim:
+                idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+        return idx * local
+
+    def local(buf_l, new_l, slot_g):
+        nb, nc = buf_l.shape[:2]
+        b0, c0 = offset(0, nb), offset(1, nc)
+        s = slot_g[b0:b0 + nb].long() - c0
+        inside = ((s >= 0) & (s < nc)).reshape((nb,) + (1,) * (new_l.dim()
+                                                              - 1))
+        rows = torch.arange(nb, device=buf_l.device)
+        s = s.clamp(0, nc - 1)
+        buf_l[rows, s] = torch.where(inside, new_l.to(buf_l.dtype),
+                                     buf_l[rows, s])
+        return buf_l
+
+    rep = (Replicate(),) * mesh.ndim
+    local_map(local, out_placements=list(pls),
+              in_placements=(pls, new_pl, rep),
+              device_mesh=mesh, redistribute_inputs=True)(buf, new, slot)
     return buf
 
 
@@ -324,6 +590,9 @@ def decode_attention(q, k_cache, v_cache, valid_len):
             torch.as_tensor(valid_len, dtype=torch.int32,
                             device=q.device).reshape(-1),
             (q.shape[0],)).contiguous()
+    if is_dtensor(q):
+        return per_head_shards(ops.decode_attention, q, k_cache, v_cache,
+                               lengths)
     return ops.decode_attention(q, k_cache, v_cache, lengths)
 
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamDef
+from repro_torch.utils.sharding import maybe_constrain
 
 # Default capacity factor; tests may raise it (cf >= E/k guarantees zero
 # drops). Read at call time so it is monkeypatch-able.
@@ -34,10 +35,12 @@ CAPACITY_FACTOR = 1.25
 def moe_plan(cfg) -> dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "router": ParamDef((d, e)),
-        "wi_gate": ParamDef((e, d, ff)),
-        "wi_up": ParamDef((e, d, ff)),
-        "wo": ParamDef((e, ff, d)),
+        # Megatron-style expert tensor-parallelism: the per-expert ffn dim
+        # shards, the expert dim stays replicated (the JAX package's rules)
+        "router": ParamDef((d, e), ("embed", None)),
+        "wi_gate": ParamDef((e, d, ff), (None, "embed", "mlp")),
+        "wi_up": ParamDef((e, d, ff), (None, "embed", "mlp")),
+        "wo": ParamDef((e, ff, d), (None, "mlp", "embed")),
     }
 
 
@@ -80,7 +83,7 @@ def _scatter(x3, k: int, dest, rows: int):
     row past ``rows`` takes the dropped choices."""
     b, t, d = x3.shape
     xk = x3[:, :, None, :].expand(b, t, k, d).reshape(-1, d)
-    buffer = torch.zeros((rows + 1, d), dtype=x3.dtype, device=x3.device)
+    buffer = x3.new_zeros((rows + 1, d))
     buffer.index_copy_(0, dest.reshape(-1), xk)
     return buffer[:-1]
 
@@ -117,8 +120,14 @@ def _dispatch(p, cfg, x3, cap: int):
     e, k = cfg.num_experts, cfg.experts_per_token
     probs, gate_w, gate_i = _route(p, x3, k)
     slot, dest, dropped = _slots(gate_i, e, cap)
-    buf = _scatter(x3, k, dest, e * b * cap).view(e, b * cap, d)
-    y = _combine(_experts(p, buf), slot, dropped, gate_w)
+    # the buffer's rows are batch-major within each expert, so sharding
+    # its middle dim over the batch axes keeps each group on its shard
+    # (the JAX package constrains its (b, e, cap, d) buffer on "batch")
+    grp = (None, "batch", None)
+    buf = maybe_constrain(
+        _scatter(x3, k, dest, e * b * cap).view(e, b * cap, d), *grp)
+    out = maybe_constrain(_experts(p, buf), *grp)
+    y = _combine(out, slot, dropped, gate_w)
     return y.to(x3.dtype), probs, gate_i, dropped
 
 
@@ -131,7 +140,7 @@ def dispatch(p, cfg, x, capacity_factor: float = None):
     if x.dim() == 3 and x.shape[1] >= 256:
         # one dispatch group per batch row, capacity from the row's length
         cap = capacity_for(x.shape[1], cfg, capacity_factor)
-        x3 = x
+        x3 = maybe_constrain(x, "batch", None, None)
     else:
         cap = capacity_for(x.numel() // d, cfg, capacity_factor)
         x3 = x.reshape(1, -1, d)

@@ -31,17 +31,24 @@ per-slot Mamba state; and the encoder-decoder family (``audio``,
 whisper-small), whose cross K/V is a per-slot leaf beside the paged
 self-attention K/V. None of the last three ships a ``prefill_chunk``:
 the engine runs their continuations by prefix recompute.
+
+The sharding methods are the JAX package's: ``param_specs``,
+``cache_specs`` and ``input_shardings`` map the plans' logical axes to a
+mesh (``utils.sharding``); ``abstract_params``, ``abstract_cache`` and
+``input_specs`` give ``meta`` tensors of the same shapes and dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import weights
+from repro_torch.utils.sharding import resolve_spec, tree_specs
 
 
 @dataclasses.dataclass
@@ -66,6 +73,70 @@ class ModelAPI:
     # the parameters an engine keeps: the family's derived weights made
     # once per parameter set (Mamba2), or the parameters as given
     prepare: Callable = lambda params: params
+    # the caches' ParamDef plans (shapes and logical axes):
+    # cache_plan(batch, cache_len), paged_cache_plan(batch, num_pages,
+    # page_size, max_pages) — None for a family with nothing to page
+    cache_plan: Optional[Callable] = None
+    paged_cache_plan: Optional[Callable] = None
+
+    # ------------------------------------------------------------- sharding
+    def param_specs(self, mesh):
+        return tree_specs(self.plan, mesh)
+
+    def cache_specs(self, mesh, batch: int, cache_len: int):
+        return tree_specs(self.cache_plan(batch, cache_len), mesh)
+
+    def abstract_params(self, dtype=torch.float32):
+        return L.abstract_params(self.plan, dtype_of(dtype))
+
+    def abstract_cache(self, batch: int, cache_len: int, dtype=None):
+        """The ring cache's leaves on the ``meta`` device: int32 for the
+        0/1-D per-sequence positions, float32 for the 5-D ``ssm_heads``
+        state, ``dtype`` (default the config's) for the rest."""
+        dtype = dtype_of(dtype or self.cfg.dtype)
+
+        def leaf(pd):
+            if len(pd.shape) <= 1:
+                dt = torch.int32
+            elif pd.spec and "ssm_heads" in pd.spec and len(pd.shape) == 5:
+                dt = torch.float32
+            else:
+                dt = dtype
+            return torch.empty(tuple(pd.shape), dtype=dt, device="meta")
+
+        def walk(tree):
+            if isinstance(tree, L.ParamDef):
+                return leaf(tree)
+            return {k: walk(v) for k, v in tree.items()}
+
+        return walk(self.cache_plan(batch, cache_len))
+
+    # -------------------------------------------------------------- inputs
+    def input_specs(self, shape: InputShape, mesh=None) -> Dict[str, Any]:
+        """``meta`` stand-ins for every model input of this shape."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(dims, dt=torch.int32):
+            return torch.empty(dims, dtype=dt, device="meta")
+
+        if shape.kind == "train":
+            specs = {"tokens": meta((b, s)), "labels": meta((b, s))}
+        elif shape.kind == "prefill":
+            specs = {"tokens": meta((b, s))}
+        else:  # decode: ONE new token against a seq_len-sized cache
+            specs = {"token": meta((b,))}
+        if cfg.has_encoder and shape.kind != "decode":
+            specs["enc_embeds"] = meta((b, cfg.encoder_seq, cfg.d_model),
+                                       dtype_of(cfg.dtype))
+        return specs
+
+    def input_shardings(self, shape: InputShape, mesh):
+        out = {}
+        for name, x in self.input_specs(shape).items():
+            logical = ("batch",) + (None,) * (x.dim() - 1)
+            out[name] = resolve_spec(logical, tuple(x.shape), mesh)
+        return out
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
@@ -82,12 +153,16 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     def init_cache(batch, cache_len, dtype=None):
         return mod.init_cache(cfg, batch, cache_len, dtype, device=dev)
 
-    init_paged = prefill_chunk = None
+    init_paged = paged_plan = prefill_chunk = None
     prepare = ModelAPI.prepare
     if hasattr(mod, "prepare_params"):
         def prepare(params):
             return mod.prepare_params(params, cfg)
     if mod.PAGED_KEYS:
+        def paged_plan(batch, num_pages, page_size, max_pages):
+            return mod.paged_cache_plan(cfg, batch, num_pages, page_size,
+                                        max_pages)
+
         def init_paged(batch, num_pages, page_size, max_pages, dtype=None):
             return mod.init_paged_cache(cfg, batch, num_pages, page_size,
                                         max_pages, dtype, device=dev)
@@ -117,4 +192,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         init_paged_cache=init_paged,
         prefill_chunk=prefill_chunk,
         prepare=prepare,
+        cache_plan=lambda batch, cache_len: mod.cache_plan(cfg, batch,
+                                                           cache_len),
+        paged_cache_plan=paged_plan,
     )

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.device import dtype_of
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.utils.sharding import maybe_constrain
 
 # the SSD state is O(1) per sequence: there is nothing to page, and the
 # engine keeps per-slot state
@@ -45,19 +46,19 @@ def mamba_layer_plan(cfg) -> dict:
                       cfg.ssm_heads, cfg.ssm_conv_width)
     return {
         "norm": L.norm_plan(d, cfg.norm),
-        "wz": L.ParamDef((d, di)),
-        "wx": L.ParamDef((d, di)),
-        "wB": L.ParamDef((d, n)),
-        "wC": L.ParamDef((d, n)),
-        "wdt": L.ParamDef((d, h)),
-        "dt_bias": L.ParamDef((h,), "zeros"),
-        "A_log": L.ParamDef((h,), "zeros"),          # A = -exp(A_log)
-        "D": L.ParamDef((h,), "ones"),
-        "conv_x": L.ParamDef((w, di), std=0.2),
-        "conv_B": L.ParamDef((w, n), std=0.2),
-        "conv_C": L.ParamDef((w, n), std=0.2),
-        "gate_norm": {"scale": L.ParamDef((di,), "ones")},
-        "wo": L.ParamDef((di, d)),
+        "wz": L.ParamDef((d, di), ("embed", "ssm_inner")),
+        "wx": L.ParamDef((d, di), ("embed", "ssm_inner")),
+        "wB": L.ParamDef((d, n), ("embed", None)),
+        "wC": L.ParamDef((d, n), ("embed", None)),
+        "wdt": L.ParamDef((d, h), ("embed", "ssm_heads")),
+        "dt_bias": L.ParamDef((h,), ("ssm_heads",), "zeros"),
+        "A_log": L.ParamDef((h,), ("ssm_heads",), "zeros"),  # A = -exp(A_log)
+        "D": L.ParamDef((h,), ("ssm_heads",), "ones"),
+        "conv_x": L.ParamDef((w, di), (None, "ssm_inner"), std=0.2),
+        "conv_B": L.ParamDef((w, n), (None, None), std=0.2),
+        "conv_C": L.ParamDef((w, n), (None, None), std=0.2),
+        "gate_norm": {"scale": L.ParamDef((di,), ("ssm_inner",), "ones")},
+        "wo": L.ParamDef((di, d), ("ssm_inner", "embed")),
     }
 
 
@@ -257,6 +258,7 @@ def forward(params, cfg, tokens, *, remat: bool = False):
     layers = leaf_layers(params)
     for i in range(cfg.num_layers):
         x = L.run_layer(block_body, remat, L.layer_params(layers, i), cfg, x)
+        x = maybe_constrain(x, "batch", None, "act_embed")
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {
@@ -267,23 +269,27 @@ def cache_plan(cfg, batch: int, cache_len: int) -> dict:
     nl = cfg.num_layers
     di, n, nh, p, w = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
                        cfg.ssm_head_dim, cfg.ssm_conv_width)
-    return {"ssm": L.ParamDef((nl, batch, nh, n, p), "zeros"),
-            "conv": L.ParamDef((nl, batch, w - 1, di + 2 * n), "zeros"),
-            "pos": L.ParamDef((batch,), "zeros")}
+    return {"ssm": L.ParamDef((nl, batch, nh, n, p),
+                              ("stack", "batch", "ssm_heads", None, None),
+                              "zeros"),
+            "conv": L.ParamDef((nl, batch, w - 1, di + 2 * n),
+                               ("stack", "batch", None, None), "zeros"),
+            # per-sequence positions: slot-based continuous batching
+            "pos": L.ParamDef((batch,), None, "zeros")}
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu"):
+def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu",
+               like=None):
     """Zero per-sequence state: ``ssm`` float32, ``conv`` in ``dtype``
     (default the config's), ``pos`` int32. ``cache_len`` is unused (the
-    state does not grow with the sequence)."""
+    state does not grow with the sequence). Placed on ``like``'s mesh when
+    it is a DTensor (``L.plan_zeros``)."""
     dtype = dtype_of(dtype or cfg.dtype)
     cp = cache_plan(cfg, batch, cache_len)
     return {
-        "ssm": torch.zeros(cp["ssm"].shape, dtype=torch.float32,
-                           device=device),
-        "conv": torch.zeros(cp["conv"].shape, dtype=dtype, device=device),
-        "pos": torch.zeros(cp["pos"].shape, dtype=torch.int32,
-                           device=device),
+        "ssm": L.plan_zeros(cp["ssm"], torch.float32, device, like),
+        "conv": L.plan_zeros(cp["conv"], dtype, device, like),
+        "pos": L.plan_zeros(cp["pos"], torch.int32, device, like),
     }
 
 

@@ -29,6 +29,7 @@ import torch
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, moe_plan
+from repro_torch.utils.sharding import maybe_constrain
 
 # cache leaves that live in the shared page pool
 PAGED_KEYS = ("k", "v")
@@ -61,13 +62,13 @@ def _block(cfg, lp, x, rope, attention, aux: bool = False):
     ``aux`` asks for it, else None."""
     h = L.apply_norm(lp["ln1"], x, cfg.norm)
     q, k, v = L.attn_qkv(lp["attn"], cfg, h, rope)
-    x1 = x + L.attn_out(lp["attn"], x.dtype, attention(q, k, v))
+    x1 = L.residual(x + L.attn_out(lp["attn"], x.dtype, attention(q, k, v)))
     h2 = L.apply_norm(lp["ln2"], x1, cfg.norm)
     if cfg.num_experts:
         y, aux = apply_moe(lp["moe"], cfg, h2, aux=aux)
     else:
         y, aux = L.apply_mlp(lp["mlp"], h2), None
-    return x1 + y, k, v, aux
+    return L.residual(x1 + y), k, v, aux
 
 
 # --------------------------------------------------------------------------
@@ -96,6 +97,8 @@ def forward(params, cfg, tokens, *, remat: bool = False):
     for i in range(cfg.num_layers):
         x, aux = L.run_layer(layer, remat,
                              L.layer_params(params["layers"], i), x)
+        # Megatron-SP style: the per-layer carry is sharded on d_model
+        x = maybe_constrain(x, "batch", None, "act_embed")
         auxes.append(aux)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.num_experts:
@@ -112,18 +115,22 @@ def cache_plan(cfg, batch: int, cache_len: int) -> dict:
     and the per-row positions."""
     lcfg = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
             cfg.resolved_head_dim)
-    return {"k": L.ParamDef(lcfg, "zeros"), "v": L.ParamDef(lcfg, "zeros"),
-            "pos": L.ParamDef((batch,), "zeros")}
+    spec = L.kv_cache_spec(cfg)
+    return {"k": L.ParamDef(lcfg, spec, "zeros"),
+            "v": L.ParamDef(lcfg, spec, "zeros"),
+            "pos": L.ParamDef((batch,), None, "zeros")}
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu"):
+def init_cache(cfg, batch: int, cache_len: int, dtype=None, device="cpu",
+               like=None):
+    """Zero cache; placed on ``like``'s mesh when it is a DTensor
+    (``L.plan_zeros``)."""
     dtype = dtype_of(dtype or cfg.dtype)
     cp = cache_plan(cfg, batch, cache_len)
     return {
-        "k": torch.zeros(cp["k"].shape, dtype=dtype, device=device),
-        "v": torch.zeros(cp["v"].shape, dtype=dtype, device=device),
-        "pos": torch.zeros(cp["pos"].shape, dtype=torch.int32,
-                           device=device),
+        "k": L.plan_zeros(cp["k"], dtype, device, like),
+        "v": L.plan_zeros(cp["v"], dtype, device, like),
+        "pos": L.plan_zeros(cp["pos"], torch.int32, device, like),
     }
 
 
@@ -139,7 +146,8 @@ def prefill(params, cfg, tokens, cache_len: int):
     x = L.embed_tokens(params["embed"], tokens, dtype)
     positions = torch.arange(s, device=tokens.device)[None, :]
     rope = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device)
+    cache = init_cache(cfg, b, cache_len, dtype, device=tokens.device,
+                       like=tokens)
     keep = min(s, cache_len)
 
     def attention(q, k, v):
@@ -159,14 +167,27 @@ def prefill(params, cfg, tokens, cache_len: int):
 # --------------------------------------------------------------------------
 # paged KV-cache serving
 # --------------------------------------------------------------------------
-def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
-                     max_pages: int, dtype=None, device="cpu"):
+def paged_cache_plan(cfg, batch: int, num_pages: int, page_size: int,
+                     max_pages: int) -> dict:
     """Block-table paged layout: K/V in a shared (num_pages, page_size)
     pool per layer; each row maps logical pages to physical ones through
     its ``block_tables`` row (see ``repro_torch.serving.kv_cache``)."""
+    lcfg = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+    spec = L.paged_kv_cache_spec(cfg)
+    return {
+        "k": L.ParamDef(lcfg, spec, "zeros"),
+        "v": L.ParamDef(lcfg, spec, "zeros"),
+        "block_tables": L.ParamDef((batch, max_pages), None, "zeros"),
+        "pos": L.ParamDef((batch,), None, "zeros"),
+    }
+
+
+def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
+                     max_pages: int, dtype=None, device="cpu"):
     dtype = dtype_of(dtype or cfg.dtype)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = paged_cache_plan(cfg, batch, num_pages, page_size,
+                             max_pages)["k"].shape
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -278,7 +299,8 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
         kc, vc = cache["k"][i], cache["v"][i]
         update(kc, k)
         update(vc, v)
-        return attend(q[:, 0], kc, vc, window=cfg.sliding_window)[:, None]
+        q = L.constrain_q_decode(cfg, q[:, 0])                   # (B, H, hd)
+        return attend(q, kc, vc, window=cfg.sliding_window)[:, None]
 
     h = x[:, None, :]
     for i in range(cfg.num_layers):

@@ -95,6 +95,7 @@ from repro_torch.serving.graphs import (PREFIX_KINDS, SLOT_KINDS,
 from repro_torch.serving.kv_cache import NULL_PAGE, OutOfPages, PagedKVCache
 from repro_torch.serving.plan import StepResult
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.utils.sharding import tree_placements
 
 
 def _pow2_at_least(n: int) -> int:
@@ -146,10 +147,17 @@ class EngineStats:
 
 class InferenceEngine:
     def __init__(self, api: ModelAPI, params, *, cache_len: int = 256,
-                 graphs: bool = True, alloc_chips: Optional[int] = None):
+                 mesh=None, graphs: bool = True,
+                 alloc_chips: Optional[int] = None):
         self.api = api
         self.cfg = api.cfg
         self.device = api.device
+        # the device mesh this engine's parameters are laid out for, and
+        # their DTensor placements on it (the JAX engine's shardings; the
+        # engine itself runs on its one device)
+        self.mesh = mesh
+        self._param_sh = None if mesh is None else tree_placements(
+            api.param_specs(mesh), mesh)
         # the allocation (GPU percent on the H100) this engine stands by
         # for — a label: the EnginePool keys standby engines by it, so a
         # policy's re-allocation switches to a pre-built engine and never

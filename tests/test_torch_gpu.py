@@ -1009,10 +1009,14 @@ def test_flash_kernel_cross_attention_matches_plain(cuda, dtype, b, sq, sk,
     got = FA.flash_attention_cuda(q, k, v, causal=False)
     want = FA.flash_attention_plain(q, k, v, causal=False)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    with pytest.raises(ValueError, match="as many keys as queries"):
-        FA.flash_attention_cuda(q, k, v, causal=True)
-    with pytest.raises(ValueError, match="as many keys as queries"):
-        FA.flash_attention_cuda(q, k, v, causal=False, window=8)
+    # causal or windowed attention needs every shifted query among the
+    # keys (q_offset + S <= Sk): one row past the last key is refused
+    past = sk - sq + 1
+    with pytest.raises(ValueError, match=r"q_offset \+ S <= Sk"):
+        FA.flash_attention_cuda(q, k, v, causal=True, q_offset=past)
+    with pytest.raises(ValueError, match=r"q_offset \+ S <= Sk"):
+        FA.flash_attention_cuda(q, k, v, causal=False, window=8,
+                                q_offset=past)
 
 
 def test_cross_decode_lengths_are_captured_without_a_host_copy(cuda):
@@ -1261,6 +1265,68 @@ def test_flash_lse_and_backward_match_plain(cuda, dtype, b, s, sk, h, kv, d,
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.isfinite(g.float()).all()
         assert _close(g, w, BWD_TOL[dtype])
+
+
+# a query slice at an offset (context parallelism): (b, s_l, sk, h, kv, d,
+# q_offset, causal, window) — a shard not a multiple of the tile, a
+# window over a slice boundary, D 112, a prefix of the keys (offset 0)
+OFFSET_CASES = [
+    (2, 512, 1024, 14, 2, 64, 512, True, 0),
+    (2, 300, 1000, 16, 16, 128, 700, True, 0),
+    (1, 256, 1024, 32, 32, 112, 512, True, 200),
+    (2, 256, 768, 14, 2, 64, 256, False, 0),
+    (1, 128, 512, 4, 2, 64, 0, True, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,sk,h,kv,d,off,causal,window", OFFSET_CASES)
+def test_flash_kernels_at_a_query_offset_match_plain(cuda, dtype, b, s, sk,
+                                                     h, kv, d, off, causal,
+                                                     window):
+    """#5 (out, lse) and #7 (dq, dk, dv) with query row i at position
+    i + q_offset, against the plain versions at the same offset."""
+    from repro_torch.kernels import flash_vjp as FV
+    q, k, v, dout = _bwd_inputs(cuda, dtype, b, s, sk, h, kv, d)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out, lse = FA.flash_attention_cuda(q, k, v, lse=True, **kw)
+    pout, plse = FV.flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), pout.float(), **TOL[dtype])
+    assert _close(lse, plse, BWD_TOL[dtype] / 10)
+    got = FV.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    want = FV.flash_bwd_plain(q, k, v, out, dout, lse, **kw)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _close(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_vjp_at_an_offset_runs_both_kernels(cuda, dtype):
+    """``flash_attention_vjp(..., q_offset=k)`` on the card launches #5 and
+    #7 (no refusal, no plain fallback), and two slices of a sequence give
+    the whole call's output and, summed, its key gradients."""
+    from repro_torch.kernels import flash_vjp as FV
+    from repro_torch.kernels import ops
+    q, k, v, dout = _bwd_inputs(cuda, dtype, 2, 1024, 1024, 14, 2, 64)
+
+    def run(lo, hi):
+        qs = q[:, lo:hi].detach().requires_grad_(True)
+        ks, vs = (x.detach().requires_grad_(True) for x in (k, v))
+        o = FV.flash_attention_vjp(qs, ks, vs, causal=True, q_offset=lo)
+        return (o,) + torch.autograd.grad(o, (qs, ks, vs), dout[:, lo:hi])
+
+    ops.reset_launch_counts()
+    halves = [run(0, 512), run(512, 1024)]
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert counts["flash_attention_bwd"] == 2
+    whole = run(0, 1024)
+    tol = TOL[dtype]
+    torch.testing.assert_close(torch.cat([h[0] for h in halves], 1).float(),
+                               whole[0].float(), **tol)
+    for i in (2, 3):
+        assert _close(halves[0][i].float() + halves[1][i].float(), whole[i],
+                      BWD_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
