@@ -12,7 +12,7 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py --phases ak  # kernels and the experts
     python3 chip_smoke.py --phases al  # kernels and the hybrid family
     python3 chip_smoke.py --phases am  # kernels and training (every family)
-    python3 chip_smoke.py --phases an  # kernels, q_offset shards, dry run
+    python3 chip_smoke.py --phases an  # kernels, shards, mesh steps, dry run
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` and runs fourteen phases, each printing one JSON line:
@@ -187,7 +187,14 @@ with ``nvcc`` and runs fourteen phases, each printing one JSON line:
       its bound; the slices' outputs, lse and dq put together and their
       dk, dv summed against the unsharded call; the path — each rank's
       ``layers.cp_shard`` forward and backward under autograd — launches
-      #5 and #7; ``launch.dryrun --mesh card`` for olmo-1b and qwen2-0.5b
+      #5 and #7; the sharded branches of the expert, Mamba2 and
+      encoder-decoder families on DTensors under a one-rank NCCL group
+      and the card's 1×1 mesh, bf16 at full width and cut depth — a
+      granite-moe prefill of 2 x 256 and a decode step (4 layers), a
+      mamba2-1.3b prefill of 2 x 1,024 (4 layers), a whisper-small decode
+      step (2 + 2 layers) — each bit for bit the same call without a mesh,
+      launching exactly #5, #4 and #6; ``launch.dryrun --mesh card`` for
+      olmo-1b and qwen2-0.5b
       at the four input shapes (CPU processes started with the script,
       fake tensors, no device work), ``roofline_report``'s table of them,
       and qwen2-0.5b ``decode_32k``'s parameters and cache allocated for
@@ -246,7 +253,8 @@ speculative turns of (h), (i)'s first graphed sampled turn, timed
 graphed ``generate``, traced wall-clock gateway serve and traced pool
 serve, (j)'s, (k)'s and (l)'s first graphed turns, (l3)'s first timed
 ``generate`` and their pool serves, (m1)'s, (m2)'s and (m4)-(m6)'s
-training steps, and (n)'s ``cp_shard`` drive; #5 and #7 also carry (n)'s
+training steps, and (n)'s ``cp_shard`` drive and its sharded branches;
+#5 and #7 also carry (n)'s
 q_offset slices under ``cases``;
 #1, #2, #4, #5 and #6 carry
 zamba2's cases, #5 whisper's and the backward its further shapes, D 112
@@ -3314,6 +3322,134 @@ def _cp_drive(torch, gen, dev):
     return launches
 
 
+# (n)'s drive of the sharded branches (DTensors under a one-rank NCCL
+# group and the card's 1×1 mesh), bf16 at full width: model -> (layers,
+# the steps it runs); each step's output must equal the same call without
+# a mesh bit for bit, and together they launch exactly N_MESH_PATH
+N_MESH = {"granite-moe": (4, ("prefill", "decode")),
+          "mamba2-1.3b": (4, ("prefill",)),
+          "whisper-small": (2, ("decode",))}
+N_MESH_PREFILL = {"granite-moe": (2, 256), "mamba2-1.3b": (2, 1024),
+                  "whisper-small": (4, 16)}
+N_MESH_PATH = ("flash_attention", "decode_attention", "ssd_scan")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _placed(tree, specs, mesh):
+    """``tree``'s tensors as DTensors on ``mesh`` (their own storage as
+    the local shards), placed by the spec tree ``specs``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.utils import sharding
+    if isinstance(tree, dict):
+        return {k: _placed(v, specs[k], mesh) for k, v in tree.items()}
+    return DTensor.from_local(tree, mesh, sharding.placements(specs, mesh),
+                              run_check=False)
+
+
+def _bit_equal(torch, plain, sharded, what):
+    """Every tensor of ``sharded`` (DTensors: their local shards, whole on
+    a 1×1 mesh) equals ``plain``'s bit for bit."""
+    if isinstance(plain, dict):
+        assert sorted(plain) == sorted(sharded), what
+        for k in plain:
+            _bit_equal(torch, plain[k], sharded[k], f"{what}/{k}")
+        return
+    local = sharded.to_local() if hasattr(sharded, "to_local") else sharded
+    assert local.shape == plain.shape and local.dtype == plain.dtype, what
+    assert torch.equal(local, plain), \
+        f"{what}: max |diff| {(local.float() - plain.float()).abs().max()}"
+
+
+def _mesh_drive(torch):
+    """The sharded branches on the card: a granite-moe prefill and decode
+    step (the expert dispatch under ``local_map``), a mamba2-1.3b prefill
+    (the SSD scan per (batch, head) shard) and a whisper-small decode step
+    (the cross-attention lengths laid out as the batch), each on DTensors
+    under ``use_mesh`` of the card's 1×1 mesh, against the same call on
+    plain tensors. Returns (launch counts of the DTensor runs, report)."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils import sharding
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_cpu_mesh()
+        gen = torch.Generator(device=dev).manual_seed(28)
+        runs = []        # (label, step, plain args, placed args, plain out)
+
+        def batch_of(cfg, b, s):
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                             generator=gen, device=dev)}
+            if cfg.encoder_layers:
+                batch["enc_embeds"] = torch.randn(
+                    b, cfg.encoder_seq, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+            return batch
+
+        def rows(t):
+            return sharding.resolve_spec(("batch",), tuple(t.shape), mesh)
+
+        with torch.no_grad():
+            for name, (layers, steps) in N_MESH.items():
+                full = get_config(name)
+                cfg = dataclasses.replace(
+                    full, num_layers=layers,
+                    encoder_layers=min(full.encoder_layers, layers))
+                api = build_model(cfg)
+                params = api.init(gen, torch.bfloat16)
+                dparams = _placed(params, api.param_specs(mesh), mesh)
+                b, s = N_MESH_PREFILL[name]
+                clen = s + 32
+                batch = batch_of(cfg, b, s)
+                dbatch = {k: _placed(v, rows(v), mesh)
+                          for k, v in batch.items()}
+                _, cache = api.prefill(params, batch, clen)
+                if "prefill" in steps:
+                    runs.append((f"{name}/prefill",
+                                 lambda p, x, api=api, clen=clen:
+                                 api.prefill(p, x, clen),
+                                 (params, batch), (dparams, dbatch)))
+                if "decode" in steps:
+                    token = torch.randint(0, cfg.vocab_size, (b,),
+                                          generator=gen, device=dev)
+                    cspecs = api.cache_specs(mesh, b, clen)
+                    runs.append((
+                        f"{name}/decode", api.decode_step,
+                        (params, token, {k: v.clone()
+                                         for k, v in cache.items()}),
+                        (dparams, _placed(token, rows(token), mesh),
+                         _placed({k: v.clone() for k, v in cache.items()},
+                                 cspecs, mesh))))
+            plain = [step(*args) for _, step, args, _ in runs]
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            with sharding.use_mesh(mesh), implicit_replication():
+                sharded = [step(*args) for _, step, _, args in runs]
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+        for (label, *_), want, got in zip(runs, plain, sharded):
+            for i, (w, g) in enumerate(zip(want, got)):
+                _bit_equal(torch, w, g, f"{label}/{('logits', 'cache')[i]}")
+    finally:
+        dist.destroy_process_group()
+    out = {"steps": [label for label, *_ in runs], "bit_equal": True,
+           "launches": launches, "s": time.perf_counter() - t0}
+    _log(json.dumps({"n_mesh": out}))
+    return launches, out
+
+
 def start_dryruns():
     """The dry run of ``N_DRYRUN`` on the card's 1×1 mesh, one CPU process
     each (no CUDA device: its tensors are fake), writing under
@@ -3410,11 +3546,15 @@ def phase_n(torch, procs):
     launches = _cp_drive(torch, gen, dev)
     _check_launches(launches, ("flash_attention", "flash_attention_bwd"),
                     "n")
+    mesh_launches, mesh = _mesh_drive(torch)
+    _check_launches(mesh_launches, N_MESH_PATH, "n (mesh)")
+    launches = {k: n + mesh_launches[k] for k, n in launches.items()}
     recs, waited, table = _dryrun_records(torch, procs)
     real = _real_decode(torch, recs[("qwen2-0.5b", "decode_32k")])
     bad = [r for r in rows if not r["ok"]]
     out = {"phase": "n", "shard_rows": len(rows), "failed": len(bad),
-           "launches": launches, "dryrun": waited, "real_decode": real,
+           "launches": launches, "mesh": mesh, "dryrun": waited,
+           "real_decode": real,
            "records": {f"{a}/{s}": {
                "argument_bytes": r["memory"]["argument_size_in_bytes"],
                "total_per_device": r["memory"]["total_per_device"],
@@ -4288,6 +4428,7 @@ def main(argv=None) -> int:
                     help="which phases to run, of a, b, d, e, f, g, h, i, "
                          "j, k, l, m, n, c (default: all)")
     args = ap.parse_args(argv)
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         _log("chip_smoke: no CUDA device")
@@ -4323,7 +4464,7 @@ def main(argv=None) -> int:
     report = {"build_s": build_s, "sass_hgmma": hgmma}
     procs = start_dryruns() if "n" in args.phases else {}
     try:
-        return _run_phases(torch, args, report, procs)
+        return _run_phases(torch, args, report, procs, started)
     finally:
         for proc, log, _ in procs.values():
             if proc.poll() is None:
@@ -4332,7 +4473,7 @@ def main(argv=None) -> int:
             log.close()
 
 
-def _run_phases(torch, args, report, procs) -> int:
+def _run_phases(torch, args, report, procs, started) -> int:
     summary, paged_streams = {}, None
     main_launches = {n: 0 for n in KERNEL_NAMES}
     report["phase_s"] = seconds = {}
@@ -4395,6 +4536,8 @@ def _run_phases(torch, args, report, procs) -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     report["card"] = card
+    report["total_s"] = time.perf_counter() - started
+    _log(f"chip_smoke took {report['total_s']:.1f} s in all")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_vjp as _vjp
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.utils import sharding
 
 
 # kernel name -> (module, attribute) of its launch count
@@ -122,7 +123,10 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
     float32; under autograd (grad mode on and an operand that requires
     grad) it goes through ``ssd_scan.ssd_vjp``: the kernel forward, the
     plain scan's gradients. On the CPU autograd differentiates the plain
-    scan itself, as the JAX CPU path does."""
+    scan itself, as the JAX CPU path does. On DTensors (a sharded run) it
+    runs shard by shard (``_ssd_shards``)."""
+    if sharding.is_dtensor(x):
+        return _ssd_shards(x, dt, a, b, c, chunk, initial_state)
     if _route(x) == "cpu":
         return _ssd.ssd_chunked_plain(x, dt, a, b, c, chunk, initial_state)
     dt, a = dt.float(), a.float()
@@ -131,6 +135,41 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
             for t in (x, dt, a, b, c, initial_state)):
         return _ssd.ssd_vjp(x, dt, a, b, c, chunk, initial_state)
     return _ssd.ssd_scan_cuda(x, dt, a, b, c, chunk, initial_state)
+
+
+def _ssd_shards(x, dt, a, b, c, chunk, initial_state):
+    """``ssd`` on DTensors, per (batch, SSD head) shard (``local_map``):
+    the scan is independent per batch row and per head, so each device
+    runs ``ssd`` on its shards (batch dims over the batch axes, heads over
+    ``model``, where they divide; b and c by the batch alone) and its
+    output is the unsharded one's slice. Gradients of an input that a
+    shard holds whole (a, b, c) are partial sums over the dims it is
+    replicated on."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    x_pl = sharding.layout(x, mesh, "batch", None, "ssm_heads", None)
+    s_shape = (x.shape[0], x.shape[2], b.shape[-1], x.shape[3])
+    s_pl = sharding.placements(sharding.resolve_spec(
+        ("batch", "ssm_heads"), s_shape, mesh), mesh)
+    in_pl = (x_pl, sharding.layout(dt, mesh, "batch", None, "ssm_heads"),
+             sharding.layout(a, mesh, "ssm_heads"),
+             sharding.layout(b, mesh, "batch"),
+             sharding.layout(c, mesh, "batch"),
+             None if initial_state is None else s_pl)
+    split = sharding.split_dims(x_pl)
+
+    def local(x, dt, a, b, c, s0):
+        return ssd(x, dt, a, b, c, chunk=chunk, initial_state=s0)
+
+    return local_map(
+        local, out_placements=(x_pl, s_pl),
+        in_placements=in_pl,
+        in_grad_placements=tuple(
+            pl if pl is None else sharding.grad_placements(pl, split)
+            for pl in in_pl),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, dt, a, b, c, initial_state)
 
 
 def ssd_decode(x, dt, a, b, c, state):

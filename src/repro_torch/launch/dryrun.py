@@ -96,7 +96,7 @@ def make_mesh(name: str):
 
 class Placer:
     """Makes DTensors of fake local shards, placed by specs on ``mesh``,
-    and sums their local bytes (the step's argument bytes)."""
+    and keeps the local shards (the step's arguments)."""
 
     def __init__(self, fake_mode, mesh):
         self.fake_mode, self.mesh = fake_mode, mesh
@@ -116,10 +116,6 @@ class Placer:
                              requires_grad)
         return {k: self.tree(v, specs[k], requires_grad)
                 for k, v in metas.items()}
-
-    @property
-    def argument_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.tensors)
 
 
 def prepare(cfg, shape, mesh, placer: Placer):
@@ -190,8 +186,7 @@ def run_one(arch: str, shape_name: str, mesh_name: str, out_dir: str,
                     trace_analysis.trace_modes(fake) as (comm, cost):
                 cost.add_arguments(placer.tensors)
                 out = fn(*args)
-                mem = trace_analysis.memory_summary(
-                    cost, placer.argument_bytes, out)
+                mem = trace_analysis.memory_summary(cost, out)
             t_trace = time.time() - t0 - t_build
         costs = trace_analysis.cost_summary(cost)
         colls = trace_analysis.collective_stats(comm)

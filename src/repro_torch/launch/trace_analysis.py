@@ -15,8 +15,11 @@ storage), and counts what one device would do:
   bytes being its result's size on one device, as the JAX parser counts
   them;
 - ``memory_summary``: per-device argument bytes (the local shards of the
-  step's inputs), output bytes, and the peak of the live bytes the step
-  allocated beyond its arguments (its temporaries and its new outputs).
+  step's inputs that it reads: XLA prunes an argument its computation
+  never uses, as ``jax.jit`` does by default, e.g. whisper's encoder
+  weights in a decode step), output bytes, and the peak of the live
+  bytes the step allocated beyond its arguments (its temporaries and its
+  new outputs).
 
 ``TraceModes`` enters the three counting modes on top of the fake mode.
 Each counts only ops on the LOCAL shards: it returns ``NotImplemented`` for
@@ -141,6 +144,8 @@ class CostTrace(TorchDispatchMode):
         self.flops = 0
         self.bytes_accessed = 0
         self.arg_storages = set()
+        self.arg_bytes: Dict[int, int] = {}
+        self.read_args = set()
         self._refs: Dict[int, int] = {}
         self._size: Dict[int, int] = {}
         self.live = 0
@@ -148,7 +153,15 @@ class CostTrace(TorchDispatchMode):
 
     def add_arguments(self, tensors) -> None:
         for x in tensors:
-            self.arg_storages.add(x.untyped_storage()._cdata)
+            key = x.untyped_storage()._cdata
+            self.arg_storages.add(key)
+            self.arg_bytes[key] = self.arg_bytes.get(key, 0) + _nbytes(x)
+
+    @property
+    def argument_bytes(self) -> int:
+        """The local bytes of the arguments that an op of the step read
+        (other than by taking a view)."""
+        return sum(self.arg_bytes[k] for k in self.read_args)
 
     def _mine(self, tensors) -> bool:
         # DTensor's own shape propagation runs ops on fake tensors of
@@ -183,6 +196,14 @@ class CostTrace(TorchDispatchMode):
         if isinstance(func, torch._ops.HigherOrderOperator) or not \
                 self._mine(ins):
             return out
+        if not (getattr(func, "is_view", False)
+                or getattr(func, "namespace", "") == "prim"):
+            # a view (one of a stacked leaf's layers, say) or a query of
+            # metadata reads nothing; an op on the view, which shares its
+            # storage, does
+            self.read_args.update(
+                k for k in (x.untyped_storage()._cdata for x in ins)
+                if k in self.arg_storages)
         outs = _tensors(out)
         formula = self.registry.get(func._overloadpacket)
         if formula is not None:
@@ -207,10 +228,10 @@ def cost_summary(cost: CostTrace) -> Dict[str, float]:
             "bytes_accessed": float(cost.bytes_accessed)}
 
 
-def memory_summary(cost: CostTrace, argument_bytes: int, outputs,
-                   ) -> Dict[str, float]:
+def memory_summary(cost: CostTrace, outputs) -> Dict[str, float]:
     """Per-device memory of one traced step: ``argument_size_in_bytes``
-    (the local shards of the step's arguments), ``output_size_in_bytes``
+    (the local shards of the step's arguments that it reads:
+    ``CostTrace.argument_bytes``), ``output_size_in_bytes``
     (its outputs' local bytes), ``alias_size_in_bytes`` (the outputs that
     are arguments updated in place), ``temp_size_in_bytes`` (the peak of
     the live bytes the step allocated: its temporaries and its new
@@ -226,6 +247,7 @@ def memory_summary(cost: CostTrace, argument_bytes: int, outputs,
         n = x.untyped_storage().nbytes()
         out_b += n
         alias_b += n if key in cost.arg_storages else 0
+    argument_bytes = cost.argument_bytes
     return {"argument_size_in_bytes": float(argument_bytes),
             "output_size_in_bytes": float(out_b),
             "temp_size_in_bytes": float(cost.peak_temp),

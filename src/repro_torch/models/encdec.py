@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.device import dtype_of
 from repro_torch.models import layers as L
-from repro_torch.utils.sharding import maybe_constrain
+from repro_torch.utils.sharding import is_dtensor, maybe_constrain
 
 MAX_DEC_POS = 32_768
 
@@ -79,9 +79,15 @@ def plan(cfg) -> dict:
 
 
 def _proj(x, w):
-    """x (..., d) @ w (d, heads, hd) -> (..., heads, hd)."""
+    """x (..., d) @ w (d, heads, hd) -> (..., heads, hd); a DTensor's rows
+    laid out by ``layers._rows`` first (the product keeps w's layout of
+    the heads, as ``layers.attn_qkv``'s does)."""
     lead = x.shape[:-1]
-    y = x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1).to(x.dtype)
+    w2 = w.reshape(w.shape[0], -1).to(x.dtype)
+    if is_dtensor(x):
+        y = L._rows(x)[0] @ w2
+    else:
+        y = x.reshape(-1, x.shape[-1]) @ w2
     return y.reshape(*lead, w.shape[1], w.shape[2])
 
 
@@ -236,8 +242,8 @@ def prefill(params, cfg, tokens, cache_len: int, enc_embeds):
     for i in range(cfg.num_layers):
         x, k, v, kc, vc = _dec_block(L.layer_params(params["layers"], i),
                                      cfg, x, enc_out, *_dense(cfg))
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        L.write_prefix(cache["k"], i, k)
+        L.write_prefix(cache["v"], i, v)
         cache["cross_k"][i] = kc
         cache["cross_v"][i] = vc
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg.norm)

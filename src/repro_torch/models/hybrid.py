@@ -212,8 +212,8 @@ def prefill(params, cfg, tokens, cache_len: int):
         if j is not None:
             x, k, v = _shared(sp, cfg, x, rope,
                               functools.partial(_causal, cfg))
-            cache["attn_k"][j, :, :keep] = k[:, s - keep:]
-            cache["attn_v"][j, :, :keep] = v[:, s - keep:]
+            L.write_prefix(cache["attn_k"], j, k[:, s - keep:])
+            L.write_prefix(cache["attn_v"], j, v[:, s - keep:])
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg.norm)
     cache["ssm"] = torch.stack(states)
     cache["conv"] = torch.stack(convs)

@@ -42,7 +42,7 @@ from repro_torch.kernels.flash_attention import (attention_dense,
                                                  repeat_kv, rows_to_segments,
                                                  segments_to_rows)
 from repro_torch.utils import sharding
-from repro_torch.utils.sharding import is_dtensor, maybe_constrain
+from repro_torch.utils.sharding import is_dtensor, maybe_constrain, whole
 
 __all__ = [
     "ParamDef", "stack_plan", "abstract_params", "plan_zeros", "norm_plan",
@@ -165,13 +165,34 @@ def embed_plan(cfg) -> dict:
 # --------------------------------------------------------------------------
 # norms, rotary embeddings, projections
 # --------------------------------------------------------------------------
+def _last_dim_sharded(x) -> bool:
+    from torch.distributed.tensor import Shard
+    return is_dtensor(x) and any(isinstance(p, Shard) and p.dim == x.dim()
+                                 - 1 for p in x.placements)
+
+
+def mean_last(x):
+    """The mean over the last dim, kept, and whole on every device
+    (``sharding.whole``). Where a DTensor's last dim is sharded it is a sum
+    over n: a mean there leaves ``Partial(avg)``, whose gradient cannot
+    meet the ``Partial(sum)`` of a sharded matmul's."""
+    if _last_dim_sharded(x):
+        return whole(x.sum(-1, keepdim=True)) / x.shape[-1]
+    return whole(x.mean(-1, keepdim=True))
+
+
 def apply_norm(p, x, kind: str, eps: float = 1e-5):
+    """RMS or layer norm over the last dim, statistics in float32 (by
+    ``mean_last``)."""
     xf = x.float()
     if kind == "rmsnorm":
-        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        y = xf * torch.rsqrt(mean_last(xf * xf) + eps)
         return (y * p["scale"].float()).to(x.dtype)
-    mu = xf.mean(-1, keepdim=True)
-    var = xf.var(-1, keepdim=True, unbiased=False)
+    mu = mean_last(xf)
+    if _last_dim_sharded(xf):
+        var = mean_last((xf - mu) * (xf - mu))
+    else:
+        var = whole(xf.var(-1, keepdim=True, unbiased=False))
     y = (xf - mu) * torch.rsqrt(var + eps)
     if kind == "layernorm":
         y = y * p["scale"].float() + p["bias"].float()
@@ -256,20 +277,35 @@ def residual(x):
                            "act_embed")
 
 
+def _row_layout(y, lead):
+    """(rows, n) rows laid out over the batch axes (the batch ``lead[0]``
+    leads the rows), or whole where the batch itself does not divide them
+    (JAX replicates such a batch: ``residual``), n over ``model``."""
+    mesh = sharding.active_mesh()
+    rows = "batch" if mesh is None or sharding.resolve_spec(
+        ("batch",), lead[:1], mesh) else None
+    return maybe_constrain(y, rows, "act_embed")
+
+
 def _rows(x):
     """(x as (rows, d), its leading shape): a DTensor laid out by
     ``residual`` first; a plain tensor stays as it is (its matmul folds
-    the leading dims itself)."""
+    the leading dims itself). The rows are pinned to that layout on both
+    sides of the reshape, so their gradient comes back in it: DTensor
+    cannot view a gradient of another layout back (a d_model split over
+    ``pod`` in the two-pod mesh's backward)."""
     if not is_dtensor(x) or x.dim() <= 2:
         return x, None
     lead = x.shape[:-1]
-    return residual(x).reshape(-1, x.shape[-1]), lead
+    return _row_layout(residual(x).reshape(-1, x.shape[-1]), lead), lead
 
 
 def _unrows(y, lead):
-    """``_rows``'s inverse: (rows, n) back to lead + (n,), the rows laid
-    out over the batch axes alone first (the batch leads the rows)."""
-    return y if lead is None else residual(y).reshape(*lead, -1)
+    """``_rows``'s inverse: (rows, n) back to lead + (n,), pinned to
+    ``_row_layout`` before the reshape and to ``residual`` after it."""
+    if lead is None:
+        return y
+    return residual(_row_layout(y, lead).reshape(*lead, -1))
 
 
 def apply_mlp(p, x):
@@ -536,6 +572,47 @@ def cache_row_update(buf, new, slot):
     return buf
 
 
+def _shard_offset(mesh, pls, dim: int, local: int) -> int:
+    """The global index of this device's first element along ``dim`` of a
+    DTensor placed by ``pls`` whose local extent there is ``local``."""
+    from torch.distributed.tensor import Shard
+    idx = 0
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx * local
+
+
+def write_prefix(buf, i: int, new):
+    """``buf[i, :, :n] = new`` for a stacked cache leaf ``buf`` (layers,
+    B, C, ...) and ``new`` (B, n, ...): a prefill's keys into rows 0..n-1
+    of layer i. A DTensor ``buf`` (the ring dim may be sharded) is written
+    shard by shard: each device writes the rows of its ring shard below
+    n, in place in its local shard, from ``new`` laid out as the buffer
+    with its ring dim whole."""
+    if not is_dtensor(buf):
+        buf[i, :, :new.shape[1]] = new
+        return buf
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pls, n = buf.device_mesh, buf.placements, new.shape[1]
+    new_pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim != 2
+                   else Replicate() for p in pls)
+
+    def local(buf_l, new_l):
+        nc = buf_l.shape[2]
+        c0 = _shard_offset(mesh, pls, 2, nc)
+        lo, hi = min(max(c0, 0), n), min(c0 + nc, n)
+        if hi > lo:
+            buf_l[i, :, lo - c0:hi - c0] = new_l[:, lo:hi].to(buf_l.dtype)
+        return buf_l
+
+    local_map(local, out_placements=list(pls), in_placements=(pls, new_pl),
+              device_mesh=mesh, redistribute_inputs=True)(buf, new)
+    return buf
+
+
 def _sharded_row_update(buf, new, slot):
     """``cache_row_update`` on a DTensor ``buf`` (B, C, ...) whose batch
     and ring dims may be sharded: each device writes the rows of its batch
@@ -550,16 +627,10 @@ def _sharded_row_update(buf, new, slot):
     new_pl = tuple(Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
                    and p.dim != 1 else Replicate() for p in pls)
 
-    def offset(dim: int, local: int) -> int:
-        idx = 0
-        for i, p in enumerate(pls):
-            if isinstance(p, Shard) and p.dim == dim:
-                idx = idx * mesh.size(i) + mesh.get_local_rank(i)
-        return idx * local
-
     def local(buf_l, new_l, slot_g):
         nb, nc = buf_l.shape[:2]
-        b0, c0 = offset(0, nb), offset(1, nc)
+        b0 = _shard_offset(mesh, pls, 0, nb)
+        c0 = _shard_offset(mesh, pls, 1, nc)
         s = slot_g[b0:b0 + nb].long() - c0
         inside = ((s >= 0) & (s < nc)).reshape((nb,) + (1,) * (new_l.dim()
                                                               - 1))
@@ -581,7 +652,16 @@ def decode_attention(q, k_cache, v_cache, valid_len):
     caches: (B, C, KV, D); valid_len: (B,) lengths (0 = zeros) or one int
     for every row (cross-attention's encoder length). On a GPU every C
     goes through the decode kernel (no tile-multiple gate). An int length
-    is filled on the device, so a captured step holds no host copy."""
+    is filled on the device, so a captured step holds no host copy. On
+    DTensors the lengths are laid out as the batch: an int fills each
+    shard's own rows, a (B,) DTensor (a step's positions) is cut by
+    ``per_head_shards``."""
+    if is_dtensor(q):
+        if isinstance(valid_len, int):
+            return per_head_shards(functools.partial(
+                decode_attention, valid_len=valid_len), q, k_cache, v_cache)
+        return per_head_shards(ops.decode_attention, q, k_cache, v_cache,
+                               valid_len)
     if isinstance(valid_len, int):
         lengths = torch.full((q.shape[0],), valid_len, dtype=torch.int32,
                              device=q.device)
@@ -590,9 +670,6 @@ def decode_attention(q, k_cache, v_cache, valid_len):
             torch.as_tensor(valid_len, dtype=torch.int32,
                             device=q.device).reshape(-1),
             (q.shape[0],)).contiguous()
-    if is_dtensor(q):
-        return per_head_shards(ops.decode_attention, q, k_cache, v_cache,
-                               lengths)
     return ops.decode_attention(q, k_cache, v_cache, lengths)
 
 

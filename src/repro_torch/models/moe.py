@@ -21,10 +21,13 @@ timed alone.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamDef
+from repro_torch.utils import sharding
 from repro_torch.utils.sharding import maybe_constrain
 
 # Default capacity factor; tests may raise it (cf >= E/k guarantees zero
@@ -110,24 +113,70 @@ def _combine(out, slot, dropped, gate_w):
             * gate_w[..., None].to(out.dtype)).sum(dim=2)
 
 
+def _groups(x3, gate_w, gate_i, wi_gate, wi_up, wo, e: int, cap: int):
+    """Slots, scatter, experts and combine of the groups (rows) of x3
+    (b, t, d): (y (b, t, d) in the compute dtype, dropped (b, t*k))."""
+    b, t, d = x3.shape
+    k = gate_i.shape[-1]
+    slot, dest, dropped = _slots(gate_i, e, cap)
+    buf = _scatter(x3, k, dest, e * b * cap).view(e, b * cap, d)
+    out = _experts({"wi_gate": wi_gate, "wi_up": wi_up, "wo": wo}, buf)
+    return _combine(out, slot, dropped, gate_w), dropped
+
+
+def _sharded_dispatch(p, x3, e: int, k: int, cap: int):
+    """``_dispatch``'s stages on DTensors, run shard by shard
+    (``local_map``): each device routes and dispatches the groups of its
+    batch shard (every group where x3's batch does not divide the batch
+    axes: the one group of a short input is never split, its capacity and
+    drops are the group's) into its own buffer, and runs them through its
+    ffn slice of the experts (the weights' ``mlp`` layout), so y is a
+    partial sum over the axis that slices the ffn (the JAX package
+    constrains its (b, e, cap, d) buffer on "batch" and shards the ffn dim
+    alike). Returns (y, probs, gate_i, dropped)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x3.device_mesh
+    rows = sharding.layout(x3, mesh, "batch")
+    rep = (Replicate(),) * mesh.ndim
+    split = sharding.split_dims(rows)
+    probs, gate_w, gate_i = local_map(
+        lambda x, router: _route({"router": router}, x, k),
+        out_placements=(rows, rows, rows), in_placements=(rows, rep),
+        in_grad_placements=(rows, sharding.grad_placements(rep, split)),
+        device_mesh=mesh, redistribute_inputs=True)(x3, p["router"])
+
+    ws = (p["wi_gate"], p["wi_up"], p["wo"])
+    w_pl = (sharding.layout(ws[0], mesh, None, "embed", "mlp"),
+            sharding.layout(ws[1], mesh, None, "embed", "mlp"),
+            sharding.layout(ws[2], mesh, None, "mlp", "embed"))
+    split = sharding.split_dims(rows, *w_pl)
+    ffn = sharding.split_dims(w_pl[2])
+    y_pl = tuple(Partial() if i in ffn else pl for i, pl in enumerate(rows))
+    in_pl = (rows, rows, rows) + w_pl
+    y, dropped = local_map(
+        functools.partial(_groups, e=e, cap=cap),
+        out_placements=(y_pl, rows), in_placements=in_pl,
+        in_grad_placements=tuple(sharding.grad_placements(pl, split)
+                                 for pl in in_pl),
+        device_mesh=mesh, redistribute_inputs=True)(x3, gate_w, gate_i, *ws)
+    return y, probs, gate_i, dropped
+
+
 def _dispatch(p, cfg, x3, cap: int):
     """Grouped dispatch. x3: (b, t, d) — one dispatch group per batch row.
 
     Returns (y (b, t, d), probs (b, t, e), gate_i (b, t, k),
     dropped (b, t*k)).
     """
-    b, t, d = x3.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    probs, gate_w, gate_i = _route(p, x3, k)
-    slot, dest, dropped = _slots(gate_i, e, cap)
-    # the buffer's rows are batch-major within each expert, so sharding
-    # its middle dim over the batch axes keeps each group on its shard
-    # (the JAX package constrains its (b, e, cap, d) buffer on "batch")
-    grp = (None, "batch", None)
-    buf = maybe_constrain(
-        _scatter(x3, k, dest, e * b * cap).view(e, b * cap, d), *grp)
-    out = maybe_constrain(_experts(p, buf), *grp)
-    y = _combine(out, slot, dropped, gate_w)
+    if sharding.is_dtensor(x3):
+        y, probs, gate_i, dropped = _sharded_dispatch(p, x3, e, k, cap)
+    else:
+        probs, gate_w, gate_i = _route(p, x3, k)
+        y, dropped = _groups(x3, gate_w, gate_i, p["wi_gate"], p["wi_up"],
+                             p["wo"], e, cap)
     return y.to(x3.dtype), probs, gate_i, dropped
 
 
@@ -143,7 +192,10 @@ def dispatch(p, cfg, x, capacity_factor: float = None):
         x3 = maybe_constrain(x, "batch", None, None)
     else:
         cap = capacity_for(x.numel() // d, cfg, capacity_factor)
-        x3 = x.reshape(1, -1, d)
+        # one group over every token: whole on each device under a mesh
+        # (pinned on both sides of the reshape, so its gradient comes back
+        # whole too: DTensor cannot view a row-sharded (1, n, d) as x)
+        x3 = sharding.replicated(sharding.replicated(x).reshape(1, -1, d))
     return _dispatch(p, cfg, x3, cap)
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.device import dtype_of
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.utils import sharding
 from repro_torch.utils.sharding import maybe_constrain
 
 # the SSD state is O(1) per sequence: there is nothing to page, and the
@@ -74,13 +75,33 @@ def plan(cfg) -> dict:
 # block internals
 # --------------------------------------------------------------------------
 def _causal_conv(x, w):
-    """Depthwise causal conv. x: (B, S, C); w: (W, C)."""
+    """Depthwise causal conv. x: (B, S, C); w: (W, C). On DTensors it runs
+    per (batch, channel) shard (``_sharded_conv``)."""
+    if sharding.is_dtensor(x):
+        return _sharded_conv(x, w)
     width = w.shape[0]
     xp = F.pad(x, (0, 0, width - 1, 0))
     out = 0
     for i in range(width):
         out = out + xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
     return out
+
+
+def _sharded_conv(x, w):
+    """``_causal_conv`` under ``local_map``: the conv is independent per
+    batch row and per channel, so each device convolves its shard (batch
+    over the batch axes, channels over ``model`` where they divide, the
+    sequence whole). DTensor's own pad gives a malformed layout on a
+    two-dim mesh in some torch releases (2.11)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    x_pl = sharding.layout(x, mesh, "batch", None, "ssm_inner")
+    w_pl = sharding.layout(w, mesh, None, "ssm_inner")
+    split = sharding.split_dims(x_pl)
+    return local_map(
+        _causal_conv, out_placements=list(x_pl), in_placements=(x_pl, w_pl),
+        in_grad_placements=(x_pl, sharding.grad_placements(w_pl, split)),
+        device_mesh=mesh, redistribute_inputs=True)(x, w)
 
 
 def _softplus(x):
@@ -117,19 +138,20 @@ def _prep(lp, dtype) -> dict:
 
 
 def _proj_in(lp, prep, xin):
+    xin, lead = L._rows(xin)
     z = xin @ lp["wz"].to(xin.dtype)
     xr = xin @ lp["wx"].to(xin.dtype)
     bc = xin @ lp["wB"].to(xin.dtype)
     cc = xin @ lp["wC"].to(xin.dtype)
     dt = _softplus(xin.float() @ prep["wdt"] + prep["dt_bias"])
-    return z, xr, bc, cc, dt
+    return tuple(L._unrows(t, lead) for t in (z, xr, bc, cc, dt))
 
 
 def _gate_out(lp, prep, y, z, dtype):
     g = y.float() * F.silu(z.float())
-    g = g * torch.rsqrt((g * g).mean(-1, keepdim=True) + 1e-5)
-    g = (g * prep["gate_scale"]).to(dtype)
-    return g @ lp["wo"].to(dtype)
+    g = g * torch.rsqrt(L.mean_last(g * g) + 1e-5)
+    g, lead = L._rows((g * prep["gate_scale"]).to(dtype))
+    return L._unrows(g @ lp["wo"].to(dtype), lead)
 
 
 def _silu_as(x, dtype):

@@ -157,8 +157,8 @@ def prefill(params, cfg, tokens, cache_len: int):
     for i in range(cfg.num_layers):
         x, k, v, _ = _block(cfg, L.layer_params(params["layers"], i), x,
                             rope, attention)
-        cache["k"][i, :, :keep] = k[:, s - keep:]
-        cache["v"][i, :, :keep] = v[:, s - keep:]
+        L.write_prefix(cache["k"], i, k[:, s - keep:])
+        L.write_prefix(cache["v"], i, v[:, s - keep:])
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg.norm)
     cache["pos"].fill_(s)
     return L.unembed(params["embed"], x, cfg), cache

@@ -156,6 +156,12 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
                  else Replicate() for ax in axis_names(mesh))
 
 
+def layout(x, mesh, *logical: Optional[str]) -> tuple:
+    """The placements that the logical names resolve to for ``x``'s shape
+    on ``mesh``."""
+    return placements(resolve_spec(logical, tuple(x.shape), mesh), mesh)
+
+
 def tree_placements(spec_tree, mesh):
     """``placements`` over a tree (nested dicts) of PartitionSpec."""
     if isinstance(spec_tree, PartitionSpec):
@@ -212,3 +218,40 @@ def maybe_constrain(x, *logical: Optional[str]):
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+def whole(x):
+    """The DTensor ``x`` with each partial placement reduced on every
+    device (``Replicate``): a statistic over a sharded dim (a norm's sum
+    over d_model) made whole before other partials meet it. ``x`` itself
+    when it is no DTensor or holds no partial."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
+def replicated(x):
+    """The DTensor ``x`` whole on every device; ``x`` itself otherwise."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def split_dims(*pls) -> set:
+    """The mesh dims that any of the placement lists ``pls`` shards: the
+    dims over which a computation run shard by shard is split."""
+    from torch.distributed.tensor import Shard
+    return {i for pl in pls for i, p in enumerate(pl) if isinstance(p, Shard)}
+
+
+def grad_placements(pl, split) -> tuple:
+    """The layout of the gradient of a ``local_map`` input laid out as
+    ``pl``, for a computation split over the mesh dims ``split``: a
+    partial sum over each split dim that the input is replicated on (each
+    shard adds its own part), else the input's own layout."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Partial() if i in split and isinstance(p, Replicate)
+                 else p for i, p in enumerate(pl))
