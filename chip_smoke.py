@@ -2310,6 +2310,7 @@ def _i3(torch, eng):
     walls[True]["attainment_by_tier_real_slo"] = traffic.attainment_by(
         reqs, "tier")
     assert geng.jit_cache_sizes() == warm, "i3: a serve captured"
+    tel.flush()
     obj = tel.trace.to_chrome_trace()
     n_spans = validate_chrome_trace(obj)
     OUT_DIR.mkdir(exist_ok=True)
@@ -2379,6 +2380,7 @@ def _i4(torch, keep):
         assert parsed[("dstack_slo_violations_total",
                        (("model", n),))] == violated
     assert parse_prometheus(reg.render()) == parsed
+    tel.flush()
     n_spans = validate_chrome_trace(tel.trace.to_chrome_trace())
     rows = roofline_report(tel.timers, pool.profiles)
     out = {"served": res.total_completed, "violated": res.total_violated,

@@ -73,9 +73,11 @@ the JAX engine, a slot's first token after its prefill is the arg-max
 even on a sampled engine.
 
 The telemetry plane (``attach_telemetry``, ``repro_torch.serving.
-telemetry``) times each dispatch of ``execute`` behind a synchronisation
-of the engine's stream and traces it; detached, every site is one
-``is None`` check.
+telemetry``) traces each dispatch of ``execute`` with its host duration
+and, on the card, its device time between two CUDA events on the
+engine's stream, read once the device has passed them (no
+synchronisation); the decode's token read is a ``readback`` span.
+Detached, every site is one ``is None`` check.
 """
 from __future__ import annotations
 
@@ -179,9 +181,10 @@ class InferenceEngine:
         self.retry_limit = 2
         self.retry_backoff_s = 0.0
         # telemetry plane (repro_torch.serving.telemetry): when attached,
-        # each of execute()'s dispatches is timed behind a synchronisation
-        # of the engine's stream and traced as a sub-span. None = every
-        # site is a single attribute check (no clock reads, no syncs)
+        # each of execute()'s dispatches is traced as a sub-span, timed on
+        # the host and, on the card, by a pair of CUDA events. None =
+        # every site is a single attribute check (no clock reads, no
+        # events)
         self.telemetry = None
         # generate's and generate_eager's noise (seeded per call by rng)
         self._gen_rng = torch.Generator(device=self.device)
@@ -1278,7 +1281,7 @@ class InferenceEngine:
             chosen = set(order)
             draft._slot_free = order + [s for s in draft._slot_free
                                         if s not in chosen]
-            t0 = tel.t0() if tel is not None else 0.0
+            op = tel.t0(draft) if tel is not None else None
             got = draft.insert_many(
                 [{"tokens": np.asarray(toks, np.int32)[None, :]}
                  for _, toks in admit], n_tokens=[None] * len(admit))
@@ -1286,7 +1289,7 @@ class InferenceEngine:
             self._draft_ready.update(order)
             res.dispatches += 1
             if tel is not None:
-                tel.dispatch_done(draft, "spec_admit", len(admit), t0,
+                tel.dispatch_done(draft, "spec_admit", len(admit), op,
                                   segs=len(admit))
 
         consts = self._round_consts(entries)
@@ -1295,12 +1298,12 @@ class InferenceEngine:
 
         # ---- draft: k+1 masked steps, one dispatch, nothing read back
         scan = consts["scan"]
-        t0 = tel.t0() if tel is not None else 0.0
+        op = tel.t0(draft) if tel is not None else None
         verify = self._graphs.entry(
             "draft_scan", t, self._draft_scan_body, scan).run(scan)
         res.dispatches += 1
         if tel is not None:
-            tel.dispatch_done(draft, "spec_draft", self.spec_k + 1, t0,
+            tel.dispatch_done(draft, "spec_draft", self.spec_k + 1, op,
                               slots=len(slots))
 
         # ---- verify: [t, d_1..d_k] per slot, one incremental chunk whose
@@ -1335,13 +1338,13 @@ class InferenceEngine:
             "chunk_prefill", (t, row_len, s_max),
             lambda dev: self._segment_body("chunk_prefill", dev, row_len),
             arrays)
-        t0 = tel.t0() if tel is not None else 0.0
+        op = tel.t0(self) if tel is not None else None
         step.fill(arrays)
         step.views["tokens"][0].copy_(verify)
         _, amax = step.launch()
         res.dispatches += 1
         if tel is not None:
-            tel.dispatch_done(self, "spec_verify", t, t0, segs=len(slots),
+            tel.dispatch_done(self, "spec_verify", t, op, segs=len(slots),
                               tokens=sum(vlens))
 
         # ---- accept / rollback on the host: the round's only reads
@@ -1406,9 +1409,9 @@ class InferenceEngine:
         """Arm (or with None, disarm) the telemetry plane
         (``repro_torch.serving.telemetry.Telemetry``) on this engine. Like
         ``attach_faults``, attach after warm-up: timing covers only built
-        executables. Each timed dispatch ends in a synchronisation of the
-        engine's stream, which changes how the host and the device overlap
-        but never values, dispatch counts or captures."""
+        executables. Timing records CUDA events between dispatches and
+        waits for none of them: it adds host time, and changes no value,
+        dispatch count or capture."""
         self.telemetry = tel
 
     def recover(self) -> int:
@@ -1503,7 +1506,7 @@ class InferenceEngine:
         tel = self.telemetry
         failed: set = set()
         if plan.grows:
-            t0 = tel.t0() if tel is not None else 0.0
+            op = tel.t0(self) if tel is not None else None
             for slot, upto in plan.grows:
                 try:
                     self.grow_slot(slot, upto)
@@ -1513,7 +1516,7 @@ class InferenceEngine:
                     failed.add(slot)
                     res.failed_grows.append(slot)
             if tel is not None:
-                tel.dispatch_done(self, "grow", len(plan.grows), t0,
+                tel.dispatch_done(self, "grow", len(plan.grows), op,
                                   failed=len(res.failed_grows))
         alias = [c for c in plan.admissions
                  if c.slot is None and c.alias is not None]
@@ -1537,7 +1540,7 @@ class InferenceEngine:
                     tel.instant(tel.engine_track(self),
                                 "alias_admission_failed", rid=c.rid)
         if first:
-            t0 = tel.t0() if tel is not None else 0.0
+            op = tel.t0(self) if tel is not None else None
             try:
                 slots = self.insert_many(
                     [c.batch for c in first],
@@ -1550,7 +1553,7 @@ class InferenceEngine:
                     ntok = sum(int(c.batch["tokens"].shape[1])
                                for c in first)
                     tel.dispatch_done(self, "admission_prefill",
-                                      _packed_bucket(ntok), t0,
+                                      _packed_bucket(ntok), op,
                                       segs=len(first), tokens=ntok)
             except OutOfPages:
                 # all-or-nothing rollback already ran; the planner
@@ -1560,30 +1563,31 @@ class InferenceEngine:
                     tel.instant(tel.engine_track(self), "admission_failed",
                                 segs=len(first))
         if cont:
-            t0 = tel.t0() if tel is not None else 0.0
+            op = tel.t0(self) if tel is not None else None
             self.chunk_append([(c.slot, c.batch, c.final) for c in cont])
             res.dispatches += 1
             if tel is not None:
                 ntok = sum(int(c.batch["tokens"].shape[1]) for c in cont)
                 tel.dispatch_done(self, "chunk_prefill",
-                                  _packed_bucket(ntok), t0,
+                                  _packed_bucket(ntok), op,
                                   segs=len(cont), tokens=ntok)
         decodes = [s for s in plan.decodes if s not in failed]
         forced = {s: t for s, t in plan.forced if s not in failed}
         if decodes or forced:
-            t0 = tel.t0() if tel is not None else 0.0
+            op = tel.t0(self) if tel is not None else None
             # teacher-forced catch-up slots join THE decode dispatch: the
             # step writes each one's prompt token's K/V at pos (what a
             # prefill would write there) and advances pos; forced outputs
             # never reach res.tokens — nothing was generated
             toks, done = self.step(decodes + list(forced), forced=forced)
-            t = toks.cpu().numpy()
+            t = (toks.cpu().numpy() if tel is None
+                 else tel.readback(self, toks, op))
             res.tokens = {int(s): int(t[s]) for s in decodes}
             res.done = list(done)
             res.dispatches += 1
             if tel is not None:
                 tel.dispatch_done(self, "decode",
-                                  len(decodes) + len(forced), t0,
+                                  len(decodes) + len(forced), op,
                                   forced=len(forced))
         spec = [e for e in plan.spec if e[0] not in failed]
         if spec:

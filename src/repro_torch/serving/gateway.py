@@ -36,7 +36,12 @@ and roofline report validate measured-vs-modeled per step).
 
 Every edge lands as a telemetry instant on the model's queue track
 when a ``Telemetry`` plane is attached, and costs one ``is None``
-check when not — the zero-cost-when-detached contract.
+check when not — the zero-cost-when-detached contract. With a trace
+attached, each turn of the drive loop also leaves port-only ``host``
+spans on the tick server's track, beside its ``tick``: ``wait`` (the
+wall-clock sleep until the next event, or a live gateway's idle wait),
+``deliver`` (the turn's arrivals, ``arrivals=n``), ``pump`` (``_pump``)
+and ``yield`` (the cooperative yield in which client consumers run).
 """
 from __future__ import annotations
 
@@ -188,6 +193,13 @@ class AsyncGateway:
     def _elapsed(self) -> float:
         return time.perf_counter() - (self._t0 or 0.0)
 
+    def _host_span(self, rec, name: str, start: float, **args) -> float:
+        """Push a ``host`` span from ``start`` to now; returns now."""
+        end = rec.now()
+        rec.complete(self.server._track, name, start, end - start,
+                     cat="host", **args)
+        return end
+
     # ----------------------------------------------------- client surface
     def schedule(self, requests: Sequence[Request], prompts=None) -> None:
         """Pre-schedule a trace: arrivals deliver at their stamped
@@ -305,6 +317,10 @@ class AsyncGateway:
             if self.events >= self.max_ticks:
                 self.truncated = True
                 break
+            # the trace, when attached (read every turn: it may come and go
+            # while the loop runs)
+            tel = self.planner.telemetry
+            rec = None if tel is None else tel.trace
             t = min(server.next_completion(),
                     self._pending[0].arrival if self._pending else math.inf)
             if math.isinf(t):
@@ -312,26 +328,42 @@ class AsyncGateway:
                     self._wake.clear()
                     # idle live gateway: nothing scheduled, nothing
                     # resident — sleep until a submit/cancel/close
+                    s = rec.now() if rec is not None else 0.0
                     await self._wake.wait()
+                    if rec is not None:
+                        self._host_span(rec, "wait", s)
                     continue
                 break
             if self.wall_clock:
                 delay = t - self._elapsed()
                 if delay > 0:
+                    s = rec.now() if rec is not None else 0.0
                     await asyncio.sleep(delay)
+                    if rec is not None:
+                        self._host_span(rec, "wait", s)
                 now = max(t, self._elapsed())
             else:
                 now = t
             self.now = now
+            s = rec.now() if rec is not None else 0.0
+            n = 0
             while (self._pending
                    and self._pending[0].arrival <= now + _EPS):
                 self._deliver(self._pending.pop(0))
+                n += 1
+            if rec is not None and n:
+                self._host_span(rec, "deliver", s, arrivals=n)
             self.events += server.fire(now, _EPS)
             server.plan(now)
+            s = rec.now() if rec is not None else 0.0
             self._pump()
+            if rec is not None:
+                s = self._host_span(rec, "pump", s)
             # the one cooperative yield per event: queued consumers run
             # here, in FIFO order — deterministic interleaving
             await asyncio.sleep(0)
+            if rec is not None:
+                self._host_span(rec, "yield", s)
         self._pump()
         for rid in list(self._live):
             # truncated / never-drained remnants: close so consumers

@@ -1418,9 +1418,6 @@ class TickServer:
         self._resets0 = planner.engine.stats.engine_resets
         # (wall seconds, decode tokens emitted) per executed tick
         self.tick_walls: List[Tuple[float, int]] = []
-        # prefill tokens COMPUTED per executed tick (the deterministic
-        # counterpart of tick_walls: what chunking actually bounds)
-        self.tick_prefill: List[int] = []
         self._next_tick = 0.0
         q = planner.queue
         self._track = (f"tick/{q.model}" if q is not None
@@ -1488,7 +1485,6 @@ class TickServer:
             self.stuck_ticks += 1
             self._recover(now)
             return 1
-        pf0 = eng.stats.prefill_tokens
         t0 = _time.perf_counter()
         try:
             res = eng.execute(plan)
@@ -1496,13 +1492,18 @@ class TickServer:
             self._recover(now)
             return 1
         wall = _time.perf_counter() - t0
-        self.planner.observe(res, now)
+        if trace is None:
+            self.planner.observe(res, now)
+        else:
+            s = trace.now()
+            self.planner.observe(res, now)
+            trace.complete(self._track, "observe", s, trace.now() - s,
+                           cat="host")
         self.ticks += 1
         self.dispatches += res.dispatches
         self.peak_resident = max(self.peak_resident,
                                  eng.n_slots - eng.free_slots)
         self.tick_walls.append((wall, len(res.tokens)))
-        self.tick_prefill.append(eng.stats.prefill_tokens - pf0)
         self._mirror_fault_stats()
         progress = bool(res.tokens or res.done or res.admitted
                         or res.failed_grows or plan.admissions

@@ -1,12 +1,12 @@
 """Serving-wide telemetry plane of the port: tracing, step timers,
 metrics, roofline — a copy of the JAX package's
-``repro.serving.telemetry``.
+``repro.serving.telemetry``, with the port's own host and device timing.
 
 Four cooperating pieces, all optional and all zero-cost when detached
 (every instrumentation site in the serving stack guards on
-``telemetry is None`` — no context managers, no clock reads, no device
-synchronisation on the disabled path; ``tests/test_torch_telemetry.py``
-proves disabled runs bit-identical):
+``telemetry is None`` — no context managers, no clock reads, no CUDA
+events on the disabled path; ``tests/test_torch_telemetry.py`` proves
+disabled runs bit-identical):
 
 * :class:`TraceRecorder` — a bounded ring buffer of structured spans and
   instants, exported as Chrome-trace-event JSON (``to_chrome_trace`` /
@@ -15,12 +15,15 @@ proves disabled runs bit-identical):
   named as the JAX package names it), one per model queue
   (``queue/<model>``), one per tick server (``tick/<model>``). The
   deterministic projection ``key_sequence()`` (everything except
-  wall-clock ``ts``/``dur``) is what the seeded-chaos determinism test
-  compares.
-* :class:`StepTimers` — ``perf_counter`` wall-clock samples around
-  dispatches that end in a synchronisation of the engine's stream, keyed
-  ``(model, chips, kind, bucket)``. Feeds :func:`roofline_report`, which
-  joins measured dispatch latency against the port's
+  wall-clock ``ts``/``dur``, and except the port-only ``host`` spans
+  unless asked for) is what the seeded-chaos determinism test compares.
+  Under an active ``torch.profiler`` the recorder takes a clock anchor
+  (:attr:`TraceRecorder.anchor`), which places its spans on the
+  profiler's timeline (:meth:`TraceRecorder.profiler_ns`).
+* :class:`StepTimers` — dispatch samples keyed ``(model, chips, kind,
+  bucket)``: device seconds between two CUDA events around the dispatch
+  on the card, host seconds on the CPU. Feeds :func:`roofline_report`,
+  which joins measured dispatch latency against the port's
   ``core/latency_model`` predictions (the profiles' hardware: the H100)
   and flags deviations (on the CPU the flags are the point: the
   rooflines model the card).
@@ -32,15 +35,23 @@ proves disabled runs bit-identical):
   ``PoolMetrics``/``ModelPoolMetrics`` become snapshot views over one
   coherent exposition.
 * :class:`Telemetry` — the umbrella object the serving layers hold. The
-  engine calls :meth:`Telemetry.dispatch_done` after each of its
-  dispatches returns (never inside a capture: it synchronises the
-  device); planners/pools emit lifecycle instants
-  (:meth:`request_event`); the event loop emits arrivals.
+  engine opens each dispatch with :meth:`Telemetry.t0`, which returns
+  its :class:`Dispatch` handle, and closes it with
+  :meth:`Telemetry.dispatch_done` once it returns (never inside a
+  capture); neither waits for the device: the dispatch's pair of CUDA
+  events is resolved later, when the device has passed it
+  (:meth:`Telemetry.flush` waits for the rest). Planners/pools emit
+  lifecycle instants (:meth:`request_event`); the event loop emits
+  arrivals; the gateway, the tick server and the decode's token read
+  emit ``host`` spans.
 
 Request timelines (queued → admitted → chunk ticks → first token →
 terminal) are reconstructible from the instants via
 :func:`request_timelines`; TTFT/TBT themselves are recorded always-on in
 ``RequestQueue`` (they are cheap scalars, not telemetry).
+
+``docs/observability_torch.md`` documents what is the port's own: the
+event-timed dispatches, the ``host`` spans and the clock anchor.
 """
 from __future__ import annotations
 
@@ -52,10 +63,11 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
-    "TraceRecorder", "StepTimers", "Telemetry", "MetricsRegistry",
+    "TraceRecorder", "StepTimers", "Dispatch", "Telemetry", "MetricsRegistry",
     "Counter", "Gauge", "Histogram", "validate_chrome_trace",
     "parse_prometheus", "roofline_report", "format_roofline",
     "export_queue", "export_fault_injector", "export_engine_stats",
@@ -70,27 +82,56 @@ __all__ = [
 class TraceRecorder:
     """Bounded ring buffer of trace events with Chrome-trace JSON export.
 
-    Events carry ``ts``/``dur`` in microseconds relative to the
-    recorder's construction (``perf_counter`` based). The ring
-    (``capacity`` events) bounds memory on long serves; the validator is
-    subset-closed, so dropping the oldest events never produces an
-    invalid trace.
+    Events carry ``ts``/``dur`` in microseconds relative to :attr:`t0`,
+    the ``perf_counter`` time of the recorder's construction or last
+    :meth:`clear`. The ring (``capacity`` events) bounds memory on long
+    serves; the validator is subset-closed, so dropping the oldest events
+    never produces an invalid trace. A dispatch span's device time, once
+    known, is the event's ``device_dur`` (microseconds), beside ``args``.
+
+    Clock anchor: where a ``torch.profiler`` is active at construction or
+    at :meth:`clear`, the recorder reads ``perf_counter`` inside a
+    ``record_function("repro_torch.clock")`` range (:attr:`anchor`; None
+    without a profiler). The profiler stamps that range's start on its
+    own clock, so :meth:`profiler_ns` places any span on the profiler's
+    timeline.
     """
+
+    CLOCK_RANGE = "repro_torch.clock"
 
     def __init__(self, capacity: int = 65536):
         self.capacity = int(capacity)
         self.events: collections.deque = collections.deque(maxlen=self.capacity)
-        self._t0 = time.perf_counter()
         self._seq = 0
         self.dropped = 0
+        self._start_clock()
 
     # -- clocks ------------------------------------------------------------
+    def _start_clock(self) -> None:
+        self.anchor: Optional[float] = None
+        if torch._C._autograd._profiler_enabled():
+            from torch.autograd.profiler import record_function
+            with record_function(self.CLOCK_RANGE):
+                self.anchor = time.perf_counter()
+        self.t0 = time.perf_counter()
+
     def now(self) -> float:
         """Absolute ``perf_counter`` time (pairs with :meth:`complete`)."""
         return time.perf_counter()
 
     def _us(self, t_abs: float) -> float:
-        return (t_abs - self._t0) * 1e6
+        return (t_abs - self.t0) * 1e6
+
+    def profiler_ns(self, ts_us: float, clock_start_ns: int) -> int:
+        """The recorder time ``ts_us`` (an event's ``ts`` or ``ts + dur``)
+        on the profiler's clock, given the profiler's start of this
+        recorder's ``repro_torch.clock`` range (``start_ns()`` of its
+        kineto event): that start minus :attr:`anchor` is the offset."""
+        if self.anchor is None:
+            raise ValueError("no clock anchor: the recorder was not "
+                             "started or cleared under a profiler")
+        return clock_start_ns + round(
+            (self.t0 - self.anchor + ts_us * 1e-6) * 1e9)
 
     # -- emission ----------------------------------------------------------
     def _push(self, ev: Dict[str, Any]) -> None:
@@ -113,11 +154,13 @@ class TraceRecorder:
                         "dur": (t1 - t0) * 1e6, "args": dict(args)})
 
     def complete(self, track: str, name: str, start: float, dur_s: float,
-                 cat: str = "serving", **args) -> None:
-        """Record an already-measured span (``start`` is perf_counter)."""
-        self._push({"track": track, "ph": "X", "name": name, "cat": cat,
-                    "ts": self._us(start), "dur": dur_s * 1e6,
-                    "args": dict(args)})
+                 cat: str = "serving", **args) -> Dict[str, Any]:
+        """Record an already-measured span (``start`` is perf_counter);
+        returns the event."""
+        ev = {"track": track, "ph": "X", "name": name, "cat": cat,
+              "ts": self._us(start), "dur": dur_s * 1e6, "args": dict(args)}
+        self._push(ev)
+        return ev
 
     def instant(self, track: str, name: str, cat: str = "serving",
                 **args) -> None:
@@ -152,6 +195,9 @@ class TraceRecorder:
             e = {"ph": ev["ph"], "pid": pid, "tid": tids[ev["track"]],
                  "name": ev["name"], "cat": ev.get("cat", "serving"),
                  "ts": round(ev["ts"], 3), "args": ev.get("args", {})}
+            if "device_dur" in ev:
+                e["args"] = dict(e["args"],
+                                 device_dur=round(ev["device_dur"], 3))
             if ev["ph"] == "X":
                 e["dur"] = round(ev["dur"], 3)
             elif ev["ph"] == "i":
@@ -159,7 +205,8 @@ class TraceRecorder:
             out.append(e)
         return {"traceEvents": out,
                 "displayTimeUnit": "ms",
-                "otherData": {"dropped_events": self.dropped}}
+                "otherData": {"dropped_events": self.dropped,
+                              "t0": self.t0, "clock_anchor": self.anchor}}
 
     def save(self, path: str) -> Dict[str, Any]:
         obj = self.to_chrome_trace()
@@ -167,14 +214,19 @@ class TraceRecorder:
             json.dump(obj, f)
         return obj
 
-    def key_sequence(self) -> List[Tuple]:
+    def key_sequence(self, host: bool = False) -> List[Tuple]:
         """Deterministic projection: everything but wall-clock fields.
 
         Two seeded runs of the same workload must produce identical
-        key sequences even though ``ts``/``dur`` differ.
+        key sequences even though ``ts``/``dur`` differ. The port-only
+        ``host`` spans (the gateway's turn, ``observe``, ``readback``)
+        are left out unless ``host``, so the projection stays the JAX
+        package's; their args hold no wall-clock value either.
         """
         out = []
         for ev in self.events:
+            if not host and ev.get("cat") == "host":
+                continue
             args = tuple(sorted(ev.get("args", {}).items()))
             out.append((ev["track"], ev["ph"], ev["name"],
                         ev.get("cat", "serving"), args))
@@ -184,7 +236,7 @@ class TraceRecorder:
         self.events.clear()
         self.dropped = 0
         self._seq = 0
-        self._t0 = time.perf_counter()
+        self._start_clock()
 
 
 def validate_chrome_trace(obj: Any) -> int:
@@ -244,11 +296,13 @@ def validate_chrome_trace(obj: Any) -> int:
 
 
 # --------------------------------------------------------------------------
-# Wall-clock step timers
+# Dispatch timers
 # --------------------------------------------------------------------------
 
 class StepTimers:
-    """Wall-clock dispatch samples keyed ``(model, chips, kind, bucket)``.
+    """Dispatch samples keyed ``(model, chips, kind, bucket)``: device
+    seconds on the card (between the dispatch's two CUDA events), host
+    seconds on the CPU.
 
     ``kind`` is the dispatch family (``admission_prefill``,
     ``chunk_prefill``, ``decode``, ``grow``); ``bucket`` is the graph
@@ -285,19 +339,46 @@ class StepTimers:
 # Telemetry umbrella
 # --------------------------------------------------------------------------
 
+class Dispatch:
+    """An open dispatch (:meth:`Telemetry.t0`): its host start ``t``
+    (``perf_counter``) and, on the card, its start and end CUDA events."""
+
+    __slots__ = ("t", "start", "end")
+
+    def __init__(self, t: float, start=None):
+        self.t = t
+        self.start = start
+        self.end = None
+
+
 class Telemetry:
     """What the serving layers hold: a trace (optional) plus timers.
 
     Attach with ``EnginePool.attach_telemetry`` /
     ``InferenceEngine.attach_telemetry`` / ``StepPlanner.telemetry``.
-    When ``trace`` is None only the wall-clock timers run (used by
-    ``bench_pool`` for the roofline report without trace export).
+    When ``trace`` is None only the timers run (used by ``bench_pool``
+    for the roofline report without trace export).
+
+    Device timing without a synchronise: :meth:`t0` opens a dispatch and
+    returns its :class:`Dispatch` handle, which holds the host start and,
+    on the card, a start event recorded on the engine's stream;
+    :meth:`dispatch_done` takes the handle back and records the end event.
+    The pair waits in ``_pending`` until the device has passed its end
+    event (``Event.query``, at every later ``dispatch_done``; all of them
+    after the decode's :meth:`readback`, which waits for the stream
+    anyway), then gives the span its ``device_dur`` and the timers their
+    sample. :meth:`flush` waits for what is left. Events come from a
+    reused pool, so a dispatch allocates none; a dispatch that raises
+    drops its handle, and its start event with it.
     """
 
     def __init__(self, trace: Optional[TraceRecorder] = None,
                  timers: Optional[StepTimers] = None):
         self.trace = trace
         self.timers = timers if timers is not None else StepTimers()
+        self._free: List[Any] = []         # recorded-and-read CUDA events
+        # (span or None, start event, end event, timer key), oldest first
+        self._pending: collections.deque = collections.deque()
 
     # -- track names -------------------------------------------------------
     @staticmethod
@@ -309,29 +390,78 @@ class Telemetry:
     def queue_track(model: str) -> str:
         return f"queue/{model}"
 
-    # -- emission helpers --------------------------------------------------
-    def t0(self) -> float:
-        return time.perf_counter()
+    # -- dispatch timing ---------------------------------------------------
+    def _record(self, engine):
+        ev = (self._free.pop() if self._free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(torch.cuda.current_stream(engine.device))
+        return ev
 
-    def dispatch_done(self, engine, kind: str, bucket: int, t0: float,
-                      **args) -> None:
-        """Close a timed dispatch: synchronise the stream the engine
-        dispatched on (its device's current stream), record.
+    def t0(self, engine) -> "Dispatch":
+        """Open a dispatch on ``engine``: its host start (``perf_counter``)
+        and, on the card, a start event on the engine's stream. Call it
+        before the dispatch, outside any capture."""
+        t = time.perf_counter()
+        return Dispatch(t, self._record(engine)
+                        if engine.device.type == "cuda" else None)
 
-        The synchronisation makes the ``perf_counter`` window cover device
-        execution, not just the host-side enqueue. Only ever called when
-        telemetry is attached, and only after a dispatch has returned —
-        never inside a capture, where a synchronisation raises — so the
-        disabled path never waits.
-        """
-        if engine.device.type == "cuda":
-            torch.cuda.current_stream(engine.device).synchronize()
-        dt = time.perf_counter() - t0
-        chips = getattr(engine, "alloc_chips", 0) or 0
-        self.timers.record(engine.cfg.name, chips, kind, bucket, dt)
+    def readback(self, engine, x: torch.Tensor, d: "Dispatch") -> np.ndarray:
+        """The decode's read of its tokens ``x``, as a ``host`` span
+        (``readback``: the host blocked on the device). The end event of
+        the dispatch ``d`` goes in first, so its device time ends with the
+        step, not with the copy."""
+        if d.start is not None:
+            d.end = self._record(engine)
+        s = time.perf_counter()
+        out = x.cpu().numpy()
         if self.trace is not None:
-            self.trace.complete(self.engine_track(engine), kind, t0, dt,
-                                cat="dispatch", bucket=int(bucket), **args)
+            self.trace.complete(self.engine_track(engine), "readback", s,
+                                time.perf_counter() - s, cat="host")
+        return out
+
+    def dispatch_done(self, engine, kind: str, bucket: int, d: "Dispatch",
+                      **args) -> None:
+        """Close the dispatch ``d`` (from :meth:`t0`) once it has returned:
+        push its span (the host's duration, launch and any read included)
+        and, on the card, its end event (unless :meth:`readback` put it
+        in), then resolve whatever pairs the device has passed. Never
+        waits; never called inside a capture."""
+        if d.start is not None and d.end is None:
+            d.end = self._record(engine)
+        dt = time.perf_counter() - d.t
+        chips = getattr(engine, "alloc_chips", 0) or 0
+        key = (engine.cfg.name, chips, kind, bucket)
+        ev = None
+        if self.trace is not None:
+            ev = self.trace.complete(self.engine_track(engine), kind, d.t, dt,
+                                     cat="dispatch", bucket=int(bucket),
+                                     **args)
+        if d.start is None:                # the CPU: the host ran it
+            self.timers.record(*key, dt)
+            if ev is not None:
+                ev["device_dur"] = ev["dur"]
+            return
+        self._pending.append((ev, d.start, d.end, key))
+        self._resolve()
+
+    def _resolve(self) -> None:
+        """Resolve pending pairs, oldest first, while the device has
+        passed their end events (one stream: they complete in order)."""
+        while self._pending and self._pending[0][2].query():
+            ev, start, end, key = self._pending.popleft()
+            sec = start.elapsed_time(end) / 1e3
+            self._free += (start, end)
+            self.timers.record(*key, sec)
+            if ev is not None:
+                ev["device_dur"] = sec * 1e6
+
+    def flush(self) -> None:
+        """Wait for every pending dispatch's end event and resolve it."""
+        for _, _, end, _ in self._pending:
+            end.synchronize()
+        self._resolve()
+
+    # -- emission helpers --------------------------------------------------
 
     def instant(self, track: str, name: str, **args) -> None:
         if self.trace is not None:
@@ -647,7 +777,7 @@ class RooflineRow:
 
 def roofline_report(timers: StepTimers, profiles: Dict[str, Any],
                     tol: float = 4.0) -> List[RooflineRow]:
-    """Join measured dispatch wall-clock against latency-model predictions.
+    """Join measured dispatch time against latency-model predictions.
 
     ``profiles`` maps model name → ``ModelProfile`` (as on
     ``EnginePool.profiles``). Decode dispatches are predicted by a

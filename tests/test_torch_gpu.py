@@ -763,8 +763,9 @@ def _graph_cfg(model, dtype):
     return dataclasses.replace(cfg, dtype=dtype)
 
 
-def _graph_run(eng, path, rng_seed=0):
-    """Run ``path`` on ``eng``; returns its tokens."""
+def _graph_run(eng, path, rng_seed=0, telemetry=None):
+    """Run ``path`` on ``eng`` (its planner holding ``telemetry``);
+    returns its tokens."""
     model, slots, paged, chunk_tokens, _ = GRAPH_PATHS[path]
     rng = np.random.default_rng(rng_seed)
     if slots is None:
@@ -780,6 +781,7 @@ def _graph_run(eng, path, rng_seed=0):
                     n_tokens=nt, prompt_len=p) for i, p, nt in spec]
     planner = StepPlanner(eng, RequestQueue(eng.cfg.name, slo=1e9),
                           PlannerConfig(chunk_tokens=chunk_tokens))
+    planner.telemetry = telemetry
     srv = serve_ticks(planner, reqs, lambda r: {"tokens": prompts[r.rid]})
     assert not srv.truncated
     return planner.streams
@@ -924,9 +926,9 @@ def test_sampler_distribution_on_the_card(cuda):
 
 def test_telemetry_attached_graphed_serve_captures_nothing(cuda):
     """A graphed serve with the telemetry plane attached (each dispatch
-    timed behind a synchronisation of the engine's stream) gives the
-    detached serve's streams and captures nothing new; the trace is
-    valid and every dispatch kind was timed."""
+    timed by a pair of CUDA events, read once the device has passed
+    them) gives the detached serve's streams and captures nothing new;
+    the trace is valid and every dispatch kind was timed."""
     from repro_torch.serving.telemetry import (Telemetry, TraceRecorder,
                                                validate_chrome_trace)
     cfg = get_config("olmo-1b").reduced()
@@ -943,9 +945,72 @@ def test_telemetry_attached_graphed_serve_captures_nothing(cuda):
     assert traced == first
     assert eng.jit_cache_sizes() == sizes
     assert validate_chrome_trace(tel.trace.to_chrome_trace()) > 0
+    tel.flush()
     kinds = {k[2] for k in tel.timers.samples}
     assert {"admission_prefill", "chunk_prefill", "decode"} <= kinds
     assert all(x > 0 for xs in tel.timers.samples.values() for x in xs)
+
+
+def test_telemetry_times_dispatches_without_a_synchronise(cuda,
+                                                         monkeypatch):
+    """A graphed serve with the telemetry plane attached to the engine
+    and the planner calls neither ``torch.cuda.synchronize`` nor
+    ``Stream.synchronize`` (counted by a patch) and captures nothing;
+    once flushed, every kernel dispatch's ``device_dur`` is positive
+    (a ``grow`` may enqueue nothing) and ends by the host's next wait for
+    the device: within its tick's host duration in a tick that reads its
+    tokens back, else before the next ``readback`` ends; each decode
+    holds its ``readback``."""
+    from repro_torch.serving.telemetry import (Telemetry, TraceRecorder,
+                                               validate_chrome_trace)
+    cfg = get_config("olmo-1b").reduced()
+    eng = make_engine(cfg, seed=3, cache_len=256, device=cuda).init_slots(
+        4, page_size=16)
+    first = _graph_run(eng, "chunked")
+    sizes = eng.jit_cache_sizes()
+    syncs = []
+    real_sync, real_stream_sync = (torch.cuda.synchronize,
+                                   torch.cuda.Stream.synchronize)
+
+    def sync(*a, **k):
+        syncs.append("torch.cuda.synchronize")
+        return real_sync(*a, **k)
+
+    def stream_sync(self):
+        syncs.append("Stream.synchronize")
+        return real_stream_sync(self)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", sync)
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", stream_sync)
+    tel = Telemetry(trace=TraceRecorder())
+    eng.attach_telemetry(tel)
+    try:
+        traced = _graph_run(eng, "chunked", telemetry=tel)
+    finally:
+        eng.attach_telemetry(None)
+        monkeypatch.undo()
+    assert syncs == []
+    assert traced == first
+    assert eng.jit_cache_sizes() == sizes
+    tel.flush()
+    assert validate_chrome_trace(tel.trace.to_chrome_trace()) > 0
+    spans = [e for e in tel.trace.events if e["ph"] == "X"]
+    ticks = [e for e in spans if e["name"] == "tick"]
+    disp = [e for e in spans if e.get("cat") == "dispatch"]
+    assert ticks and {"admission_prefill", "chunk_prefill", "decode"} <= {
+        e["name"] for e in disp}
+    reads = [e for e in spans if e["name"] == "readback"]
+    assert len(reads) == sum(d["name"] == "decode" for d in disp)
+    for d in disp:
+        assert d["device_dur"] > 0 or (d["name"] == "grow"
+                                       and d["device_dur"] == 0), d
+        (tick,) = [t for t in ticks if t["ts"] <= d["ts"]
+                   and d["ts"] + d["dur"] <= t["ts"] + t["dur"]]
+        end = tick["ts"] + tick["dur"]
+        if not any(tick["ts"] <= r["ts"] < end for r in reads):
+            # the device may run on past a tick that never waits for it
+            end = min(r["ts"] + r["dur"] for r in reads if r["ts"] > end)
+        assert d["device_dur"] <= end - d["ts"], (d, tick)
 
 
 def test_gateway_on_cuda_equals_serve_ticks(cuda):

@@ -16,6 +16,12 @@ package's ``tests/test_telemetry.py`` and against the JAX package itself.
 * The pool: ``EnginePool.attach_telemetry`` arms every standby engine and
   planner; a traced ``dstack`` serve equals the untraced one, and its
   exposition round-trips through ``parse_prometheus``.
+* The port's own timing: seeded gateway serves give one
+  ``key_sequence(host=True)`` with the ``host`` spans in it; on the CPU
+  every dispatch span carries a ``device_dur``; a dispatch's CUDA events
+  resolve only once the device has passed them, with no wait (fake
+  events on the CPU); the clock anchor places a span on
+  ``torch.profiler``'s timeline.
 """
 import json
 
@@ -44,6 +50,7 @@ from repro_torch.serving import plan as port_plan  # noqa: E402
 from repro_torch.serving import request as port_request  # noqa: E402
 from repro_torch.serving import telemetry as port_tel  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine  # noqa: E402
+from repro_torch.serving.gateway import AsyncGateway  # noqa: E402
 from repro_torch.serving.pool import build_pool  # noqa: E402
 from repro_torch.serving.telemetry import (MetricsRegistry,  # noqa: E402
                                            StepTimers, Telemetry,
@@ -444,3 +451,205 @@ def test_pool_telemetry_traced_serve_equals_untraced():
                        (("model", n),))] == violated
     rows = roofline_report(tel.timers, pool.profiles)
     assert any(r.predicted_s for r in rows if r.kind == "decode")
+
+
+# ---------------------------------------------------------------------------
+# the port's own timing: host spans, device time, the profiler's clock
+# ---------------------------------------------------------------------------
+def _gateway_serve(cfg, eng, seed):
+    """A seeded trace served through the gateway (virtual clock) with a
+    trace attached; returns the telemetry."""
+    spec, prompts = _workload(cfg, seed=seed, n=6)
+    eng.release_all_slots()
+    eng.reset_stats()
+    planner = port_plan.StepPlanner(
+        eng, port_request.RequestQueue(cfg.name, slo=1e9),
+        port_plan.PlannerConfig(chunk_tokens=3, lazy=True, gen_len=4))
+    tel = Telemetry(trace=TraceRecorder())
+    planner.telemetry = tel
+    eng.attach_telemetry(tel)
+    reqs = [port_request.Request(arrival=0.002 * i, rid=i, model=cfg.name,
+                                 slo=1e9, n_tokens=nt, prompt_len=p)
+            for i, p, nt in spec]
+    try:
+        AsyncGateway(planner, stall_limit=50).serve_trace(
+            reqs, {r: {"tokens": t} for r, t in prompts.items()})
+    finally:
+        eng.attach_telemetry(None)
+        planner.telemetry = None
+    return tel
+
+
+def test_host_spans_key_sequence_deterministic(engine):
+    """Two seeded gateway serves give one ``key_sequence(host=True)``,
+    with the gateway's, the tick server's and the engine's ``host`` spans
+    in it; the default projection leaves exactly those out; every span
+    nests or is disjoint on its track."""
+    cfg, eng = engine
+    tels = [_gateway_serve(cfg, eng, seed=5) for _ in range(2)]
+    full = [t.trace.key_sequence(host=True) for t in tels]
+    assert full[0] == full[1]
+    host = [k for k in full[0] if k[3] == "host"]
+    assert {"deliver", "pump", "yield", "observe", "readback"} == {
+        k[2] for k in host}
+    assert {k[0] for k in host} == {f"tick/{cfg.name}",
+                                    f"engine/{cfg.name}@0ch"}
+    assert tels[0].trace.key_sequence() == [k for k in full[0]
+                                           if k[3] != "host"]
+    assert validate_chrome_trace(tels[0].trace.to_chrome_trace()) > 0
+    # each decode holds its readback; each tick its observe
+    evs = list(tels[0].trace.events)
+    spans = [e for e in evs if e["ph"] == "X"]
+
+    def inside(child, parents):
+        return any(p["ts"] <= child["ts"] and child["ts"] + child["dur"]
+                   <= p["ts"] + p["dur"] + 1e-3 for p in parents)
+    decodes = [e for e in spans if e["name"] == "decode"]
+    ticks = [e for e in spans if e["name"] == "tick"]
+    for name, parents in (("readback", decodes), ("observe", ticks)):
+        kids = [e for e in spans if e["name"] == name]
+        assert kids and all(inside(k, parents) for k in kids), name
+    assert sum(e["name"] == "readback" for e in spans) == len(decodes)
+
+
+def test_dispatch_spans_carry_device_dur_on_the_cpu(engine):
+    """On the CPU the host runs each dispatch: every dispatch span has a
+    ``device_dur`` equal to its ``dur``, the Chrome export shows it as an
+    arg (and ``key_sequence`` does not), and every dispatch gave the
+    timers one sample."""
+    cfg, eng = engine
+    tel = _gateway_serve(cfg, eng, seed=7)
+    disp = [e for e in tel.trace.events if e.get("cat") == "dispatch"]
+    assert disp and all(e["device_dur"] == e["dur"] for e in disp)
+    assert tel.timers.total_samples == len(disp)
+    exported = [e for e in tel.trace.to_chrome_trace()["traceEvents"]
+                if e.get("cat") == "dispatch"]
+    assert all(e["args"]["device_dur"] == round(e["dur"], 3)
+               for e in exported)
+    assert not any("device_dur" in dict(k[4])
+                   for k in tel.trace.key_sequence(host=True))
+
+
+class _FakeDevice:
+    """A card's stream as fake events see it: the host's clock records,
+    the device has passed every event stamped at or before ``passed``."""
+
+    def __init__(self):
+        self.clock = 0.0          # ms
+        self.passed = -1.0
+        self.made = 0
+        self.waits = 0
+
+
+def test_dispatch_events_resolve_without_waiting(monkeypatch):
+    """The card's path with fake events: a dispatch's pair stays pending
+    until the device has passed its end event (no wait), pairs resolve
+    oldest first into ``device_dur`` and the timers, the decode's
+    readback resolves everything before it, ``flush`` waits for the rest,
+    and the events are reused (none allocated per dispatch; a dispatch
+    that raised drops its handle and its start event)."""
+    dev = _FakeDevice()
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            dev.made += 1
+
+        def record(self, stream=None):
+            self.t = dev.clock
+
+        def query(self):
+            return self.t <= dev.passed
+
+        def synchronize(self):
+            dev.waits += 1
+            dev.passed = max(dev.passed, self.t)
+
+        def elapsed_time(self, end):
+            assert self.query() and end.query()
+            return end.t - self.t
+
+    class Tokens:
+        """The decode's tokens: the copy waits for the stream."""
+
+        def cpu(self):
+            dev.passed = dev.clock
+            return torch.zeros(4, dtype=torch.int32)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    from types import SimpleNamespace
+    eng = SimpleNamespace(device=torch.device("cuda"), alloc_chips=0,
+                          cfg=SimpleNamespace(name="m"))
+    tel = Telemetry(trace=TraceRecorder())
+
+    def dispatch(kind, ms, read=False):
+        op = tel.t0(eng)
+        dev.clock += ms
+        if read:
+            tel.readback(eng, Tokens(), op)
+        tel.dispatch_done(eng, kind, 1, op)
+        dev.clock += 0.5                 # the host between dispatches
+
+    def device_durs():
+        return [e.get("device_dur") for e in tel.trace.events
+                if e.get("cat") == "dispatch"]
+
+    dispatch("grow", 1.0)
+    dispatch("admission_prefill", 2.0)
+    assert device_durs() == [None, None] and len(tel._pending) == 2
+    dev.passed = 1.0                      # past the grow only
+    dispatch("chunk_prefill", 3.0)
+    assert device_durs() == [1e3, None, None]
+    dispatch("decode", 4.0, read=True)
+    assert device_durs() == [1e3, 2e3, 3e3, 4e3] and not tel._pending
+    assert tel.timers.samples[("m", 0, "decode", 1)] == [4e-3]
+    made = dev.made
+    for _ in range(3):
+        dispatch("decode", 1.0, read=True)
+    assert dev.made == made, "a dispatch allocated events"
+    free = len(tel._free)
+    tel.t0(eng)                           # a dispatch that raised: its
+    assert len(tel._free) == free - 1     # start event goes with it
+    dispatch("chunk_prefill", 2.0)
+    assert dev.made == made and tel._pending
+    assert device_durs()[-1] is None
+    assert dev.waits == 0
+    tel.flush()
+    assert not tel._pending and dev.waits == 1
+    assert device_durs()[-1] == 2e3
+    rb = [e for e in tel.trace.events if e["name"] == "readback"]
+    assert len(rb) == 4 and all(e["cat"] == "host" for e in rb)
+
+
+def test_clock_anchor_maps_spans_onto_the_profiler():
+    """Under ``torch.profiler`` (CPU) the recorder's anchor maps a span
+    onto the profiler's clock within 0.5 ms of a ``record_function``
+    range around the same code; without a profiler there is no anchor."""
+    import time
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    assert TraceRecorder().anchor is None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec = TraceRecorder()
+        with record_function("probe"):
+            with rec.span("tick/m", "probe"):
+                time.sleep(0.003)
+        rec.clear()                       # a new clock, a new anchor
+        with record_function("probe2"):
+            with rec.span("tick/m", "probe2"):
+                time.sleep(0.002)
+    assert rec.anchor is not None
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        ranges.setdefault(e.name(), []).append(
+            (e.start_ns(), e.start_ns() + e.duration_ns()))
+    clocks = sorted(ranges[TraceRecorder.CLOCK_RANGE])
+    assert len(clocks) == 2
+    (ev,) = rec.events
+    a, b = ranges["probe2"][0]
+    start = rec.profiler_ns(ev["ts"], clocks[1][0])
+    end = rec.profiler_ns(ev["ts"] + ev["dur"], clocks[1][0])
+    assert abs(start - a) < 5e5 and abs(end - b) < 5e5, (start - a, end - b)
+    other = rec.to_chrome_trace()["otherData"]
+    assert other["t0"] == rec.t0 and other["clock_anchor"] == rec.anchor
