@@ -17,7 +17,7 @@ NVIDIA GPU. Run from the repository root:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` and runs fourteen phases, each printing one JSON line:
 
-  (a) kernels vs plain: each of the seven hand-written kernels against its
+  (a) kernels vs plain: each of the eight hand-written kernels against its
       plain PyTorch version on the card, at the serving path's head shapes
       (olmo-1b: 16 heads of 128; qwen2-0.5b: 14 query / 2 KV heads of 64;
       mamba2-1.3b's SSD: 64 heads, P 64, N 128, chunk 128), in float32
@@ -42,7 +42,11 @@ with ``nvcc`` and runs fourteen phases, each printing one JSON line:
       causal), olmo-1b's (4 x 2048 causal), a ragged S 1000, a window
       of 512, whisper's cross shape (8 x 224 queries over 1536 keys)
       and zamba2-7b's shared attention (32 heads of 112, 4 x 2048
-      causal), plus short ragged edges (one at D 112); times every
+      causal), plus short ragged edges (one at D 112); the SSD decode
+      update ``ssd_decode`` (#8, the port's own: the JAX package has no
+      kernel for it) at mamba2-1.3b's 128 slots of 64 heads (N 128) and
+      zamba2-7b's 8 slots of 112 heads (N 64), out of place and in place
+      under a random mask whose masked-off rows keep every bit; times every
       case's kernel, plain
       version and, where one PyTorch call computes the same function, that
       call (``scaled_dot_product_attention``, a yardstick the port never
@@ -304,7 +308,8 @@ WHISPER_CASES = {
     "decode_attention": {"cross": dict(c=1536, lengths=(1536,) * 8)}}
 KERNEL_NAMES = ("paged_decode_attention", "segment_flash_attention",
                 "paged_chunk_attention", "decode_attention",
-                "flash_attention", "ssd_scan", "flash_attention_bwd")
+                "flash_attention", "ssd_scan", "flash_attention_bwd",
+                "ssd_decode")
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
 # the SSD scan in float32: max |kernel - plain| <= this * max(1, max |plain|)
 # (its chunk sums reassociate terms as large as the output)
@@ -316,6 +321,12 @@ HYBRID_F32_TOL = 1e-3
 # the SSD heads (H, P, N, chunk) of mamba2-1.3b and of zamba2-7b
 SSD_HEADS = {"mamba2-1.3b": (64, 64, 128, 128),
              "zamba2-7b": (112, 64, 64, 128)}
+# the SSD decode update (B, H, N, P) at mamba2-1.3b's benchmark cell (128
+# slots) and zamba2-7b's (l3) decode step (8 slots); its state within
+# this much of its scale against the plain step (one fused rounding)
+SSD_DECODE_SHAPES = {"mamba2-1.3b": (128, 64, 128, 64),
+                     "zamba2-7b": (8, 112, 64, 64)}
+SSD_DECODE_STATE_TOL = 1e-5
 # zamba2-7b's shared attention: #1, #2, #4 and #5 at 32 heads of 112 (#1
 # also at its split edges)
 ZAMBA_HEADS = (32, 32, 112)
@@ -330,7 +341,8 @@ PORT_SYMBOLS = {
     "flash_attention": ("flash_kernel", "flash_tc_kernel"),
     "ssd_scan": ("ssd_kernel", "ssd_tc_kernel"),
     "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel",
-                            "dkdv_tc_kernel", "dq_tc_kernel")}
+                            "dkdv_tc_kernel", "dq_tc_kernel"),
+    "ssd_decode": ("ssd_decode_kernel",)}
 # the bf16 kernels that must run on the tensor cores (wgmma: HGMMA in their
 # SASS): library -> (name fragment, instantiations): #2 and #5 at D 64,
 # 128 and 112 (#5 with and without its lse store), #3 at D 64 and 128, #6
@@ -793,6 +805,19 @@ def phase_a(torch, timing_model: str = "olmo-1b"):
         else:
             summary["ssd_scan"].setdefault("cases", {})[f"{model} main"] = {
                 "heads": SSD_HEADS[model], **timed}
+    for model in SSD_DECODE_SHAPES:
+        dec_rows, timed = _ssd_decode_cases(torch, gen, dev, flush, model)
+        rows += dec_rows
+        if model == "mamba2-1.3b":
+            summary["ssd_decode"] = {
+                "name": "ssd_decode", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssd_decode.cu",
+                "replaces": "none: the JAX package's decode update is "
+                            "plain jnp (ref.ssd_decode_ref)", **timed}
+        else:
+            summary["ssd_decode"].setdefault("cases", {})[
+                f"{model} main"] = {"shape": SSD_DECODE_SHAPES[model],
+                                    **timed}
     bwd_rows, summary["flash_attention_bwd"] = _bwd_cases(torch, gen, dev,
                                                           flush)
     rows += bwd_rows
@@ -982,6 +1007,80 @@ def _ssd_bound(b, lens, h, p, n, cl, dname):
     return _bound_ms(nbytes, flops, dname)
 
 
+def _ssd_decode_cases(torch, gen, dev, flush, model):
+    """The SSD decode update against the plain step at ``model``'s shape
+    (``SSD_DECODE_SHAPES``), x, b and c as views of one split row as the
+    block passes them, in float32 and bfloat16: out of place (every row),
+    and in place under a random mask whose masked-off rows must keep
+    every bit. The bfloat16 in-place step over every row is timed beside
+    its bound (the state read and written once) and the plain step.
+    Returns the rows and the timed row's error and times."""
+    from repro_torch.kernels import ssd_scan
+    b, h, n, p = SSD_DECODE_SHAPES[model]
+    rows, summary = [], None
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        whole = torch.randn(b, h * p + 2 * n, generator=gen,
+                            device=dev).to(dtype)
+        xs, bs, cs = torch.split(whole, [h * p, n, n], dim=-1)
+        xs = xs.reshape(b, h, p)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, h, generator=gen, device=dev) - 1.0)
+        a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+        state = torch.randn(b, h, n, p, generator=gen, device=dev)
+        args = (xs, dt, a, bs, cs)
+        py, ps = ssd_scan.ssd_decode_plain(*args, state)
+        ky, ks = ssd_scan.ssd_decode_cuda(*args, state)
+        mask = torch.rand(b, generator=gen, device=dev) < 0.5
+        mask[0], mask[-1] = True, False
+        kept = state.clone()
+        my, ms = ssd_scan.ssd_decode_cuda(*args, state, mask)
+        torch.cuda.synchronize()
+        off = ~mask
+        untouched = bool(torch.equal(state[off].view(torch.int32),
+                                     kept[off].view(torch.int32)))
+        scale = max(1.0, float(ps.abs().max()))
+        s_err = max(float((ks - ps).abs().max()),
+                    float((ms[mask] - ps[mask]).abs().max()))
+        y_err = max(float((ky.float() - py.float()).abs().max()),
+                    float((my[mask].float() - py[mask].float()).abs().max()))
+        ok = (ms is state and untouched and not my[off].any()
+              and s_err <= SSD_DECODE_STATE_TOL * scale)
+        if dname == "float32":
+            ok &= y_err <= SSD_F32_TOL * max(1.0, float(py.abs().max()))
+        else:
+            ok &= bool(torch.allclose(ky.float(), py.float(),
+                                      atol=TOL[dname][0],
+                                      rtol=TOL[dname][1]))
+        row = {"kernel": "ssd_decode", "model": model, "dtype": dname,
+               "shape": "main", "dims": [b, h, n, p],
+               "max_abs_err": y_err, "state_max_abs_err": s_err,
+               "masked_rows_bit_identical": untouched,
+               "plain_max_abs": float(py.float().abs().max()), "ok": ok}
+        del py, ps, ky, ks, my, ms, kept
+        if dname == "bfloat16":
+            every = torch.ones(b, dtype=torch.bool, device=dev)
+            row.update(_timings(
+                lambda: ssd_scan.ssd_decode_cuda(*args, state, every),
+                torch, flush))
+            row["plain_ms"] = _time_ms(
+                lambda: ssd_scan.ssd_decode_plain(*args, state), torch,
+                iters=5)
+            nbytes = (2 * b * h * n * p * 4 + 2 * b * h * p * 2
+                      + 2 * b * n * 2 + b * h * 4 + h * 4)
+            row["bound_ms"], row["bound_by"] = _bound_ms(
+                nbytes, 5.0 * b * h * n * p, "float32")
+            row["library_ms"] = None
+            summary = {"max_abs_err": y_err, "dims": [b, h, n, p],
+                       **{k: row[k] for k in (
+                           "ms", "ms_host_paced", "ms_cold_l2", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}}
+        rows.append(row)
+        _log(json.dumps(row))
+        del whole, xs, bs, cs, state, args
+    return rows, summary
+
+
 def _ssd_cases(torch, gen, dev, flush, model):
     """The SSD scan against its plain version at ``model``'s heads
     (``SSD_HEADS``), in float32 and bfloat16: the main shape (B 8, L
@@ -1140,9 +1239,9 @@ PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
               "paged_chunk_attention")
 RING_PATH = ("segment_flash_attention", "decode_attention")
 GENERATE_PATH = ("flash_attention", "decode_attention")
-SSM_PATH = ("ssd_scan",)
+SSM_PATH = ("ssd_scan", "ssd_decode")
 POOL_PATH = ("paged_decode_attention", "segment_flash_attention",
-             "ssd_scan")
+             "ssd_scan", "ssd_decode")
 # the timed turns of a path on one engine: graphs off, on, on, off
 MODES = ("eager", "graphed", "graphed", "eager")
 
@@ -2901,10 +3000,11 @@ HYBRID_LAYERS = 12
 # admissions and continuations, #1 or #4 for decodes, #6 for every mamba
 # layer of every prefill, never #3
 HYBRID_PAGED_PATH = ("paged_decode_attention", "segment_flash_attention",
-                     "ssd_scan")
+                     "ssd_scan", "ssd_decode")
 HYBRID_RING_PATH = ("segment_flash_attention", "decode_attention",
-                    "ssd_scan")
-HYBRID_GENERATE_PATH = ("flash_attention", "decode_attention", "ssd_scan")
+                    "ssd_scan", "ssd_decode")
+HYBRID_GENERATE_PATH = ("flash_attention", "decode_attention", "ssd_scan",
+                        "ssd_decode")
 POOL_HYBRID_MODELS = POOL_MODELS + (HYBRID,)
 
 

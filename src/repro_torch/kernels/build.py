@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention", "flash_attention", "chunk_attention",
-           "decode_attention", "ssd_scan", "flash_backward")
+           "decode_attention", "ssd_scan", "flash_backward", "ssd_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -51,6 +51,8 @@ SIGNATURES = {
         (_P,) * 8 + (_I,) * 7 + (_P,),
     "flash_attention_bwd":
         (_P,) * 10 + (_I,) * 10 + (_F, _P),
+    "ssd_decode":
+        (_P,) * 9 + (_I,) * 8 + (_P,),
 }
 ENTRY_LIBRARY = {
     "paged_decode_attention": "paged_attention",
@@ -60,6 +62,7 @@ ENTRY_LIBRARY = {
     "flash_attention": "flash_attention",
     "ssd_scan": "ssd_scan",
     "flash_attention_bwd": "flash_backward",
+    "ssd_decode": "ssd_decode",
 }
 
 

@@ -1,4 +1,5 @@
-"""Device dispatch for the attention kernels and the SSD scan.
+"""Device dispatch for the attention kernels, the SSD scan and the SSD
+decode update.
 
 A tensor on a CUDA device goes to the hand-written kernel (which raises on
 what it does not take); a tensor on the CPU goes to the kernel's plain
@@ -34,6 +35,7 @@ _COUNTERS = {
     "flash_attention": (_flash, "flash_launches"),
     "ssd_scan": (_ssd, "launches"),
     "flash_attention_bwd": (_vjp, "bwd_launches"),
+    "ssd_decode": (_ssd, "decode_launches"),
 }
 
 
@@ -172,9 +174,19 @@ def _ssd_shards(x, dt, a, b, c, chunk, initial_state):
             x, dt, a, b, c, initial_state)
 
 
-def ssd_decode(x, dt, a, b, c, state):
+def ssd_decode(x, dt, a, b, c, state, *, mask=None):
     """One-token SSD update. x: (B, H, P); dt: (B, H); b, c: (B, N);
-    state (B, H, N, P) -> (y (B, H, P), new state float32). Elementwise
-    work and a mat-vec: the JAX package has no kernel for it, and this is
-    plain PyTorch on either device."""
-    return _ssd.ssd_decode_plain(x, dt, a, b, c, state)
+    state (B, H, N, P) float32 -> (y (B, H, P) in x's dtype, state).
+    Without ``mask`` it is functional: a fresh state, every row stepped.
+    With ``mask`` (B,) bool (the slot step's) the rows in it advance IN
+    PLACE in ``state``, which is returned; the other rows keep their state
+    bit for bit and get y = 0 (what the slot step's merge kept, with
+    nothing to merge). The JAX package has no kernel for this step: on a
+    GPU it is the port's own (``ssd_scan.ssd_decode_cuda``), elsewhere
+    the plain versions. DTensors (the dry run's sharded decode) take the
+    plain versions on either device."""
+    if sharding.is_dtensor(x) or x.device.type != "cuda":
+        if mask is None:
+            return _ssd.ssd_decode_plain(x, dt, a, b, c, state)
+        return _ssd.ssd_decode_masked_plain(x, dt, a, b, c, state, mask)
+    return _ssd.ssd_decode_cuda(x, dt, a, b, c, state, mask)

@@ -20,9 +20,12 @@ which is exact — the state freezes at the last real row.
   values, with the intra-chunk decay masked before its exp, so that its
   gradients stay finite where the decays overflow above the diagonal;
 * ``ssd_ref_plain`` is the sequential oracle (``ref.ssd_ref``);
-* ``ssd_decode_plain`` is one recurrent step (``ref.ssd_decode_ref``); the
-  JAX package has no kernel for it (elementwise work and a mat-vec), so
-  this is the port's only version;
+* ``ssd_decode_plain`` is one recurrent step (``ref.ssd_decode_ref``),
+  functional; ``ssd_decode_masked_plain`` is the same step in place on the
+  rows of a mask, the others untouched. The JAX package has no kernel for
+  the step (it is XLA elementwise work and a mat-vec); the port's is
+  ``ssd_decode_cuda`` (``csrc/ssd_decode.cu``), which takes both forms:
+  one pass over the state, read and written once;
 * ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``, reading x, dt, b and c
   where they lie (no per-head copies of b and c). bfloat16 runs on the
   tensor cores: a block walks the chunks of one batch row for a group of
@@ -44,9 +47,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-# kernel launches so far; a run resets it to 0 and reads it back to show
-# that its path went through the kernel
+# kernel launches so far (the scan's, the decode update's); a run resets
+# them to 0 and reads them back to show that its path went through the
+# kernels
 launches = 0
+decode_launches = 0
 
 # (N, P) pairs the kernel is built for (mamba2-1.3b's, zamba2-7b's), and
 # the longest chunk it holds on chip (csrc/ssd_scan.cu: kMaxCL)
@@ -134,6 +139,70 @@ def ssd_decode_plain(x, dt, a, b, c, state):
     state = state.float() * decay[..., None, None] + update
     y = torch.einsum("bn,bhnp->bhp", c.float(), state)
     return y.to(x.dtype), state
+
+
+def ssd_decode_masked_plain(x, dt, a, b, c, state, mask):
+    """``ssd_decode_plain`` IN PLACE on the rows in ``mask`` (B,) bool:
+    ``state`` (B, H, N, P) float32 advances there, keeps its other rows
+    bit for bit, and is returned; y is 0 on the other rows. The plain
+    version of the kernel's masked form."""
+    y, new = ssd_decode_plain(x, dt, a, b, c, state)
+    state.copy_(torch.where(mask[:, None, None, None], new, state))
+    return torch.where(mask[:, None, None], y, torch.zeros_like(y)), state
+
+
+def ssd_decode_cuda(x, dt, a, b, c, state, mask=None):
+    """Launch the decode update's kernel. x: (B, H, P) and b, c: (B, N) in
+    one dtype (float32 or bfloat16), each row's values contiguous (views
+    with a row stride are read where they lie); dt: (B, H) and a: (H,)
+    float32; state (B, H, N, P) float32, contiguous. Without ``mask`` every
+    row steps into a fresh state; with ``mask`` (B,) bool the rows in it
+    step IN PLACE in ``state``, the others are neither read nor written
+    and get y = 0. Returns (y (B, H, P) in x's dtype, the new state).
+    (N, P) must be one of ``BUILT_SHAPES``."""
+    global decode_launches
+    bs, h, p = x.shape
+    n = b.shape[-1]
+    operands = dict(state=state, dt=dt, a=a)
+    if mask is not None:
+        operands["mask"] = mask
+    build.check_operands("ssd_decode", None, **operands)
+    build.check_no_grad("ssd_decode", x=x, b=b, c=c)
+    if any(t.device != state.device for t in (x, b, c)):
+        raise ValueError("ssd_decode: operands must share one CUDA device")
+    if (tuple(state.shape) != (bs, h, n, p) or tuple(dt.shape) != (bs, h)
+            or tuple(a.shape) != (h,) or tuple(b.shape) != (bs, n)
+            or c.shape != b.shape):
+        raise ValueError(f"bad shapes: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)}, state "
+                         f"{tuple(state.shape)}")
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (bs,)):
+        raise ValueError(f"ssd_decode: mask must be ({bs},) bool, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    if (n, p) not in BUILT_SHAPES:
+        raise ValueError(f"ssd_decode: (N, P) = {(n, p)} not built "
+                         f"{BUILT_SHAPES}")
+    if b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError("x, b and c must share one dtype")
+    if any(t.dtype != torch.float32 for t in (state, dt, a)):
+        raise ValueError("state, dt and a must be float32")
+    if x.stride()[1:] != (p, 1) or b.stride(-1) != 1 or c.stride(-1) != 1:
+        raise ValueError("ssd_decode: each row of x, b and c must be "
+                         "contiguous")
+    build.check_aligned("ssd_decode", state=state)   # 16-byte loads
+    y = torch.empty((bs, h, p), dtype=x.dtype, device=x.device)
+    out = state if mask is not None else torch.empty_like(state)
+    fn = build.function("ssd_decode")
+    err = fn(y.data_ptr(), out.data_ptr(), state.data_ptr(), x.data_ptr(),
+             dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+             0 if mask is None else mask.data_ptr(), bs, h, p, n,
+             x.stride(0), b.stride(0), c.stride(0),
+             build.dtype_code(x.dtype), build.stream_of(x))
+    build.check(err, "ssd_decode")
+    decode_launches += 1
+    return y, out
 
 
 def ssd_scan_cuda(x, dt, a, b, c, chunk: int, initial_state=None):

@@ -267,9 +267,13 @@ def prefill_packed(params, cfg, packed, max_seg_len: int):
         "attn_k": kc, "attn_v": vc, "pos": seg_lens.to(torch.int32)}
 
 
-def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
+def decode_step(params, cfg, token, cache, mask=None
+                ) -> Tuple[torch.Tensor, dict]:
     """token: (B,) int; one step. Every mamba layer advances its state and
-    conv window (fresh tensors); each invocation of the shared block
+    conv window (fresh tensors; with the slot step's ``mask`` (B,) bool the
+    state advances IN PLACE in ``cache["ssm"]`` on the masked rows, which
+    is returned as it is, and the other rows' logits are not meaningful,
+    as in ``ssm.decode_step``); each invocation of the shared block
     writes the step's K/V IN PLACE at index j of ``attn_k``/``attn_v`` —
     at ring row ``pos % C`` or at (block_tables[b, pos // page_size],
     pos % page_size) — and attends the row's valid keys there. Returns
@@ -292,7 +296,7 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
     for i in range(cfg.num_layers):
         x, (state, conv) = ssm.mamba_block_decode(
             L.layer_params(params["layers"], i), cfg, x, cache["ssm"][i],
-            cache["conv"][i])
+            cache["conv"][i], mask)
         states.append(state)
         convs.append(conv)
         j = _invocation(cfg, i)
@@ -303,6 +307,7 @@ def decode_step(params, cfg, token, cache) -> Tuple[torch.Tensor, dict]:
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, L.carry_cache_meta(
-        {"ssm": torch.stack(states), "conv": torch.stack(convs),
+        {"ssm": cache["ssm"] if mask is not None else torch.stack(states),
+         "conv": torch.stack(convs),
          "attn_k": cache["attn_k"], "attn_v": cache["attn_v"],
          "pos": pos + 1}, cache)

@@ -6,10 +6,18 @@ on architecture:
   prefill(params, batch, cache_len)              -> (last logits (B, V), cache)
   prefill_packed(params, packed, row_len)        -> (seg_logits, packed cache)
   prefill_chunk(params, packed, cache, row_len)  -> (seg_logits, argmax, cache)
-  decode_step(params, token (B,), cache)         -> (logits (B, V), cache)
+  decode_step(params, token (B,), cache, mask=None)
+                                                 -> (logits (B, V), cache)
   prepare(params)                                -> params (what an engine
                                                     keeps: derived weights
                                                     made once)
+
+``decode_step``'s ``mask`` (B,) bool is the slot step's: a family with
+per-slot recurrent state (Mamba2, the hybrid) then advances that state
+IN PLACE on the masked rows and returns the cache's own tensor, leaving
+the other rows untouched; the other families take no mask and step as
+without it. Without a mask every family is functional, as in the JAX
+package.
 
 ``forward`` is differentiable for every family: ``repro_torch.training``
 trains through it, ``remat`` running each layer under activation
@@ -40,6 +48,7 @@ mesh (``utils.sharding``); ``abstract_params``, ``abstract_cache`` and
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -172,6 +181,13 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
 
     # an encoder model's batches also carry the frame embeddings
     extra = ("enc_embeds",) if cfg.has_encoder else ()
+    masked = "mask" in inspect.signature(mod.decode_step).parameters
+
+    def decode_step(params, token, cache, mask=None):
+        if mask is None or not masked:
+            return mod.decode_step(params, cfg, token, cache)
+        return mod.decode_step(params, cfg, token, cache, mask=mask)
+
     return ModelAPI(
         cfg=cfg,
         device=dev,
@@ -185,8 +201,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
             *[batch[k] for k in extra]),
         prefill_packed=lambda params, packed, row_len: mod.prefill_packed(
             params, cfg, packed, row_len),
-        decode_step=lambda params, token, cache: mod.decode_step(
-            params, cfg, token, cache),
+        decode_step=decode_step,
         init_cache=init_cache,
         paged_keys=tuple(mod.PAGED_KEYS),
         init_paged_cache=init_paged,

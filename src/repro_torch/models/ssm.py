@@ -8,7 +8,8 @@ block plumbing: gated in-projection, a shared causal depthwise conv over
 The scan goes through ``repro_torch.kernels.ops.ssd``: the hand-written
 CUDA kernel for tensors on a GPU, the JAX CPU path's chunked arithmetic
 for tensors on the CPU. A decode step is the recurrent update
-(``ops.ssd_decode``), elementwise work and a mat-vec in plain PyTorch.
+(``ops.ssd_decode``): the port's own CUDA kernel on a GPU (the JAX
+package has none), the plain update on the CPU.
 
 Parameters are the JAX package's dictionary layout (every ``layers`` leaf
 stacked on a leading layer axis); layers run as a Python loop over that
@@ -19,7 +20,10 @@ step; a block without it derives them itself, by the same function, so
 the values are the same bit for bit. The cache is per sequence and O(1) in its length: ``ssm`` (layers,
 B, H, N, P) float32, ``conv`` (layers, B, W-1, d_inner + 2N) raw
 (pre-conv) inputs, ``pos`` (B,) int32 — nothing to page. Every entry
-point returns fresh cache tensors.
+point returns fresh cache tensors, except ``decode_step`` given the slot
+step's ``mask``: it advances ``ssm`` IN PLACE on the masked rows and
+returns the cache's own tensor (the JAX package rebuilds it and merges
+the rows back).
 """
 from __future__ import annotations
 
@@ -186,10 +190,13 @@ def mamba_block(lp, cfg, h) -> Tuple[torch.Tensor, Tuple]:
     return h + out, (state, conv_tail)
 
 
-def mamba_block_decode(lp, cfg, h, ssm_state, conv_buf
+def mamba_block_decode(lp, cfg, h, ssm_state, conv_buf, mask=None
                        ) -> Tuple[torch.Tensor, Tuple]:
     """Single-token recurrent step. h: (B, d); ssm_state (B, H, N, P);
-    conv_buf (B, W-1, di + 2N) raw (pre-conv) inputs."""
+    conv_buf (B, W-1, di + 2N) raw (pre-conv) inputs. With ``mask`` (B,)
+    bool, ``ssm_state`` advances in place on the masked rows only and is
+    the state returned (``ops.ssd_decode``); the other rows' outputs are
+    not meaningful."""
     b, _ = h.shape
     di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     prep = _prep(lp, h.dtype)
@@ -203,7 +210,8 @@ def mamba_block_decode(lp, cfg, h, ssm_state, conv_buf
     xr, bc, cc = torch.split(xbc, [di, n, n], dim=-1)
 
     x4 = xr.reshape(b, nh, p)
-    y, state = ops.ssd_decode(x4, dt, prep["a"], bc, cc, ssm_state)
+    y, state = ops.ssd_decode(x4, dt, prep["a"], bc, cc, ssm_state,
+                              mask=mask)
     y = y + x4 * lp["D"].to(y.dtype)[None, :, None]
     out = _gate_out(lp, prep, y.reshape(b, di), z, h.dtype)
     return h + out, (state, window[:, 1:, :])
@@ -360,20 +368,25 @@ def prefill_packed(params, cfg, packed, max_seg_len: int):
         "pos": seg_lens.to(torch.int32)}
 
 
-def decode_step(params, cfg, token, cache):
+def decode_step(params, cfg, token, cache, mask=None):
     """token: (B,) int; one recurrent step. Returns (logits (B, V), a NEW
-    cache: every layer's state and conv window advanced, ``pos`` + 1)."""
+    cache: every layer's state and conv window advanced, ``pos`` + 1).
+    With ``mask`` (B,) bool (the slot step's), each layer's state advances
+    IN PLACE in ``cache["ssm"]`` on the masked rows, and the returned
+    cache holds that same ``ssm`` tensor; logits of the other rows are not
+    meaningful."""
     dtype = dtype_of(cfg.dtype)
     x = L.embed_tokens(params["embed"], token, dtype)      # (B, d)
     states, convs = [], []
     for i in range(cfg.num_layers):
         x, (state, conv) = mamba_block_decode(
             L.layer_params(params["layers"], i), cfg, x, cache["ssm"][i],
-            cache["conv"][i])
+            cache["conv"][i], mask)
         states.append(state)
         convs.append(conv)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = L.unembed(params["embed"], x, cfg)
     pos = cache["pos"].to(torch.int32)
-    return logits, {"ssm": torch.stack(states), "conv": torch.stack(convs),
+    ssm_out = cache["ssm"] if mask is not None else torch.stack(states)
+    return logits, {"ssm": ssm_out, "conv": torch.stack(convs),
                     "pos": pos + 1}

@@ -1704,7 +1704,9 @@ def _merge_rows(new, cache, mask, skip) -> None:
     writes there land at a not-yet-valid position or on the null page (a
     ring step restores them)."""
     for key, leaf in cache.items():
-        if key in skip or new[key] is leaf:   # read only (cross K/V)
+        # the leaf itself: read only (cross K/V) or stepped in place on
+        # the masked rows (an SSM state)
+        if key in skip or new[key] is leaf:
             continue
         axis = 0 if leaf.dim() == 1 else 1
         shape = [1] * leaf.dim()
@@ -1723,14 +1725,17 @@ def _slot_decode_step(api, skip, ring_keys, params, tok, cache, mask,
     position and pending token and, on a ring, the cache entry the step
     overwrote in place (ring row ``pos % C`` of each ``ring_keys`` leaf),
     so their rows stay bit-identical as the JAX engine's merge keeps
-    them. Returns the step's logits."""
+    them. The step gets ``mask``: a family with per-slot recurrent state
+    advances it in place on the masked rows and returns the cache's own
+    leaf, which the merge then skips. Returns the step's logits (rows
+    outside ``mask``: not meaningful)."""
     held = {}
     if ring_keys:
         c = cache[ring_keys[0]].shape[2]
         bidx = torch.arange(mask.shape[0], device=mask.device)
         at = (cache["pos"] % c).long()
         held = {key: cache[key][:, bidx, at] for key in ring_keys}
-    logits, new = api.decode_step(params, tok, cache)
+    logits, new = api.decode_step(params, tok, cache, mask=mask)
     for key, old in held.items():
         leaf = new[key]
         leaf[:, bidx, at] = torch.where(mask[None, :, None, None],

@@ -653,6 +653,100 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         SSD.ssd_scan_cuda(x, dt.bfloat16(), a, bb, cc, 128)
 
 
+# the decode update's kernel (csrc/ssd_decode.cu) against the plain
+# step: the state within 1e-5 of its scale (max |plain|, at least 1; the
+# kernel fuses s * decay + update into one rounding), y within 1e-4 of its
+# scale in float32 (its sum over N runs in another order) and within
+# bfloat16's TOL in bfloat16
+SSD_DECODE_STATE_TOL = 1e-5
+
+
+def _ssd_decode_inputs(gen, dev, dtype, b, h, n, p=64):
+    x, dt, a, bb, cc = _ssd_inputs(gen, dev, dtype, b, 1, h, n=n, p=p)
+    state = torch.randn(b, h, n, p, generator=gen, device=dev)
+    return x[:, 0], dt[:, 0].contiguous(), a, bb[:, 0], cc[:, 0], state
+
+
+@pytest.mark.parametrize("in_place", [True, False],
+                         ids=["in_place", "out_of_place"])
+@pytest.mark.parametrize("h", [64, 112])
+@pytest.mark.parametrize("n", [128, 64])           # mamba2-1.3b, zamba2-7b
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_decode_kernel_matches_plain(cuda, dtype, n, h, in_place):
+    """Every row stepped: in place (a mask of all rows, the state tensor
+    returned) or out of place (a fresh state, the input untouched)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + h)
+    x, dt, a, bb, cc, state = _ssd_decode_inputs(gen, cuda, dtype, 8, h, n)
+    wy, ws = SSD.ssd_decode_plain(x, dt, a, bb, cc, state)
+    keep = state.clone()
+    before = SSD.decode_launches
+    mask = torch.ones(8, dtype=torch.bool, device=cuda) if in_place else None
+    y, out = SSD.ssd_decode_cuda(x, dt, a, bb, cc, state, mask)
+    torch.cuda.synchronize()
+    assert SSD.decode_launches == before + 1
+    assert (out is state) == in_place
+    if not in_place:
+        assert torch.equal(state, keep)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert _close_to_max(out, ws, SSD_DECODE_STATE_TOL)
+    _ssd_close(y, wy, dtype)
+
+
+@pytest.mark.parametrize("n", [128, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_decode_kernel_leaves_masked_off_rows_bit_identical(cuda, dtype,
+                                                                n):
+    """In place under a random mask, from views of one split row (as the
+    block passes x, b and c): the masked-off rows, planted with sentinels
+    (NaN, inf, huge), keep every bit; the stepped rows match the plain
+    step; the masked-off rows' y is 0."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, h, p = 16, 64, 64
+    x, dt, a, bb, cc, state = _ssd_decode_inputs(gen, cuda, dtype, b, h, n)
+    whole = torch.cat([x.reshape(b, h * p), bb, cc], dim=-1)
+    xs, bs, cs = torch.split(whole, [h * p, n, n], dim=-1)
+    xs = xs.reshape(b, h, p)
+    mask = torch.rand(b, generator=gen, device=cuda) < 0.5
+    mask[0], mask[1] = True, False
+    sentinel = torch.tensor([float("nan"), float("inf"), -3e38, 1.0],
+                            device=cuda)
+    off = ~mask
+    state[off] = sentinel.repeat(state[off].numel() // 4).reshape(
+        state[off].shape)
+    keep = state.clone()
+    wy, ws = SSD.ssd_decode_plain(x, dt, a, bb, cc, keep)
+    y, out = SSD.ssd_decode_cuda(xs, dt, a, bs, cs, state, mask)
+    torch.cuda.synchronize()
+    assert out is state
+    assert torch.equal(state[off].view(torch.int32),
+                       keep[off].view(torch.int32))
+    assert _close_to_max(state[mask], ws[mask], SSD_DECODE_STATE_TOL)
+    _ssd_close(y[mask], wy[mask], dtype)
+    assert not y[off].any()
+
+
+def test_ssd_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, a, bb, cc, state = _ssd_decode_inputs(gen, cuda, "float32", 4,
+                                                 2, 32)
+    with pytest.raises(ValueError, match="not built"):
+        SSD.ssd_decode_cuda(x, dt, a, bb, cc, state)
+    x, dt, a, bb, cc, state = _ssd_decode_inputs(gen, cuda, "float32", 4,
+                                                 2, 128)
+    with pytest.raises(ValueError, match="float32"):
+        SSD.ssd_decode_cuda(x, dt, a, bb, cc, state.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        SSD.ssd_decode_cuda(x, dt, a, bb, cc,
+                            state.transpose(0, 1).contiguous().transpose(0,
+                                                                         1))
+    for mask in (torch.ones(3, dtype=torch.bool, device=cuda),
+                 torch.ones(4, dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="mask"):
+            SSD.ssd_decode_cuda(x, dt, a, bb, cc, state, mask)
+    with pytest.raises(ValueError, match="one dtype"):
+        SSD.ssd_decode_cuda(x, dt, a, bb.bfloat16(), cc, state)
+
+
 def _ssm_cfg():
     """mamba2-1.3b reduced to 2 layers and d_model 256, with the full
     model's SSD heads (N 128, P 64), the shapes the kernel is built for."""
@@ -738,6 +832,52 @@ def test_gpu_ssm_serving_and_generate_match_cpu(cuda):
     assert torch.equal(got, cpu.generate({"tokens": tokens}, 12))
 
 
+@pytest.mark.parametrize("model", ["mamba2-1.3b", "zamba2-7b"])
+def test_ssm_slot_steps_graphed_and_eager_match_cpu(cuda, model):
+    """Slot steps of the Mamba2 and hybrid families, float32: a graphed
+    engine, an eager one and the CPU's plain run give the same streams,
+    and on the card every mamba layer of every slot step launched the
+    decode update's kernel (in place under the step's mask), graphed
+    replays counted as the eager run's launches."""
+    cfg = _ssm_cfg() if model == "mamba2-1.3b" else _hybrid_cfg()
+    engines = [make_engine(cfg, seed=3, cache_len=256, device=cuda,
+                           graphs=graphs).init_slots(4, page_size=16)
+               for graphs in (True, False)]
+    cpu = make_engine(cfg, cache_len=256, device="cpu").init_slots(
+        4, page_size=16)
+    cpu.params = _cpu(engines[0].params)
+    engines[1].params = engines[0].params
+    rng = np.random.default_rng(2)
+    spec = [(i, int(rng.integers(3, 200)), int(rng.integers(2, 10)))
+            for i in range(6)]
+    prompts = {i: rng.integers(1, cfg.vocab_size, (1, p)).astype(np.int32)
+               for i, p, _ in spec}
+
+    def serve(eng):
+        reqs = [Request(arrival=0.0, rid=i, model=cfg.name, slo=1e9,
+                        n_tokens=nt, prompt_len=p) for i, p, nt in spec]
+        planner = StepPlanner(eng, RequestQueue(cfg.name, slo=1e9),
+                              PlannerConfig(chunk_tokens=64))
+        srv = serve_ticks(planner, reqs,
+                          lambda r: {"tokens": prompts[r.rid]})
+        assert not srv.truncated
+        return planner.streams
+
+    want = serve(cpu)
+    serve(engines[0])                                  # captures
+    counts = []
+    for eng in engines:
+        eng.release_all_slots()
+        eng.reset_stats()
+        ops.reset_launch_counts()
+        assert serve(eng) == want
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        assert counts[-1]["ssd_decode"] == \
+            cfg.num_layers * eng.stats.decode_steps > 0, counts[-1]
+    assert counts[0] == counts[1]
+
+
 # --------------------------------------------------------------------------
 # CUDA graphs: the graphed engine against the eager one
 # --------------------------------------------------------------------------
@@ -750,10 +890,11 @@ GRAPH_PATHS = {
                  "paged_chunk_attention"}),
     "ring": ("olmo-1b", 4, False, 16,
              {"segment_flash_attention", "decode_attention"}),
-    "ssm": ("mamba2-1.3b", 4, True, 64, {"ssd_scan"}),
+    "ssm": ("mamba2-1.3b", 4, True, 64, {"ssd_scan", "ssd_decode"}),
     "generate": ("qwen2-0.5b", None, False, 0,
                  {"flash_attention", "decode_attention"}),
-    "ssm_generate": ("mamba2-1.3b", None, False, 0, {"ssd_scan"}),
+    "ssm_generate": ("mamba2-1.3b", None, False, 0,
+                     {"ssd_scan", "ssd_decode"}),
 }
 
 

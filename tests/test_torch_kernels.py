@@ -690,6 +690,68 @@ def test_ssd_decode_stepped_over_l_equals_the_oracle():
     _close_at_scale(s1.numpy(), js)
 
 
+# (B, H, P, N, stepped rows): some rows, none, all; N and P at the
+# reduced and at the card's shapes
+SSD_DECODE_MASKS = [
+    (4, 3, 16, 8, (1, 0, 1, 1)),
+    (3, 2, 64, 128, (0, 0, 0)),
+    (2, 4, 64, 64, (1, 1)),
+    (5, 2, 32, 16, (0, 1, 0, 0, 1)),
+]
+
+
+@pytest.mark.parametrize("b,h,p,n,stepped", SSD_DECODE_MASKS)
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "split"])
+def test_ssd_decode_masked_plain_steps_only_the_masked_rows_in_place(
+        b, h, p, n, stepped, strided):
+    """The masked form advances ``state`` in place: the stepped rows hold
+    what the functional step gives (and JAX's ``ssd_decode_ref``), the
+    other rows keep their state bit for bit and get y = 0; the same tensor
+    comes back. ``ops.ssd_decode(mask=)`` takes it on the CPU, launching
+    nothing. ``split``: x, b and c as views of one (B, H·P + 2N) row, as
+    the block's split of the conv output gives them."""
+    x, dt, a, bb, cc = (v[:, 0] if v.ndim > 1 else v
+                        for v in _ssd_case(20 + b, b, 1, h, p, n))
+    if strided:
+        rows = np.concatenate([x.reshape(b, h * p), bb, cc], axis=1)
+        whole = _t(rows)
+        xt, bt, ct = torch.split(whole, [h * p, n, n], dim=-1)
+        xt = xt.reshape(b, h, p)
+        assert not xt.is_contiguous() and not bt.is_contiguous()
+    else:
+        xt, bt, ct = _t(x), _t(bb), _t(cc)
+    s0 = np.random.default_rng(b).standard_normal((b, h, n, p), np.float32)
+    state = _t(s0.copy())
+    mask = torch.tensor(stepped, dtype=torch.bool)
+    wy, ws = SSD.ssd_decode_plain(xt, _t(dt), _t(a), bt, ct, _t(s0))
+    before = ops.launch_counts()
+    y, out = ops.ssd_decode(xt, _t(dt), _t(a), bt, ct, state, mask=mask)
+    assert ops.launch_counts() == before
+    assert out is state
+    assert torch.equal(state[mask], ws[mask])
+    assert torch.equal(state[~mask], _t(s0)[~mask])
+    assert torch.equal(y[mask], wy[mask])
+    assert not y[~mask].any()
+    jy, js = jax_ref.ssd_decode_ref(*map(jnp.asarray, (x, dt, a, bb, cc)),
+                                    jnp.asarray(s0))
+    on = mask.numpy()
+    if on.any():
+        _close_at_scale(y.numpy()[on], np.asarray(jy)[on])
+        _close_at_scale(state.numpy()[on], np.asarray(js)[on])
+
+
+def test_ssd_decode_without_a_mask_is_functional():
+    """No mask: a fresh state, every row stepped, the input untouched."""
+    x, dt, a, bb, cc = (_t(v[:, 0]) if v.ndim > 1 else _t(v)
+                        for v in _ssd_case(30, 3, 1, 2, 16, 8))
+    state = torch.randn(3, 2, 8, 16)
+    keep = state.clone()
+    y, new = ops.ssd_decode(x, dt, a, bb, cc, state)
+    wy, ws = SSD.ssd_decode_plain(x, dt, a, bb, cc, keep)
+    assert new is not state and torch.equal(state, keep)
+    assert torch.equal(new, ws) and torch.equal(y, wy)
+
+
 # The bf16 kernel's number scheme (csrc/ssd_scan.cu, ssd_tc_kernel): x, b
 # and c are exact bf16 inputs and stay one side of their products; the side
 # formed in float32 — G ∘ L ∘ dt, b·dt·w and the carried state S — enters

@@ -471,6 +471,43 @@ def test_ssm_prefill_then_decode_continues_forward(pair):
     assert cache["pos"].tolist() == [40, 40]
 
 
+@pytest.mark.parametrize("stepped", [(1, 0, 1), (0, 0, 0), (1, 1, 1)])
+@pytest.mark.parametrize("name", [SSM, "zamba2-7b"])
+def test_masked_decode_step_advances_the_state_in_place(name, stepped):
+    """``decode_step(..., mask=)`` of the Mamba2 and hybrid families (the
+    slot step's form) returns the cache's own ``ssm`` tensor, advanced on
+    the masked rows; after the engine's merge of the other leaves the
+    cache equals the functional ``decode_step`` followed by the merge, bit
+    for bit, and so do the stepped rows' logits."""
+    from repro_torch.serving.engine import _merge_rows
+    cfg = get_config(name).reduced()
+    api = build_model(cfg, device="cpu")
+    params = api.prepare(api.init(torch.Generator().manual_seed(1)))
+    gen = torch.Generator().manual_seed(2)
+    b = len(stepped)
+    cache = api.init_cache(b, 32)
+    for key in ("ssm", "conv"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=gen))
+    cache["pos"].copy_(torch.tensor([4, 0, 17], dtype=torch.int32))
+    token = torch.tensor([9, 1, 400], dtype=torch.int32)
+    mask = torch.tensor(stepped, dtype=torch.bool)
+    # K/V rows a step writes in place: the engine restores them
+    skip = ("attn_k", "attn_v")
+    want = {k: v.clone() for k, v in cache.items()}
+    wl, new = api.decode_step(params, token, {k: v.clone()
+                                              for k, v in cache.items()})
+    _merge_rows(new, want, mask, skip)
+    got = {k: v.clone() for k, v in cache.items()}
+    leaf = got["ssm"]
+    gl, out = api.decode_step(params, token, got, mask=mask)
+    assert out["ssm"] is leaf
+    _merge_rows(out, got, mask, skip)
+    for key in ("ssm", "conv", "pos"):
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(got["ssm"][:, ~mask], cache["ssm"][:, ~mask])
+    assert torch.equal(gl[mask], wl[mask])
+
+
 def test_ssm_init_params_follow_the_plan():
     cfg = get_config(SSM).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
